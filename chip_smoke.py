@@ -1,0 +1,414 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``joint_vae_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, any failure raising (nonzero exit):
+
+1. require a CUDA card; print ``nvidia-smi`` name and power limit;
+2. build the CUDA kernels from ``joint_vae_tpu_torch/csrc`` (one nvcc per
+   source, all started together) and print the build time;
+3. hold each kernel against its plain PyTorch version at the flagship's
+   shapes and time kernel, plain version, library call and bound:
+   the same-grid conv at its six sites (N=512 features, L*N=8192 decoder)
+   in float32 and bfloat16, the IWAE combine at L=16, N=512, C=100, K=128
+   in both modes plus a ragged C=37, N=137 case;
+4. serve the full-width flagship CVAE (random weights from a numpy seed)
+   through the entry points: ``save_job``, the serve CLI on ``.npy``
+   inputs, ``Scorer`` on 4 batches of 512 at L=16; check that both
+   kernels' launch counters rose on that run, that outputs are finite,
+   and that 8 inputs with injected noise agree between the card and the
+   CPU (where the plain versions run); profile one batch by kernel;
+5. print one JSON line ``{"kernels": [...]}``;
+6. print ``{"ok": true, "device": {...}}`` as the last line.
+
+Tolerances, all elementwise.  Conv, |kernel - plain| <= tol (|plain| +
+rms(plain)): float32 tol 1e-4 (sums of up to 1,600 products in another
+order), bfloat16 1.6e-2 (two bf16 ulps: both round the float32 sum to
+bf16).  IWAE, elementwise
+|kernel - plain| <= 1e-4 + 1e-6 |plain|, on inputs whose log-weights
+spread over l so that the sum term (mean-exp or log-mean-exp, at least
+1/L) carries the result; the check fails if it does not.  Card vs CPU
+serving, elementwise on every loss and score: |card - cpu| <= 1e-4 +
+2e-6 |cpu| (about 16 float32 ulps; the absolute term covers small
+quantities such as var_kl, differences of per-latent sums over K=128).
+"""
+
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, 'build', 'chip_smoke')
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FLOPS = {torch.float32: 67e12,   # CUDA-core float32 (no tensor cores)
+              torch.bfloat16: 989e12}  # dense bf16 tensor cores
+CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+IWS_RTOL, IWS_ATOL = 1e-6, 1e-4
+IWS_MIN_SPREAD = 0.05
+SERVE_RTOL, SERVE_ATOL = 2e-6, 1e-4
+BATCH, BATCHES = 512, 4
+METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device ms per call over ``reps`` calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def same_grid_sites(model, n_images: int, L: int):
+    """(site, n, h, w, ci, co, k, pad_lo) of every same-grid layer of the
+    model's stacks, at the batch each stack sees on the serving path."""
+    from joint_vae_tpu_torch.models.conv import conv_route
+    sites = []
+    for stack_name, n in (('features_stack', n_images), ('imager', L * n_images)):
+        stack = getattr(model, stack_name)
+        c, h, w = stack.input_shape
+        for i, pl in enumerate(stack.plans):
+            if pl.ltype in ('conv', 'deconv'):
+                route, pads = conv_route(pl, h, w)
+                if route == 'same_grid':
+                    name = '{}.{}_{}'.format(stack_name, pl.ltype, i)
+                    sites.append((name, n, h, w, c, pl.out_channels,
+                                  pl.kernel_size, pads[0]))
+            c, h, w = pl.out_shape
+    return sites
+
+
+def check_conv(sites):
+    import torch.nn.functional as F
+    from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
+                                                        same_grid_conv_plain)
+    g = torch.Generator(device='cuda').manual_seed(1)
+    rows, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
+                       'bound_ms': 0.0, 'max_abs_err': 0.0,
+                       't_bytes': 0.0, 't_ops': 0.0}
+    for (name, n, h, w, ci, co, k, lo) in sites:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.rand((n, h, w, ci), generator=g, device='cuda').to(dt)
+            kern = (torch.randn((k, k, ci, co), generator=g, device='cuda')
+                    / (k * k * ci) ** 0.5).to(dt)
+            y = same_grid_conv(x, kern, lo, lo)
+            ref = same_grid_conv_plain(x, kern, lo, lo)
+            torch.cuda.synchronize()
+            err, rel = rel_err(y, ref)
+            tol = CONV_TOL[dt]
+            torch.testing.assert_close(
+                y.float(), ref.float(), rtol=tol,
+                atol=tol * ref.float().square().mean().sqrt().item(),
+                msg=lambda m: 'same_grid_conv {} {}: {}'.format(name, dt, m))
+            xc, wc = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1)
+            reps = 20 if n * h * w < 2 ** 20 else 5
+            ms = time_ms(lambda: same_grid_conv(x, kern, lo, lo), reps)
+            plain = time_ms(lambda: same_grid_conv_plain(x, kern, lo, lo), 3, 1)
+            lib = time_ms(lambda: F.conv2d(xc, wc, padding=lo), reps)
+            es = x.element_size()
+            nbytes = (x.numel() + kern.numel() + n * h * w * co) * es
+            flops = 2.0 * n * h * w * k * k * ci * co
+            b, by = bound_ms(nbytes, flops, dt)
+            row = {'site': name, 'dtype': str(dt).split('.')[-1],
+                   'shape': [n, h, w, ci, co, k], 'ms': ms, 'plain_ms': plain,
+                   'library_ms': lib, 'bound_ms': b, 'bound_by': by,
+                   'max_abs_err': err, 'rel_err': rel,
+                   'tflops': flops / ms / 1e9}
+            rows.append(row)
+            print('conv', json.dumps(row), flush=True)
+            if dt == torch.float32:       # the serving path is float32
+                for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
+                    total[key] += row[key]
+                total['max_abs_err'] = max(total['max_abs_err'], err)
+                total['t_bytes'] += nbytes / HBM_BYTES_PER_S * 1e3
+                total['t_ops'] += flops / PEAK_FLOPS[dt] * 1e3
+            del x, kern, y, ref, xc, wc
+            torch.cuda.empty_cache()
+    return rows, total
+
+
+def iws_inputs(L: int, N: int, C: int, K: int, g: torch.Generator) -> tuple:
+    """Combine inputs whose log-weights spread by a few units over l, so
+    that the online sum, not the max alone, carries the result: z within
+    0.3 of its class mean (means 0.1 apart per latent), log_pxq of unit
+    noise about -1e3."""
+    mean = 0.1 * torch.randn((C, K), generator=g, device='cuda')
+    y = torch.randint(0, C, (N,), generator=g, device='cuda')
+    z = (mean[y][None] + 0.3 * torch.randn((L, N, K), generator=g,
+                                           device='cuda')).contiguous()
+    lp = -1e3 + torch.randn((L, N), generator=g, device='cuda')
+    vp = 0.5 + torch.rand((C,), generator=g, device='cuda')
+    return z, lp, mean, vp * vp, -2.0 * K * torch.log(vp)
+
+
+def check_iws():
+    from joint_vae_tpu_torch.ops.iws import (iws_combine, iws_combine_plain,
+                                             iws_log_weights)
+    g = torch.Generator(device='cuda').manual_seed(2)
+    rows, main = [], None
+    for (L, N, C, K) in ((16, 512, 100, 128), (16, 137, 37, 128)):
+        args = iws_inputs(L, N, C, K, g)
+        max_l = torch.amax(iws_log_weights(*args), dim=0)
+        for ref_mode in (True, False):
+            out = iws_combine(*args, ref_mode=ref_mode)
+            ref = iws_combine_plain(*args, ref_mode=ref_mode)
+            torch.cuda.synchronize()
+            # the sum term: mean-exp in [1/L, 1], or log-mean-exp in
+            # [-log L, 0]; a wrong rescale, divisor or dropped sum is off
+            # by a share of it, tens of times the tolerance
+            sum_term = ref - max_l
+            spread = sum_term.std().item()
+            if not spread >= IWS_MIN_SPREAD:
+                raise AssertionError('iws inputs: the sum term spreads by {} '
+                                     '< {}'.format(spread, IWS_MIN_SPREAD))
+            err = (out - ref).abs().max().item()
+            torch.testing.assert_close(
+                out, ref, rtol=IWS_RTOL, atol=IWS_ATOL,
+                msg=lambda m: 'iws_combine {}: {}'.format(
+                    (L, N, C, K, ref_mode), m))
+            ms = time_ms(lambda: iws_combine(*args, ref_mode=ref_mode), 50)
+            plain = time_ms(lambda: iws_combine_plain(*args, ref_mode=ref_mode), 10)
+            nbytes = 4.0 * (sum(a.numel() for a in args) + C * N)
+            flops = 3.0 * L * C * N * K         # (z - m), then an FMA
+            b, by = bound_ms(nbytes, flops, torch.float32)
+            row = {'shape': [L, N, C, K], 'ref_mode': ref_mode, 'ms': ms,
+                   'plain_ms': plain, 'library_ms': None, 'bound_ms': b,
+                   'bound_by': by, 'max_abs_err': err,
+                   'sum_term': [sum_term.min().item(), sum_term.max().item()],
+                   'sum_term_std': spread}
+            rows.append(row)
+            print('iws', json.dumps(row), flush=True)
+            if (L, N, C, K) == (16, 512, 100, 128) and ref_mode:
+                main = row                     # the flagship's mode
+    return rows, main
+
+
+def profile_batch(scorer, x) -> dict:
+    """Device time of one Scorer batch by kernel (torch.profiler), and the
+    device's busy share of the batch's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    scorer(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scorer(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue                # operators: their kernels are listed too
+        dev_us = getattr(ev, 'self_device_time_total',
+                         getattr(ev, 'self_cuda_time_total', 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.key[:60], ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {'wall_ms': wall_ms, 'device_ms': busy,
+            'device_busy_share': busy / wall_ms if wall_ms else None,
+            'top': [{'ms': ms, 'kernel': k, 'calls': c}
+                    for ms, k, c in rows[:12]]}
+
+
+def serve(card: str):
+    """Phase 4: the flagship through save_job, the CLI and Scorer."""
+    from joint_vae_tpu_torch.cli.serve import main as cli_main
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.models.evaluate import evaluate
+    from joint_vae_tpu_torch.ops.iws import iws_combine
+    from joint_vae_tpu_torch.ops.same_grid_conv import same_grid_conv
+    from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
+    from joint_vae_tpu_torch.serve import Scorer
+
+    cfg = flagship_config()
+    job_dir = os.path.join(WORK, 'flagship_job')
+    save_job(new_job(cfg, seed=0, device='cuda'), job_dir)
+    job = load_job(job_dir)                   # default device: the card
+    n_params = sum(p.numel() for p in job.model.parameters())
+    rng = np.random.default_rng(0)
+    xs = rng.uniform(0, 1, (BATCHES + 1, BATCH) + cfg.input_shape).astype(np.float32)
+    npy = os.path.join(WORK, 'inputs.npy')
+    np.save(npy, xs[0, :64])
+    cli_out = os.path.join(WORK, 'cli.jsonl')
+
+    same_grid_conv.launches = 0
+    iws_combine.launches = 0
+    # --- the main path: CLI then Scorer ---
+    t0 = time.perf_counter()
+    rc = cli_main([job_dir, npy, '--batch-size', '64', '--methods', 'iws',
+                   'elbo', '--output', cli_out])
+    cli_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError('serve CLI exited {}'.format(rc))
+    with open(cli_out) as f:
+        lines = [json.loads(s) for s in f]
+    if len(lines) != 65 or not lines[-1].get('summary'):
+        raise AssertionError('serve CLI wrote {} lines'.format(len(lines)))
+    for rec in lines[:-1]:
+        vals = [rec['confidence']] + list(rec['scores'].values())
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError('non-finite CLI record {}'.format(rec))
+
+    calib = Scorer(job, methods=METHODS,
+                   thresholds={m: float('-inf') for m in METHODS})(xs[0])
+    thresholds = {}
+    for m in METHODS:
+        s = calib['scores'][m]
+        thresholds[m] = ((float(np.quantile(s, 0.05)), float(np.quantile(s, 0.95)))
+                         if m.endswith('-2s') else float(np.quantile(s, 0.05)))
+    scorer = Scorer(job, methods=METHODS, thresholds=thresholds)
+    torch.cuda.synchronize()
+    outs, batch_ms = [], []
+    for b in range(BATCHES):        # Scorer returns host arrays: synchronous
+        t0 = time.perf_counter()
+        outs.append(scorer(xs[1 + b]))
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    serve_s = sum(batch_ms) / 1e3
+    launches = {'same_grid_conv': same_grid_conv.launches,
+                'iws_combine': iws_combine.launches}
+    # --- end of the main path ---
+    batches = 1 + 1 + BATCHES                # CLI (64 inputs), calibration, timed
+    if launches['same_grid_conv'] != 6 * batches or launches['iws_combine'] != batches:
+        raise AssertionError('launch counts {} for {} serve batches'.format(
+            launches, batches))
+    for o in outs:
+        for m in METHODS:
+            if o['scores'][m].shape != (BATCH,) or not np.all(np.isfinite(o['scores'][m])):
+                raise AssertionError('bad scores for {}'.format(m))
+        if not (np.all(np.isfinite(o['confidence']))
+                and o['label'].shape == (BATCH,)
+                and np.all((o['label'] >= 0) & (o['label'] < cfg.num_labels))):
+            raise AssertionError('bad labels/confidence')
+    accept = float(np.mean([o['in_distribution'].mean() for o in outs]))
+    img_s = BATCH * BATCHES / serve_s
+    breakdown = profile_batch(scorer, xs[1])
+
+    # --- card vs CPU on 8 inputs with injected noise ---
+    L, K, n8 = cfg.test_latent_sampling, cfg.latent_dim, 8
+    eps = np.random.default_rng(3).standard_normal((L + 1, n8, K)).astype(np.float32)
+    eps[0] = 0.0
+    x8 = xs[1, :n8]
+    cpu_job = load_job(job_dir, device='cpu')
+    res = {}
+    for name, j in (('cuda', job), ('cpu', cpu_job)):
+        out = evaluate(j.model, torch.as_tensor(x8, device=j.device), None,
+                       sigma_state=j.sigma_state, eps=torch.as_tensor(eps),
+                       decode_mean=False)
+        sc = Scorer(j, methods=METHODS, thresholds=thresholds)(
+            x8, eps=torch.as_tensor(eps))
+        res[name] = ({k: v.cpu().numpy() for k, v in out.losses.items()}, sc)
+    worst, checked = {}, []
+    for k, want in res['cpu'][0].items():
+        checked.append(('loss ' + k, res['cuda'][0][k], want))
+    for m in METHODS:
+        checked.append(('score ' + m, res['cuda'][1]['scores'][m],
+                        res['cpu'][1]['scores'][m]))
+    for name, got, want in checked:
+        err = np.abs(got.astype(np.float64) - want)
+        worst[name] = float(np.max(err / np.maximum(np.abs(want), 1e-30)))
+        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL,
+                                   err_msg='card vs CPU, ' + name)
+    iws_cpu = res['cpu'][0]['iws']
+    top2 = np.sort(iws_cpu, axis=0)[-2:]
+    clear = (top2[1] - top2[0]) > 2 * (SERVE_ATOL + SERVE_RTOL * np.abs(top2[1]))
+    if not np.array_equal(res['cpu'][1]['label'][clear],
+                          res['cuda'][1]['label'][clear]):
+        raise AssertionError('card and CPU labels differ')
+    summary = {'params': n_params, 'cli_seconds': cli_s,
+               'serve_images_per_s': img_s, 'batch_ms': batch_ms,
+               'batch': BATCH, 'batches': BATCHES,
+               'L': L, 'accept_rate': accept,
+               'card_vs_cpu_worst_elementwise_rel_err': worst,
+               'card': card, 'profile': breakdown}
+    print('serve', json.dumps(summary), flush=True)
+    return launches, summary
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
+    from joint_vae_tpu_torch.device import set_float32_math
+    from joint_vae_tpu_torch.models.cvnet import CVNet, flagship_config
+    from joint_vae_tpu_torch.ops import cuda_lib
+
+    set_float32_math()
+    card = card_line()
+    print(card, flush=True)
+    print('torch', torch.__version__, 'cuda', torch.version.cuda,
+          torch.cuda.get_device_name(0), flush=True)
+
+    build_s = cuda_lib.build()
+    print('build seconds', round(build_s, 3), flush=True)
+    for name, log in cuda_lib.BUILD_LOG.items():
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line:
+                print('ptxas', name, line.strip())
+
+    cfg = flagship_config()
+    sites = same_grid_sites(CVNet(cfg), BATCH, cfg.test_latent_sampling)
+    conv_rows, conv = check_conv(sites)
+    iws_rows, iws = check_iws()
+    os.makedirs(WORK, exist_ok=True)
+    launches, summary = serve(card)
+
+    kernels = [
+        {'name': 'same_grid_conv', 'route': 'cuda',
+         'source': 'joint_vae_tpu_torch/csrc/same_grid_conv.cu',
+         'replaces': 'joint_vae_tpu/ops/pallas_conv.py:109',
+         'launches': launches['same_grid_conv'],
+         'max_abs_err': conv['max_abs_err'],
+         'ms': conv['ms'], 'kernel_ms': conv['ms'],
+         'plain_ms': conv['plain_ms'], 'bound_ms': conv['bound_ms'],
+         'bound_by': 'bytes' if conv['t_bytes'] >= conv['t_ops'] else 'operations',
+         'library_ms': conv['library_ms'],
+         'per': 'one serve batch: the six float32 sites summed',
+         'sites': conv_rows},
+        {'name': 'iws_combine', 'route': 'cuda',
+         'source': 'joint_vae_tpu_torch/csrc/iws_combine.cu',
+         'replaces': 'joint_vae_tpu/ops/pallas_kernels.py:99',
+         'launches': launches['iws_combine'],
+         'max_abs_err': iws['max_abs_err'],
+         'ms': iws['ms'], 'kernel_ms': iws['ms'],
+         'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
+         'bound_by': iws['bound_by'], 'library_ms': None,
+         'per': 'one serve batch: L=16, N=512, C=100, K=128, reference mode',
+         'cases': iws_rows},
+    ]
+    print(json.dumps({'kernels': kernels, 'serve': summary}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

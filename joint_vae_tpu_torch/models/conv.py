@@ -1,0 +1,411 @@
+"""Conv/deconv stacks built from the reference's string DSL.
+
+Port of ``joint_vae_tpu/models/conv.py`` (grammar: ref
+module/vae_layers/conv.py:20-105 and conv-models.ini):
+
+- layers separated by ``-``; a leading ``[...]`` block sets per-type defaults
+- conv token ``CxK+P:S``: C out-channels, K kernel, P padding, S stride
+- ``M.../A...``: max/avg pooling; ``U:S`` nearest upsampling by S
+- deconv tokens also take ``++P`` output padding; ``!Cx..`` embeds a plain
+  conv inside a deconv (upsampler) stack
+- padding ``*`` means 'same' (K//2) for input-side convs, 0 otherwise
+- named stacks (vgg*, conv32, deconv32, ivgg...) resolve to strings
+
+:class:`ConvStack` keeps the (..., C, H, W) interface and computes NHWC.
+Every stride-1 conv or deconv whose output grid equals its input grid runs
+through :func:`ops.same_grid_conv.same_grid_conv` (the CUDA kernel on the
+card).  The rest is PyTorch: strided convs and stride-1 convs that change
+the grid (``F.conv2d``), stride-2 deconvs and the 1x1 latent expansion
+(``F.conv_transpose2d``), pooling, upsampling and eval-mode BatchNorm.
+Parameters keep the JAX tree names (``conv_3``, ``deconv_1``, ``bn_2``) and
+each layer stores its kernel in the layout its op takes
+(``save_load/from_jax.py`` converts).
+"""
+
+import dataclasses
+import re
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.same_grid_conv import same_grid_conv
+
+FEATURES_ARCHS = {
+    'vgg11': '[x3-Mx2]64-M-128-M-256-256-M-512-512-M-512-512-M-Ax1',
+    'vgg11-a': '[x3-Ax2]64-A-128-A-256-256-A-512-512-A-512-512-A-Ax1',
+    'vgg13': '[x3-Mx2]64-64-M-128-128-M-256-256-M-512-512-M-512-512-M-Ax1',
+    'vgg16': ('[x3-Mx2]64-64-M-128-128-M-256-256-256-M-512-512-512-M-'
+              '512-512-512-M-Ax1'),
+    'vgg19': ('[x3-Mx2]64-64-M-128-128-M-256-256-256-256-M-512-512-512-512-M-'
+              '512-512-512-512-M-Ax1'),
+    'vgg19-a': ('[x3-Ax2]64-64-A-128-128-A-256-256-256-256-A-512-512-512-512-A-'
+                '512-512-512-512-A-Ax1'),
+    'conv32': '[x5+2]32-32:2-64-64:2-200x7+0',
+    'conv32-': '[x3+1]32-32-32-32:2-64-64-64-64:2-200x7+0',
+    'conv32+': '[x5+2]32-32:2-64-64:2-128-128:2-200x3+0',
+}
+
+UPSAMPLER_ARCHS = {
+    'deconv32': '[x5+2]64x8+0-64-64:2++1-32-32:2++1-32-!3x5+2',
+    'deconv32-': '[x3+1]64x8+0-64-64-64-64:2++1-32-32-32-32:2++1-32-!3x5+2',
+    'deconv32+': '[x5+2]128x4+0-128-128:2++1-64-64:2++1-32-32:2++1-32-!3x5+2',
+    'ivgg': '[!x3+1-U:2]U-!128-U-!64-U-!32-U-!3',
+    'ivgg19': ('[!x3+1-U:2]U-!512-!512-!512-!512-U-!512-!512-!512-!512-U-'
+               '!256-!256-!256-!256-U-!128-!128-U-!64-!64-!3'),
+    'ivgg11': '[!x3+1-U:2]U-!512-!512-U-!512-!512-U-!256-!256-U-!128-U-!64-!3',
+}
+
+# One left-to-right field scan over a layer token: a marked field ('++O'
+# output padding, 'xK' kernel, '+P' padding, ':S' stride, '^C' channels,
+# '!C' plain-conv-in-deconv) or a bare digit run (channels when it opens
+# the token).  '*' or an empty value keeps the running default.
+_FIELD_RX = re.compile(r'(\+\+|[x^+:!])([\d*]*)|(\d+)')
+_FIELD_OF = {'x': 'kernel_size', '^': 'out_channels', '+': 'padding',
+             ':': 'stride', '++': 'output_padding', '!': 'conv_in_deconv'}
+_PREFIX_LTYPE = {'a': 'apooling', 'm': 'mpooling', 'u': 'upsampler'}
+
+
+def parse_conv_layer_name(s: str, ltype: str = 'conv', out_channels: int = 32,
+                          kernel_size: int = 5, padding='*', stride=None,
+                          output_padding: int = 0, where: str = 'input') -> dict:
+    """Parse one layer token of the conv-string DSL."""
+    if where == 'output':
+        ltype = 'deconv'
+    if s[:1].lower() in _PREFIX_LTYPE:
+        ltype = _PREFIX_LTYPE[s[0].lower()]
+        s = s[1:]
+
+    fields = {}
+    for m in _FIELD_RX.finditer(s):
+        if m.group(3) is not None:
+            if m.start() == 0:              # leading bare int = channels
+                fields['out_channels'] = int(m.group(3))
+            continue
+        v = m.group(2)
+        if v.isdigit():
+            fields[_FIELD_OF[m.group(1)]] = int(v)
+        elif m.group(1) == '!':
+            # a bare '!' still switches the token to a plain conv
+            fields['conv_in_deconv'] = None
+
+    if where != 'output':
+        fields.pop('output_padding', None)
+        fields.pop('conv_in_deconv', None)
+    if 'conv_in_deconv' in fields:          # '!C': plain conv inside a deconv stack
+        ltype = 'conv'
+        out_channels = fields.pop('conv_in_deconv')
+        fields.pop('out_channels', None)
+        fields.pop('output_padding', None)
+
+    is_convolution = ltype in ('conv', 'deconv')
+    params = {'ltype': ltype,
+              'kernel_size': fields.get('kernel_size', kernel_size),
+              'padding': fields.get('padding', padding),
+              'stride': fields.get('stride', stride)}
+    if is_convolution:
+        params['out_channels'] = fields.get('out_channels', out_channels)
+    if ltype == 'deconv':
+        params['output_padding'] = fields.get('output_padding', output_padding)
+
+    if params['padding'] == '*':
+        # 'same' resolves to k//2 only for input-side convs; output stacks
+        # resolve '*' to 0 (ref conv.py:79-80)
+        params['padding'] = (params['kernel_size'] // 2
+                             if ltype == 'conv' and where != 'output' else 0)
+    if params['stride'] is None:
+        if is_convolution:
+            params['stride'] = 1
+        elif ltype.endswith('pooling'):
+            params['stride'] = params['kernel_size']
+    return params
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    ltype: str                       # conv | deconv | mpooling | apooling | upsampler
+    out_channels: Optional[int]
+    kernel_size: int
+    padding: int
+    stride: int
+    output_padding: int = 0
+    batch_norm: bool = False
+    activation: Optional[str] = 'relu'   # None = no activation after
+    out_shape: Tuple[int, int, int] = (0, 0, 0)   # (C, H, W)
+
+    @property
+    def token(self) -> str:
+        """Canonical token (ref conv_layer_name, conv.py:89-105)."""
+        if self.ltype in ('conv', 'deconv'):
+            s = '{}x{}'.format(self.out_channels, self.kernel_size)
+            if self.padding != self.kernel_size // 2:
+                s += '+{}'.format(self.padding)
+            if self.stride != 1:
+                s += ':{}'.format(self.stride)
+            return s
+        if self.ltype.endswith('pooling'):
+            s = '{}x{}'.format(self.ltype[0].upper(), self.kernel_size)
+            if self.stride != self.kernel_size:
+                s += ':{}'.format(self.stride)
+            return s
+        return 'u:{}'.format(self.stride)
+
+
+def conv_stack_plan(input_shape: Sequence[int], layers_name: str,
+                    where: str = 'input', batch_norm: bool = False,
+                    activation: str = 'relu', output_activation: str = 'linear',
+                    output_distribution: str = 'gaussian'):
+    """Resolve a DSL string into a static list of LayerPlans with inferred
+    shapes.  Returns (name, plans, output_shape); output_shape is
+    (256, C, H, W) for categorical output stacks."""
+    name = None
+    if where == 'input' and layers_name in FEATURES_ARCHS:
+        name, layers_name = layers_name, FEATURES_ARCHS[layers_name]
+    if where == 'output' and layers_name in UPSAMPLER_ARCHS:
+        name, layers_name = layers_name, UPSAMPLER_ARCHS[layers_name]
+
+    if isinstance(input_shape, int):
+        input_shape = (input_shape, 1, 1)
+
+    default_params = {}
+    if layers_name.startswith('['):
+        end = layers_name.find(']')
+        for tok in layers_name[1:end].split('-'):
+            p = parse_conv_layer_name(tok, where=where)
+            default_params[p.pop('ltype')] = p
+        layers_name = layers_name[end + 1:]
+
+    tokens = layers_name.split('-')
+    plans: List[LayerPlan] = []
+    c, h, w = input_shape
+
+    for i, tok in enumerate(tokens):
+        last = i == len(tokens) - 1
+        p0 = parse_conv_layer_name(tok, where=where)
+        p = parse_conv_layer_name(tok, **default_params.get(p0['ltype'], {}), where=where)
+        ltype = p.pop('ltype')
+
+        if where == 'output' and last and output_distribution == 'categorical':
+            p['out_channels'] = 256 * p['out_channels']
+
+        k, pad, s = p['kernel_size'], p['padding'], p['stride']
+        act = activation if ltype.endswith('conv') else None
+        bn = batch_norm and ltype.endswith('conv')
+        if ltype == 'conv':
+            c = p['out_channels']
+            h = (h + 2 * pad - k) // s + 1
+            w = (w + 2 * pad - k) // s + 1
+        elif ltype == 'deconv':
+            c = p['out_channels']
+            h = (h - 1) * s - 2 * pad + k + p.get('output_padding', 0)
+            w = (w - 1) * s - 2 * pad + k + p.get('output_padding', 0)
+        elif ltype.endswith('pooling'):
+            h = (h + 2 * pad - k) // s + 1
+            w = (w + 2 * pad - k) // s + 1
+        elif ltype == 'upsampler':
+            h, w = int(h * s), int(w * s)
+        else:
+            raise ValueError(ltype)
+
+        plans.append(LayerPlan(ltype=ltype, out_channels=p.get('out_channels'),
+                               kernel_size=k, padding=pad, stride=s,
+                               output_padding=p.get('output_padding', 0),
+                               batch_norm=bn, activation=act,
+                               out_shape=(c, h, w)))
+
+    # the last activation of an output stack becomes the output activation
+    if where == 'output':
+        for j in range(len(plans) - 1, -1, -1):
+            if plans[j].activation is not None:
+                plans[j] = dataclasses.replace(plans[j], activation=output_activation)
+                break
+
+    out_shape = (c, h, w)
+    if where == 'output' and output_distribution == 'categorical':
+        out_shape = (256, c // 256, h, w)
+    name = name or '-'.join(pl.token for pl in plans)
+    return name, tuple(plans), out_shape
+
+
+def find_input_shape(layers_name: str, wanted_output_shape: Sequence[int],
+                     input_shape: Tuple[int, int] = (1, 1)) -> Tuple[int, int]:
+    """Smallest (H, W) whose deconv output matches wanted (H, W)."""
+    h, w = input_shape
+    while True:
+        _, _, out = conv_stack_plan((1, h, w), layers_name, where='output')
+        oh, ow = out[-2], out[-1]
+        if (oh, ow) == tuple(wanted_output_shape):
+            return (h, w)
+        if oh > wanted_output_shape[0] or ow > wanted_output_shape[1]:
+            raise ValueError('Did not find an input shape yielding output size '
+                             '({}, {}) for {}'.format(*wanted_output_shape, layers_name))
+        h += int(oh < wanted_output_shape[0])
+        w += int(ow < wanted_output_shape[1])
+
+
+ACTIVATIONS = {
+    'relu': torch.relu,
+    'leaky': lambda x: F.leaky_relu(x, negative_slope=0.2),
+    'sigmoid': torch.sigmoid,
+    'tanh': torch.tanh,
+    'linear': lambda x: x,
+}
+
+
+def conv_route(pl: LayerPlan, h: int, w: int) -> Tuple[str, Tuple[int, int]]:
+    """(route, (pad_lo, pad_hi)) of a conv/deconv layer on an (h, w) input.
+
+    Routes: 'same_grid' (stride 1, output grid == input grid), 'conv'
+    (``F.conv2d``; a stride-1 deconv is the correlation with pads
+    (k-1-p, k-1-p+op)), 'transpose' (``F.conv_transpose2d``: strided
+    deconvs and the 1x1 latent expansion)."""
+    k, p, s, op = pl.kernel_size, pl.padding, pl.stride, pl.output_padding
+    if pl.ltype == 'deconv':
+        if (h == 1 and w == 1 and op < s) or s > 1:
+            return 'transpose', (p, p)
+        pads = (k - 1 - p, k - 1 - p + op)
+    else:
+        pads = (p, p)
+        if s > 1:
+            return 'conv', pads
+    if pads[0] >= 0 and pads[1] >= 0 and pads[0] + pads[1] == k - 1:
+        return 'same_grid', pads
+    return 'conv', pads
+
+
+class ConvLayer(nn.Module):
+    """One conv/deconv site: ``weight`` in its route's layout — HWIO for
+    'same_grid', OIHW for 'conv', (Cin, Cout, kh, kw) spatially flipped for
+    'transpose' — and ``bias`` (Cout,)."""
+
+    def __init__(self, route: str, pads: Tuple[int, int], kernel_size: int,
+                 in_channels: int, out_channels: int, stride: int,
+                 padding: int, output_padding: int):
+        super().__init__()
+        self.route, self.pads = route, pads
+        self.stride, self.padding = stride, padding
+        self.output_padding = output_padding
+        k = kernel_size
+        shape = {'same_grid': (k, k, in_channels, out_channels),
+                 'conv': (out_channels, in_channels, k, k),
+                 'transpose': (in_channels, out_channels, k, k)}[route]
+        self.weight = nn.Parameter(torch.zeros(shape))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def from_hwio(self, k: torch.Tensor) -> torch.Tensor:
+        """Stored JAX kernel (k, k, Cin, Cout), correlation-oriented ->
+        this layer's layout."""
+        if self.route == 'same_grid':
+            return k
+        if self.route == 'conv':
+            return k.permute(3, 2, 0, 1)
+        return torch.flip(k, (0, 1)).permute(2, 3, 0, 1)
+
+    def to_hwio(self, wt: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`from_hwio`."""
+        if self.route == 'same_grid':
+            return wt
+        if self.route == 'conv':
+            return wt.permute(2, 3, 1, 0)
+        return torch.flip(wt.permute(2, 3, 0, 1), (0, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (n, h, w, c) NHWC -> NHWC, bias added."""
+        wt = self.weight.to(x.dtype)
+        if self.route == 'same_grid':
+            lo = self.pads[0]
+            y = same_grid_conv(x.contiguous(), wt, lo, lo)
+        else:
+            xc = x.permute(0, 3, 1, 2)
+            if self.route == 'conv':
+                lo, hi = self.pads
+                if lo != hi or lo < 0:
+                    xc = F.pad(xc, (lo, hi, lo, hi))
+                    lo = 0
+                y = F.conv2d(xc, wt, stride=self.stride, padding=lo)
+            else:
+                y = F.conv_transpose2d(xc, wt, stride=self.stride,
+                                       padding=self.padding,
+                                       output_padding=self.output_padding)
+            y = y.permute(0, 2, 3, 1)
+        return y + self.bias.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode BatchNorm over the last (channel) axis, flax
+    semantics (epsilon 1e-5); train-mode statistics come with training."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))     # flax 'scale'
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer('running_mean', torch.zeros(channels))
+        self.register_buffer('running_var', torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x - self.running_mean.to(x.dtype)) * mul.to(x.dtype)
+                + self.bias.to(x.dtype))
+
+
+class ConvStack(nn.Module):
+    """A (de)conv stack executing a static plan; (..., C, H, W) in and out,
+    NHWC inside.  Leading axes of any rank ride through as one batch."""
+
+    def __init__(self, input_shape: Tuple[int, int, int],
+                 plans: Tuple[LayerPlan, ...],
+                 output_distribution: str = 'gaussian', where: str = 'input',
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.input_shape = tuple(input_shape)
+        self.plans = tuple(plans)
+        self.output_distribution = output_distribution
+        self.where = where
+        self.dtype = dtype
+        c, h, w = self.input_shape
+        for i, pl in enumerate(self.plans):
+            if pl.ltype in ('conv', 'deconv'):
+                route, pads = conv_route(pl, h, w)
+                self.add_module(
+                    ('deconv_{}' if pl.ltype == 'deconv' else 'conv_{}').format(i),
+                    ConvLayer(route, pads, pl.kernel_size, c, pl.out_channels,
+                              pl.stride, pl.padding, pl.output_padding))
+            if pl.batch_norm:
+                self.add_module('bn_{}'.format(i), BatchNorm(pl.out_shape[0]))
+            c, h, w = pl.out_shape
+
+    def conv_layers(self):
+        """(name, ConvLayer) in stack order."""
+        return [(n, m) for n, m in self.named_children()
+                if isinstance(m, ConvLayer)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        c0, h0, w0 = self.input_shape
+        x = x.reshape((-1, c0, h0, w0)).permute(0, 2, 3, 1).to(self.dtype)
+        for i, pl in enumerate(self.plans):
+            if pl.ltype in ('conv', 'deconv'):
+                x = getattr(self, ('deconv_{}' if pl.ltype == 'deconv'
+                                   else 'conv_{}').format(i))(x)
+            else:
+                xc = x.permute(0, 3, 1, 2)
+                if pl.ltype == 'mpooling':
+                    xc = F.max_pool2d(xc, pl.kernel_size, pl.stride, pl.padding)
+                elif pl.ltype == 'apooling':
+                    xc = F.avg_pool2d(xc, pl.kernel_size, pl.stride, pl.padding,
+                                      count_include_pad=True)
+                else:
+                    xc = xc.repeat_interleave(pl.stride, dim=2) \
+                           .repeat_interleave(pl.stride, dim=3)
+                x = xc.permute(0, 2, 3, 1)
+            if pl.batch_norm:
+                x = getattr(self, 'bn_{}'.format(i))(x)
+            if pl.activation is not None:
+                x = ACTIVATIONS[pl.activation](x)
+        x = x.permute(0, 3, 1, 2)                       # NHWC -> NCHW
+        c, h, w = self.plans[-1].out_shape
+        if self.where == 'output' and self.output_distribution == 'categorical':
+            return x.reshape(lead + (256, c // 256, h, w))
+        return x.reshape(lead + (c, h, w))
