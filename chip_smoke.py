@@ -7,25 +7,36 @@ Phases, any failure raising (nonzero exit):
 
 1. require a CUDA card; print ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``joint_vae_tpu_torch/csrc`` (one nvcc per
-   source, all started together) and print the build time;
+   source, all started together), print the build time, ptxas's register
+   report and the tensor-core instructions of the conv library
+   (``cuobjdump -sass``: HMMA/HGMMA by opcode and kernel), and fail
+   unless it holds both TF32 and BF16 ones;
 3. hold each kernel against its plain PyTorch version at the flagship's
    shapes and time kernel, plain version, library call and bound:
-   the same-grid conv at its six sites (N=512 features, L*N=8192 decoder)
-   in float32 and bfloat16, the IWAE combine at L=16, N=512, C=100, K=128
-   in both modes plus a ragged C=37, N=137 case;
+   the same-grid conv at its eight sites (N=512 features, L*N=8192
+   decoder; the two stride-2 deconvs as their packed sub-pixel convs) in
+   float32 and bfloat16, the co=3 head also zero-padded to co=8 (the
+   8-wide tensor-core tile, against float32's CUDA-core path); the IWAE combine at L=16, N=512, C=100, K=128 in
+   both modes plus a ragged C=37, N=137 case;
 4. serve the full-width flagship CVAE (random weights from a numpy seed)
    through the entry points: ``save_job``, the serve CLI on ``.npy``
-   inputs, ``Scorer`` on 4 batches of 512 at L=16; check that both
-   kernels' launch counters rose on that run, that outputs are finite,
-   and that 8 inputs with injected noise agree between the card and the
-   CPU (where the plain versions run); profile one batch by kernel;
+   inputs, ``Scorer`` on 4 batches of 512 at L=16; check that the conv
+   kernel was launched 8 times and the IWAE kernel once per batch on that
+   run, that outputs are finite, and that 8 inputs with injected noise
+   agree between the card and the CPU (where the plain versions run);
+   profile one batch by kernel and fail if cuDNN's transposed-conv
+   kernel (``dgrad``) is in it;
 5. print one JSON line ``{"kernels": [...]}``;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
+Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
+rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
+it), bfloat16 at 989 TFLOP/s, the IWAE combine on the CUDA cores.
+
 Tolerances, all elementwise.  Conv, |kernel - plain| <= tol (|plain| +
 rms(plain)): float32 tol 1e-4 (sums of up to 1,600 products in another
-order), bfloat16 1.6e-2 (two bf16 ulps: both round the float32 sum to
-bf16).  IWAE, elementwise
+order, 3xTF32 products exact to ~2^-21), bfloat16 1.6e-2 (two bf16 ulps:
+both round the float32 sum to bf16).  IWAE, elementwise
 |kernel - plain| <= 1e-4 + 1e-6 |plain|, on inputs whose log-weights
 spread over l so that the sum term (mean-exp or log-mean-exp, at least
 1/L) carries the result; the check fails if it does not.  Card vs CPU
@@ -46,13 +57,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {torch.float32: 67e12,   # CUDA-core float32 (no tensor cores)
-              torch.bfloat16: 989e12}  # dense bf16 tensor cores
+CUDA_CORE_FLOPS = 67e12            # float32 outside the tensor cores
+TF32_FLOPS = 495e12                # dense TF32 tensor cores
+# the least time of one product in each type: float32 runs as 3xTF32 (three
+# TF32 products per product), bfloat16 one pass on the tensor cores
+PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3,
+              torch.bfloat16: 989e12}
 CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 IWS_RTOL, IWS_ATOL = 1e-6, 1e-4
 IWS_MIN_SPREAD = 0.05
 SERVE_RTOL, SERVE_ATOL = 2e-6, 1e-4
 BATCH, BATCHES = 512, 4
+SITES_PER_BATCH = 8      # same-grid kernel launches per flagship serve batch
 METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
 
 
@@ -78,9 +94,9 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+def bound_ms(nbytes: float, flops: float, peak: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
@@ -90,39 +106,61 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
 
 
 def same_grid_sites(model, n_images: int, L: int):
-    """(site, n, h, w, ci, co, k, pad_lo) of every same-grid layer of the
-    model's stacks, at the batch each stack sees on the serving path."""
-    from joint_vae_tpu_torch.models.conv import conv_route
+    """Every launch site of the same-grid kernel on the serving path, as a
+    dict: the stack's batch n, the input grid, the layer, its route
+    ('same_grid' or 'subpixel') and the kernel's pad."""
     sites = []
     for stack_name, n in (('features_stack', n_images), ('imager', L * n_images)):
         stack = getattr(model, stack_name)
         c, h, w = stack.input_shape
         for i, pl in enumerate(stack.plans):
             if pl.ltype in ('conv', 'deconv'):
-                route, pads = conv_route(pl, h, w)
-                if route == 'same_grid':
-                    name = '{}.{}_{}'.format(stack_name, pl.ltype, i)
-                    sites.append((name, n, h, w, c, pl.out_channels,
-                                  pl.kernel_size, pads[0]))
+                layer = getattr(stack, '{}_{}'.format(pl.ltype, i))
+                if layer.route in ('same_grid', 'subpixel'):
+                    sites.append({'site': '{}.{}_{}'.format(stack_name, pl.ltype, i),
+                                  'route': layer.route, 'layer': layer,
+                                  'n': n, 'h': h, 'w': w, 'ci': c,
+                                  'co': pl.out_channels, 'k': pl.kernel_size,
+                                  'lo': layer.pads[0]})
             c, h, w = pl.out_shape
     return sites
 
 
+def site_inputs(site, dt, g):
+    """x (n, h, w, ci), the HWIO kernel and the kernel the site launches
+    (for 'subpixel', the packed gather of the HWIO kernel)."""
+    from joint_vae_tpu_torch.models.conv import _packed_kernel
+    n, h, w, ci, co, k = (site[key] for key in ('n', 'h', 'w', 'ci', 'co', 'k'))
+    x = torch.rand((n, h, w, ci), generator=g, device='cuda').to(dt)
+    kern = (torch.randn((k, k, ci, co), generator=g, device='cuda')
+            / (k * k * ci) ** 0.5).to(dt)
+    if site['route'] == 'subpixel':
+        tap = site['layer'].tap.to('cuda')
+        return x, kern, _packed_kernel(kern, tap, tap).contiguous()
+    return x, kern, kern
+
+
 def check_conv(sites):
+    """Each site in float32 and bfloat16: kernel vs plain version, then the
+    kernel, the plain version and the library call timed.  The library
+    call is F.conv2d for a same-grid site and F.conv_transpose2d of the
+    true deconv for a sub-pixel site.  FLOPs count the packed conv as
+    launched; the true (de)conv's FLOPs are printed beside them."""
     import torch.nn.functional as F
     from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
                                                         same_grid_conv_plain)
     g = torch.Generator(device='cuda').manual_seed(1)
     rows, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
-                       'bound_ms': 0.0, 'max_abs_err': 0.0,
-                       't_bytes': 0.0, 't_ops': 0.0}
-    for (name, n, h, w, ci, co, k, lo) in sites:
+                       'bound_ms': 0.0, 'bound_ms_cuda_core': 0.0,
+                       'max_abs_err': 0.0, 't_bytes': 0.0, 't_ops': 0.0}
+    for site in sites:
+        name, lo, lay = site['site'], site['lo'], site['layer']
         for dt in (torch.float32, torch.bfloat16):
-            x = torch.rand((n, h, w, ci), generator=g, device='cuda').to(dt)
-            kern = (torch.randn((k, k, ci, co), generator=g, device='cuda')
-                    / (k * k * ci) ** 0.5).to(dt)
-            y = same_grid_conv(x, kern, lo, lo)
-            ref = same_grid_conv_plain(x, kern, lo, lo)
+            x, kern, kd = site_inputs(site, dt, g)
+            n, h, w, ci = x.shape
+            th, tw, _, co = kd.shape
+            y = same_grid_conv(x, kd, lo, lo)
+            ref = same_grid_conv_plain(x, kd, lo, lo)
             torch.cuda.synchronize()
             err, rel = rel_err(y, ref)
             tol = CONV_TOL[dt]
@@ -130,31 +168,89 @@ def check_conv(sites):
                 y.float(), ref.float(), rtol=tol,
                 atol=tol * ref.float().square().mean().sqrt().item(),
                 msg=lambda m: 'same_grid_conv {} {}: {}'.format(name, dt, m))
-            xc, wc = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1)
+            xc = x.permute(0, 3, 1, 2)
+            if site['route'] == 'subpixel':
+                wc = torch.flip(kern, (0, 1)).permute(2, 3, 0, 1)
+                lib_fn = lambda: F.conv_transpose2d(
+                    xc, wc, stride=lay.stride, padding=lay.padding,
+                    output_padding=lay.output_padding)
+            else:
+                wc = kern.permute(3, 2, 0, 1)
+                lib_fn = lambda: F.conv2d(xc, wc, padding=lo)
             reps = 20 if n * h * w < 2 ** 20 else 5
-            ms = time_ms(lambda: same_grid_conv(x, kern, lo, lo), reps)
-            plain = time_ms(lambda: same_grid_conv_plain(x, kern, lo, lo), 3, 1)
-            lib = time_ms(lambda: F.conv2d(xc, wc, padding=lo), reps)
+            ms = time_ms(lambda: same_grid_conv(x, kd, lo, lo), reps)
+            plain = time_ms(lambda: same_grid_conv_plain(x, kd, lo, lo), 3, 1)
+            lib = time_ms(lib_fn, reps)
             es = x.element_size()
-            nbytes = (x.numel() + kern.numel() + n * h * w * co) * es
-            flops = 2.0 * n * h * w * k * k * ci * co
-            b, by = bound_ms(nbytes, flops, dt)
-            row = {'site': name, 'dtype': str(dt).split('.')[-1],
-                   'shape': [n, h, w, ci, co, k], 'ms': ms, 'plain_ms': plain,
-                   'library_ms': lib, 'bound_ms': b, 'bound_by': by,
+            nbytes = (x.numel() + kd.numel() + n * h * w * co) * es
+            flops = 2.0 * n * h * w * th * tw * ci * co
+            k, true_co = site['k'], site['co']
+            true_flops = 2.0 * n * h * w * k * k * ci * true_co
+            b, by = bound_ms(nbytes, flops, PEAK_FLOPS[dt])
+            row = {'site': name, 'route': site['route'],
+                   'dtype': str(dt).split('.')[-1],
+                   'launched_shape': [n, h, w, ci, co, th, tw],
+                   'ms': ms, 'plain_ms': plain, 'library_ms': lib,
+                   'bound_ms': b, 'bound_by': by,
+                   'gflop_launched': flops / 1e9, 'gflop_true': true_flops / 1e9,
                    'max_abs_err': err, 'rel_err': rel,
                    'tflops': flops / ms / 1e9}
+            if dt == torch.float32:
+                row['bound_ms_cuda_core'] = max(
+                    nbytes / HBM_BYTES_PER_S, flops / CUDA_CORE_FLOPS) * 1e3
+            if co < 8:
+                # the path dispatched at co < 8 against the 8-wide
+                # tensor-core tile: the kernel zero-padded to 8 channels
+                kd8 = F.pad(kd, (0, 8 - co)).contiguous()
+                y8 = same_grid_conv(x, kd8, lo, lo)[..., :co]
+                torch.testing.assert_close(
+                    y8.float(), ref.float(), rtol=tol,
+                    atol=tol * ref.float().square().mean().sqrt().item())
+                row['co8_tensor_core_ms'] = time_ms(
+                    lambda: same_grid_conv(x, kd8, lo, lo), reps)
+                del kd8, y8
             rows.append(row)
             print('conv', json.dumps(row), flush=True)
             if dt == torch.float32:       # the serving path is float32
-                for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
+                for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                            'bound_ms_cuda_core'):
                     total[key] += row[key]
                 total['max_abs_err'] = max(total['max_abs_err'], err)
                 total['t_bytes'] += nbytes / HBM_BYTES_PER_S * 1e3
                 total['t_ops'] += flops / PEAK_FLOPS[dt] * 1e3
-            del x, kern, y, ref, xc, wc
+            del x, kern, kd, y, ref, xc, wc
             torch.cuda.empty_cache()
     return rows, total
+
+
+def sass_counts(name: str) -> dict:
+    """Tensor-core instructions in the built library, by opcode and by
+    kernel (``cuobjdump -sass``): HMMA (mma.sync) and HGMMA (wgmma)."""
+    import re
+    import shutil
+    from joint_vae_tpu_torch.ops import cuda_lib
+    tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin',
+                        'cuobjdump')
+    if not os.path.exists(tool):
+        tool = shutil.which('cuobjdump')
+    out = subprocess.run([tool, '-sass', cuda_lib.library_path(name)],
+                         check=True, capture_output=True, text=True).stdout
+    by_kernel, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            fn = m.group(1)
+            by_kernel[fn] = {}
+            continue
+        m = re.search(r'\b(HG?MMA\.[\w.]+)', line)
+        if m and fn is not None:
+            op = m.group(1)
+            by_kernel[fn][op] = by_kernel[fn].get(op, 0) + 1
+    ops = {}
+    for counts in by_kernel.values():
+        for op, c in counts.items():
+            ops[op] = ops.get(op, 0) + c
+    return {'library': name, 'by_opcode': ops, 'by_kernel': by_kernel}
 
 
 def iws_inputs(L: int, N: int, C: int, K: int, g: torch.Generator) -> tuple:
@@ -200,7 +296,7 @@ def check_iws():
             plain = time_ms(lambda: iws_combine_plain(*args, ref_mode=ref_mode), 10)
             nbytes = 4.0 * (sum(a.numel() for a in args) + C * N)
             flops = 3.0 * L * C * N * K         # (z - m), then an FMA
-            b, by = bound_ms(nbytes, flops, torch.float32)
+            b, by = bound_ms(nbytes, flops, CUDA_CORE_FLOPS)
             row = {'shape': [L, N, C, K], 'ref_mode': ref_mode, 'ms': ms,
                    'plain_ms': plain, 'library_ms': None, 'bound_ms': b,
                    'bound_by': by, 'max_abs_err': err,
@@ -234,6 +330,10 @@ def profile_batch(scorer, x) -> dict:
             rows.append((dev_us / 1e3, ev.key[:60], ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    dgrad = [k for _, k, _ in rows if 'dgrad' in k.lower()]
+    if dgrad:
+        raise AssertionError('the serve batch still runs a transposed conv '
+                             'on cuDNN: {}'.format(dgrad))
     return {'wall_ms': wall_ms, 'device_ms': busy,
             'device_busy_share': busy / wall_ms if wall_ms else None,
             'top': [{'ms': ms, 'kernel': k, 'calls': c}
@@ -298,7 +398,8 @@ def serve(card: str):
                 'iws_combine': iws_combine.launches}
     # --- end of the main path ---
     batches = 1 + 1 + BATCHES                # CLI (64 inputs), calibration, timed
-    if launches['same_grid_conv'] != 6 * batches or launches['iws_combine'] != batches:
+    if (launches['same_grid_conv'] != SITES_PER_BATCH * batches
+            or launches['iws_combine'] != batches):
         raise AssertionError('launch counts {} for {} serve batches'.format(
             launches, batches))
     for o in outs:
@@ -371,11 +472,19 @@ def main():
     print('build seconds', round(build_s, 3), flush=True)
     for name, log in cuda_lib.BUILD_LOG.items():
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 print('ptxas', name, line.strip())
+    sass = sass_counts('same_grid_conv')
+    print('sass', json.dumps(sass), flush=True)
+    for kind in ('TF32', 'BF16'):
+        if not any(kind in op for op in sass['by_opcode']):
+            raise AssertionError('no {} tensor-core instruction in the '
+                                 'same-grid kernel library'.format(kind))
 
     cfg = flagship_config()
     sites = same_grid_sites(CVNet(cfg), BATCH, cfg.test_latent_sampling)
+    if len(sites) != SITES_PER_BATCH:
+        raise AssertionError('{} same-grid sites'.format(len(sites)))
     conv_rows, conv = check_conv(sites)
     iws_rows, iws = check_iws()
     os.makedirs(WORK, exist_ok=True)
@@ -390,8 +499,11 @@ def main():
          'ms': conv['ms'], 'kernel_ms': conv['ms'],
          'plain_ms': conv['plain_ms'], 'bound_ms': conv['bound_ms'],
          'bound_by': 'bytes' if conv['t_bytes'] >= conv['t_ops'] else 'operations',
+         'bound_ms_cuda_core': conv['bound_ms_cuda_core'],
          'library_ms': conv['library_ms'],
-         'per': 'one serve batch: the six float32 sites summed',
+         'per': 'one serve batch: the eight float32 sites summed (bound at '
+                'the 3xTF32 rate; library: F.conv2d, or F.conv_transpose2d '
+                'of the true deconv at the sub-pixel sites)',
          'sites': conv_rows},
         {'name': 'iws_combine', 'route': 'cuda',
          'source': 'joint_vae_tpu_torch/csrc/iws_combine.cu',

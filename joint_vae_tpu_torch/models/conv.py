@@ -12,11 +12,16 @@ module/vae_layers/conv.py:20-105 and conv-models.ini):
 - named stacks (vgg*, conv32, deconv32, ivgg...) resolve to strings
 
 :class:`ConvStack` keeps the (..., C, H, W) interface and computes NHWC.
-Every stride-1 conv or deconv whose output grid equals its input grid runs
-through :func:`ops.same_grid_conv.same_grid_conv` (the CUDA kernel on the
-card).  The rest is PyTorch: strided convs and stride-1 convs that change
-the grid (``F.conv2d``), stride-2 deconvs and the 1x1 latent expansion
-(``F.conv_transpose2d``), pooling, upsampling and eval-mode BatchNorm.
+The (de)convs follow the JAX package's lowerings (``conv_route``): every
+stride-1 conv or deconv whose output grid equals its input grid, and every
+stride-s deconv whose sub-pixel form keeps the grid, runs through
+:func:`ops.same_grid_conv.same_grid_conv` (the CUDA kernel on the card);
+the 1x1 latent expansion is one ``torch.matmul``.  The rest is PyTorch:
+strided convs and stride-1 convs that change the grid (``F.conv2d``), the
+other strided deconvs (``F.conv_transpose2d``), pooling, upsampling and
+eval-mode BatchNorm.  The JAX package's TPU-only lowerings (the
+phase-packed decoder whose packing persists through later layers, the
+grouped and c0-packed first conv) are not ported.
 Parameters keep the JAX tree names (``conv_3``, ``deconv_1``, ``bn_2``) and
 each layer stores its kernel in the layout its op takes
 (``save_load/from_jax.py`` converts).
@@ -26,6 +31,7 @@ import dataclasses
 import re
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -253,16 +259,121 @@ ACTIVATIONS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Sub-pixel and matmul deconvs, as the JAX package lowers them
+# (joint_vae_tpu/models/conv.py: _packed_geometry, _packed_kernel,
+# depth_to_space, _unpack_to, _flipped_1x1_kernel).  A stride-s deconv is a
+# dense conv from the input grid to s^2 phase-packed output channels (the
+# ``f_in=1, f_out=s`` case of the packed lowering), then depth_to_space;
+# where ceil(oh/s) == h and ceil(ow/s) == w that conv keeps the grid and
+# runs on the same-grid kernel.  The packed kernel is a gather of the
+# stored (k, k, Cin, Cout) parameter, so weights are lowering-agnostic.
+# Packing never persists past the layer.
+# ---------------------------------------------------------------------------
+
+def _packed_geometry(k: int, off: int, num: int, den: int,
+                     f_in: int, f_out: int):
+    """Tap table of the packed lowering; returns (g, dmin, tap) with
+    tap[a, qi, R] = original tap index t at packed offset d = dmin + a for
+    input phase qi / output phase R, or -1 where no tap lands."""
+    assert (num * f_out) % (den * f_in) == 0, (num, den, f_in, f_out)
+    g = (num * f_out) // (den * f_in)
+    entries = []
+    for R in range(f_out):
+        for qi in range(f_in):
+            for t in range(k):
+                n = num * R + t - off - den * qi
+                if n % (den * f_in) == 0:
+                    entries.append((R, qi, t, n // (den * f_in)))
+    dmin = min(e[3] for e in entries)
+    dmax = max(e[3] for e in entries)
+    tap = np.full((dmax - dmin + 1, f_in, f_out), -1, np.int64)
+    for R, qi, t, d in entries:
+        tap[d - dmin, qi, R] = t
+    return g, dmin, tap
+
+
+def _packed_kernel(kern: torch.Tensor, tap_h, tap_w) -> torch.Tensor:
+    """(k, k, Cin, Cout) -> (k'_h, k'_w, f_in^2 Cin, f_out^2 Cout); packed
+    channel order is (phase_h, phase_w, channel) on both sides.  The tap
+    tables may be numpy arrays or tensors (on ``kern``'s device, so that
+    the gather copies nothing from the host)."""
+    tap_h = torch.as_tensor(tap_h, device=kern.device)
+    tap_w = torch.as_tensor(tap_w, device=kern.device)
+    kph, fi, fo = tap_h.shape
+    kpw = tap_w.shape[0]
+    ih = tap_h.clamp(min=0)[:, None, :, None, :, None]
+    iw = tap_w.clamp(min=0)[None, :, None, :, None, :]
+    mask = ((tap_h >= 0)[:, None, :, None, :, None]
+            & (tap_w >= 0)[None, :, None, :, None, :])
+    g = kern[ih, iw]                     # (kph,kpw,fi,fi,fo,fo,Ci,Co)
+    g = g * mask.to(kern.dtype)[..., None, None]
+    ci, co = kern.shape[2], kern.shape[3]
+    g = g.permute(0, 1, 2, 3, 6, 4, 5, 7)
+    return g.reshape(kph, kpw, fi * fi * ci, fo * fo * co)
+
+
+def depth_to_space(x: torch.Tensor, f: int) -> torch.Tensor:
+    """(N, H, W, f^2 C), channel order (rh, rw, c) -> (N, fH, fW, C)."""
+    if f == 1:
+        return x
+    n, hp, wp, cf = x.shape
+    c = cf // (f * f)
+    x = x.reshape(n, hp, wp, f, f, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(n, hp * f, wp * f, c)
+
+
+def _unpack_to(x: torch.Tensor, f: int, h: int, w: int) -> torch.Tensor:
+    """depth_to_space + slice to the true (h, w) when f does not divide."""
+    y = depth_to_space(x, f)
+    return y[:, :h, :w]
+
+
+def _flipped_1x1_kernel(kern: torch.Tensor, k: int, p: int,
+                        h_out: int) -> torch.Tensor:
+    """(h_out, h_out, Cin, Cout) gather of K[A-m, A-n] (zero where invalid)."""
+    A = k - 1 - p
+    rows = []
+    zero = torch.zeros_like(kern[0, 0])
+    for m in range(h_out):
+        cols = [kern[A - m, A - n] if 0 <= A - m < k and 0 <= A - n < k
+                else zero for n in range(h_out)]
+        rows.append(torch.stack(cols))
+    return torch.stack(rows)
+
+
+def _subpixel_geometry(k: int, p: int, s: int):
+    """(dmin, tap) of a stride-s deconv's packed same-grid conv."""
+    _, dmin, tap = _packed_geometry(k, k - 1 - p, 1, s, 1, s)
+    return dmin, tap
+
+
 def conv_route(pl: LayerPlan, h: int, w: int) -> Tuple[str, Tuple[int, int]]:
     """(route, (pad_lo, pad_hi)) of a conv/deconv layer on an (h, w) input.
 
-    Routes: 'same_grid' (stride 1, output grid == input grid), 'conv'
-    (``F.conv2d``; a stride-1 deconv is the correlation with pads
-    (k-1-p, k-1-p+op)), 'transpose' (``F.conv_transpose2d``: strided
-    deconvs and the 1x1 latent expansion)."""
+    Routes, in the JAX package's order of lowerings:
+
+    - 'matmul': a deconv on a 1x1 input (the latent expansion), one
+      ``torch.matmul`` with the gathered kernel (``_flipped_1x1_kernel``);
+    - 'subpixel': a stride-s deconv whose packed conv keeps the grid,
+      ceil(oh/s) == h and ceil(ow/s) == w with pads (-dmin, dmax) both
+      >= 0: the same-grid kernel to s^2 phase-packed channels, then
+      depth_to_space and a slice to (oh, ow);
+    - 'same_grid': stride 1, output grid == input grid (a stride-1 deconv
+      is the correlation with pads (k-1-p, k-1-p+op));
+    - 'transpose' (``F.conv_transpose2d``): the other strided deconvs;
+    - 'conv' (``F.conv2d``): strided convs and stride-1 convs that change
+      the grid."""
     k, p, s, op = pl.kernel_size, pl.padding, pl.stride, pl.output_padding
     if pl.ltype == 'deconv':
-        if (h == 1 and w == 1 and op < s) or s > 1:
+        if h == 1 and w == 1:
+            return 'matmul', (p, p)
+        if s > 1:
+            dmin, tap = _subpixel_geometry(k, p, s)
+            dmax = dmin + tap.shape[0] - 1
+            _, oh, ow = pl.out_shape
+            if (-(-oh // s), -(-ow // s)) == (h, w) and dmin <= 0 <= dmax:
+                return 'subpixel', (-dmin, dmax)
             return 'transpose', (p, p)
         pads = (k - 1 - p, k - 1 - p + op)
     else:
@@ -274,29 +385,36 @@ def conv_route(pl: LayerPlan, h: int, w: int) -> Tuple[str, Tuple[int, int]]:
     return 'conv', pads
 
 
-class ConvLayer(nn.Module):
-    """One conv/deconv site: ``weight`` in its route's layout — HWIO for
-    'same_grid', OIHW for 'conv', (Cin, Cout, kh, kw) spatially flipped for
-    'transpose' — and ``bias`` (Cout,)."""
+HWIO_ROUTES = ('same_grid', 'subpixel', 'matmul')
 
-    def __init__(self, route: str, pads: Tuple[int, int], kernel_size: int,
-                 in_channels: int, out_channels: int, stride: int,
-                 padding: int, output_padding: int):
+
+class ConvLayer(nn.Module):
+    """One conv/deconv site of plan ``pl`` on an (h, w) input: ``weight``
+    in its route's layout — HWIO for 'same_grid', 'subpixel' and 'matmul'
+    (the stored JAX kernel; the latter two gather their packed or flipped
+    kernel from it at each call), OIHW for 'conv', (Cin, Cout, kh, kw)
+    spatially flipped for 'transpose' — and ``bias`` (Cout,)."""
+
+    def __init__(self, pl: LayerPlan, in_channels: int, h: int, w: int):
         super().__init__()
-        self.route, self.pads = route, pads
-        self.stride, self.padding = stride, padding
-        self.output_padding = output_padding
-        k = kernel_size
-        shape = {'same_grid': (k, k, in_channels, out_channels),
-                 'conv': (out_channels, in_channels, k, k),
-                 'transpose': (in_channels, out_channels, k, k)}[route]
+        self.route, self.pads = conv_route(pl, h, w)
+        self.kernel_size, self.stride = pl.kernel_size, pl.stride
+        self.padding, self.output_padding = pl.padding, pl.output_padding
+        self.out_hw = tuple(pl.out_shape[1:])
+        k, co = pl.kernel_size, pl.out_channels
+        if self.route == 'subpixel':      # follows the module's device
+            self.register_buffer('tap', torch.as_tensor(_subpixel_geometry(
+                k, pl.padding, pl.stride)[1]), persistent=False)
+        shape = ((k, k, in_channels, co) if self.route in HWIO_ROUTES else
+                 {'conv': (co, in_channels, k, k),
+                  'transpose': (in_channels, co, k, k)}[self.route])
         self.weight = nn.Parameter(torch.zeros(shape))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(co))
 
     def from_hwio(self, k: torch.Tensor) -> torch.Tensor:
         """Stored JAX kernel (k, k, Cin, Cout), correlation-oriented ->
         this layer's layout."""
-        if self.route == 'same_grid':
+        if self.route in HWIO_ROUTES:
             return k
         if self.route == 'conv':
             return k.permute(3, 2, 0, 1)
@@ -304,7 +422,7 @@ class ConvLayer(nn.Module):
 
     def to_hwio(self, wt: torch.Tensor) -> torch.Tensor:
         """Inverse of :meth:`from_hwio`."""
-        if self.route == 'same_grid':
+        if self.route in HWIO_ROUTES:
             return wt
         if self.route == 'conv':
             return wt.permute(2, 3, 1, 0)
@@ -316,6 +434,17 @@ class ConvLayer(nn.Module):
         if self.route == 'same_grid':
             lo = self.pads[0]
             y = same_grid_conv(x.contiguous(), wt, lo, lo)
+        elif self.route == 'subpixel':
+            lo = self.pads[0]
+            kd = _packed_kernel(wt, self.tap, self.tap).contiguous()
+            y = _unpack_to(same_grid_conv(x.contiguous(), kd, lo, lo),
+                           self.stride, *self.out_hw)
+        elif self.route == 'matmul':
+            k, p = self.kernel_size, self.padding
+            kf = _flipped_1x1_kernel(wt, k, p, k - 2 * p + self.output_padding)
+            ho, wo, ci, co = kf.shape
+            y = torch.matmul(x[:, 0, 0, :], kf.permute(2, 0, 1, 3).reshape(
+                ci, ho * wo * co)).reshape(x.shape[0], ho, wo, co)
         else:
             xc = x.permute(0, 3, 1, 2)
             if self.route == 'conv':
@@ -367,11 +496,9 @@ class ConvStack(nn.Module):
         c, h, w = self.input_shape
         for i, pl in enumerate(self.plans):
             if pl.ltype in ('conv', 'deconv'):
-                route, pads = conv_route(pl, h, w)
                 self.add_module(
                     ('deconv_{}' if pl.ltype == 'deconv' else 'conv_{}').format(i),
-                    ConvLayer(route, pads, pl.kernel_size, c, pl.out_channels,
-                              pl.stride, pl.padding, pl.output_padding))
+                    ConvLayer(pl, c, h, w))
             if pl.batch_norm:
                 self.add_module('bn_{}'.format(i), BatchNorm(pl.out_shape[0]))
             c, h, w = pl.out_shape

@@ -6,8 +6,11 @@ stride-(1, 1) conv whose output grid equals its input grid — pads
 ``(ph_lo, th-1-ph_lo)`` x ``(pw_lo, tw-1-pw_lo)``, possibly asymmetric —
 on x (n, h, w, ci) with an HWIO kernel (th, tw, ci, co), float32
 accumulation, output in the input dtype, no bias.  The kernel is
-``csrc/same_grid_conv.cu``; on a CUDA tensor the wrapper launches it or
-raises, and only CPU tensors take the plain version.
+``csrc/same_grid_conv.cu`` (tensor cores: 3xTF32 in float32, one bf16
+pass in bfloat16); on a CUDA tensor the wrapper launches it or raises,
+and only CPU tensors take the plain version.  The model calls it at its
+same-grid (de)convs and at the packed conv of its sub-pixel deconvs
+(``models/conv.py``).
 """
 
 import torch

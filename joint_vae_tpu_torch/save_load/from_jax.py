@@ -8,8 +8,9 @@ The port's modules carry the same names, so a path maps to a
 - dense kernels (in, out) -> ``weight`` (out, in);
 - conv kernels (k, k, Cin, Cout), correlation-oriented (a JAX "deconv"
   kernel included) -> the layout of the layer's route (``ConvLayer``):
-  as is for the same-grid kernel, OIHW for ``F.conv2d``, and
-  ``k[::-1, ::-1].transpose(2, 3, 0, 1)`` for ``F.conv_transpose2d``;
+  as is for the same-grid, sub-pixel and matmul routes, OIHW for
+  ``F.conv2d``, and ``k[::-1, ::-1].transpose(2, 3, 0, 1)`` for
+  ``F.conv_transpose2d``;
 - BatchNorm ``scale``/``bias`` and ``mean``/``var`` statistics;
 - prior ``mean``/``var_param`` and ``sigma_param`` as they are.
 

@@ -9,6 +9,8 @@ only torch:
 import pytest
 import torch
 
+from joint_vae_tpu_torch.device import set_float32_math
+from joint_vae_tpu_torch.models.conv import ConvLayer, LayerPlan
 from joint_vae_tpu_torch.ops.iws import iws_combine, iws_combine_plain
 from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
                                                     same_grid_conv_plain)
@@ -44,6 +46,33 @@ def test_same_grid_kernel_on_card(geom, dtype, cuda_device):
     want = same_grid_conv_plain(xd, kd, ph, pw)
     tol = 1e-5 if dt == torch.float32 else 2e-2
     close(got.float(), want.float(), tol)
+
+
+@pytest.mark.cuda
+def test_subpixel_layer_on_card(cuda_device):
+    """A stride-2 deconv through the sub-pixel route (one same-grid launch
+    on the packed kernel) against F.conv_transpose2d in full float32."""
+    import torch.nn.functional as F
+    set_float32_math()
+    n, h, ci, co, k, p, s, op = 4, 8, 64, 64, 5, 2, 2, 1
+    oh = (h - 1) * s - 2 * p + k + op
+    pl = LayerPlan(ltype='deconv', out_channels=co, kernel_size=k, padding=p,
+                   stride=s, output_padding=op, out_shape=(co, oh, oh))
+    layer = ConvLayer(pl, ci, h, h).to(cuda_device)
+    assert layer.route == 'subpixel'
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        layer.weight.copy_(0.1 * torch.randn(layer.weight.shape, generator=g))
+        layer.bias.copy_(torch.randn(co, generator=g))
+        x = torch.randn((n, h, h, ci), generator=g).to(cuda_device)
+        before = same_grid_conv.launches
+        got = layer(x)
+        torch.cuda.synchronize()
+        assert same_grid_conv.launches == before + 1
+        wt = torch.flip(layer.weight, (0, 1)).permute(2, 3, 0, 1)
+        want = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, layer.bias,
+                                  stride=s, padding=p, output_padding=op)
+    close(got, want.permute(0, 2, 3, 1), 1e-5)
 
 
 @pytest.mark.cuda

@@ -121,5 +121,8 @@ def test_flagship_full_width_builds():
               for n, m in s.conv_layers()}
     assert [n for n, r in routes.items() if r == 'same_grid'] == \
         ['conv_0', 'conv_2', 'deconv_1', 'deconv_3', 'deconv_5', 'conv_6']
-    assert routes['deconv_0'] == routes['deconv_2'] == 'transpose'
+    assert [m.route for _, m in model.imager.conv_layers()] == \
+        ['matmul', 'same_grid', 'subpixel', 'same_grid', 'subpixel',
+         'same_grid', 'same_grid']
     assert routes['conv_4'] == 'conv'
+    assert 'transpose' not in routes.values()

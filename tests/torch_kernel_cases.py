@@ -10,6 +10,12 @@ CONV_GEOMS = [
     (4, 8, 8, 8, 3, 5, 5, 2, 2),       # 3-channel output head
     (2, 8, 8, 4, 4, 3, 3, 0, 2),       # asymmetric pads
     (2, 6, 8, 4, 5, 3, 4, 2, 0),       # asymmetric, non-square taps
+    (4, 8, 8, 64, 256, 3, 3, 1, 1),    # sub-pixel deconv, packed: two 128 tiles
+    (2, 16, 16, 64, 128, 3, 3, 1, 1),  # sub-pixel deconv, packed co 128
+    (2, 16, 16, 32, 128, 3, 3, 1, 1),  # the flagship's packed deconv_4
+    (2, 8, 8, 3, 17, 5, 5, 2, 2),      # ci, co off the tensor-core K, N steps
+    (2, 8, 8, 17, 5, 3, 3, 1, 1),      # ci off the K step, co < 8
+    (3, 5, 7, 8, 16, 3, 3, 1, 1),      # M tail: 105 pixels in 7-wide rows
 ]
 WIDE_CONV_GEOM = (3, 40, 70, 17, 40, 3, 3, 1, 1)   # several column tiles
 
