@@ -16,16 +16,23 @@ Phases, any failure raising (nonzero exit):
    the same-grid conv at its eight sites (N=512 features, L*N=8192
    decoder; the two stride-2 deconvs as their packed sub-pixel convs) in
    float32 and bfloat16, the co=3 head also zero-padded to co=8 (the
-   8-wide tensor-core tile, against float32's CUDA-core path); the IWAE combine at L=16, N=512, C=100, K=128 in
-   both modes plus a ragged C=37, N=137 case;
+   8-wide tensor-core tile, against float32's CUDA-core path); the IWAE
+   combine at L=16, N=512, C=100, K=128 in both modes, a ragged C=37,
+   N=137 case, the same shape with prior means at the flagship's scale 17,
+   L=128 at N=64 and N=512, and C=1000, K=256 (``IWS_CASES``), each timed
+   as called back to back and replayed from a CUDA graph, beside the
+   composite of PyTorch calls that the JAX package's default path
+   computes (``library_ms``, its deviation from the plain version
+   printed, not gated);
 4. serve the full-width flagship CVAE (random weights from a numpy seed)
    through the entry points: ``save_job``, the serve CLI on ``.npy``
    inputs, ``Scorer`` on 4 batches of 512 at L=16; check that the conv
    kernel was launched 8 times and the IWAE kernel once per batch on that
-   run, that outputs are finite, and that 8 inputs with injected noise
-   agree between the card and the CPU (where the plain versions run);
-   profile one batch by kernel and fail if cuDNN's transposed-conv
-   kernel (``dgrad``) is in it;
+   run, that outputs are finite; then 2 ``Scorer`` batches of 64 at the
+   reference's eval point L=128, with the same launch check; 8 inputs with
+   injected noise agree between the card and the CPU (where the plain
+   versions run); profile one batch by kernel and fail if cuDNN's
+   transposed-conv kernel (``dgrad``) is in it;
 5. print one JSON line ``{"kernels": [...]}``;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -39,7 +46,8 @@ order, 3xTF32 products exact to ~2^-21), bfloat16 1.6e-2 (two bf16 ulps:
 both round the float32 sum to bf16).  IWAE, elementwise
 |kernel - plain| <= 1e-4 + 1e-6 |plain|, on inputs whose log-weights
 spread over l so that the sum term (mean-exp or log-mean-exp, at least
-1/L) carries the result; the check fails if it does not.  Card vs CPU
+1/L) carries the result; the check fails if it does not (at the prior
+scale 17 it is read over each input's true class).  Card vs CPU
 serving, elementwise on every loss and score: |card - cpu| <= 1e-4 +
 2e-6 |cpu| (about 16 float32 ulps; the absolute term covers small
 quantities such as var_kl, differences of per-latent sums over K=128).
@@ -68,6 +76,7 @@ IWS_RTOL, IWS_ATOL = 1e-6, 1e-4
 IWS_MIN_SPREAD = 0.05
 SERVE_RTOL, SERVE_ATOL = 2e-6, 1e-4
 BATCH, BATCHES = 512, 4
+L_EVAL, BATCH_EVAL = 128, 64       # the reference's eval L (ref config.ini:28)
 SITES_PER_BATCH = 8      # same-grid kernel launches per flagship serve batch
 METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
 
@@ -253,36 +262,113 @@ def sass_counts(name: str) -> dict:
     return {'library': name, 'by_opcode': ops, 'by_kernel': by_kernel}
 
 
-def iws_inputs(L: int, N: int, C: int, K: int, g: torch.Generator) -> tuple:
+# the combine's cases: (L, N, C, K, mean scale, modes).  The flagship
+# serve point in both modes, a ragged one, the flagship's prior scale
+# (init_mean=17), the reference's eval L=128 at a scorer batch of 64 and
+# of 512, and the imagenet64 geometry (C=1000, K=256)
+IWS_CASES = ((16, 512, 100, 128, 0.1, (True, False)),
+             (16, 137, 37, 128, 0.1, (True, False)),
+             (16, 512, 100, 128, 17.0, (True, False)),
+             (128, 64, 100, 128, 0.1, (True,)),
+             (128, 512, 100, 128, 0.1, (True,)),
+             (16, 512, 1000, 256, 0.1, (True,)))
+LANES_PER_SM, SM_CLOCK_HZ = 128, 1.98e9     # float32 lanes, H100 SXM boost
+
+
+def iws_inputs(L: int, N: int, C: int, K: int, g: torch.Generator,
+               mean_scale: float = 0.1) -> tuple:
     """Combine inputs whose log-weights spread by a few units over l, so
     that the online sum, not the max alone, carries the result: z within
-    0.3 of its class mean (means 0.1 apart per latent), log_pxq of unit
-    noise about -1e3."""
-    mean = 0.1 * torch.randn((C, K), generator=g, device='cuda')
+    0.3 of its class mean (means ``mean_scale`` N(0,1) per latent: 0.1,
+    or 17 as the flagship's prior draws them), log_pxq about -1e3 with
+    noise of a scale drawn per input in [0.25, 2.5] (so that the sum term
+    still spreads across inputs at L=128).  Returns the kernel's five
+    inputs and each input's class."""
+    mean = mean_scale * torch.randn((C, K), generator=g, device='cuda')
     y = torch.randint(0, C, (N,), generator=g, device='cuda')
     z = (mean[y][None] + 0.3 * torch.randn((L, N, K), generator=g,
                                            device='cuda')).contiguous()
-    lp = -1e3 + torch.randn((L, N), generator=g, device='cuda')
+    sd = 0.25 + 2.25 * torch.rand((N,), generator=g, device='cuda')
+    lp = -1e3 + sd * torch.randn((L, N), generator=g, device='cuda')
     vp = 0.5 + torch.rand((C,), generator=g, device='cuda')
-    return z, lp, mean, vp * vp, -2.0 * K * torch.log(vp)
+    return (z, lp, mean, vp * vp, -2.0 * K * torch.log(vp)), y
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call with the host taken out: ``reps`` calls
+    captured in one CUDA graph, replayed and timed with CUDA events."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
+
+
+def iws_composite(z, lp, mean, s2, ldp, ref_mode=True):
+    """What the JAX package's default path computes for this function: the
+    all-classes prior density through the matmul expansion
+    (``prior_log_density(all_classes=True)``), then amax / exp / mean as
+    ``models/evaluate.py`` does off the kernel.  A yardstick only."""
+    from joint_vae_tpu_torch.ops.priors import PriorConfig, prior_log_density
+    C, K = mean.shape
+    cfg = PriorConfig(dim=K, num_priors=C, var_dim='scalar',
+                      force_conditional=True)
+    params = {'mean': mean, 'var_param': torch.sqrt(s2)}
+    liw = lp[:, None] + torch.movedim(
+        prior_log_density(cfg, params, z, all_classes=True), 0, 1)
+    m = torch.amax(liw, dim=0)
+    d = torch.exp(liw - m[None])
+    return (torch.mean(d, dim=0) + m) if ref_mode \
+        else torch.log(torch.mean(d, dim=0)) + m
+
+
+def time_iws(iws_combine, args, ref_mode) -> dict:
+    """The kernel's device ms with the host taken out (``ms``) and the
+    wrapper's ms per call launched back to back, host included, as a
+    caller sees it (``call_ms``)."""
+    fn = lambda: iws_combine(*args, ref_mode=ref_mode)
+    return {'ms': graph_ms(fn, 50), 'call_ms': time_ms(fn, 50)}
 
 
 def check_iws():
     from joint_vae_tpu_torch.ops.iws import (iws_combine, iws_combine_plain,
-                                             iws_log_weights)
+                                             iws_log_weights, kernel_splits)
     g = torch.Generator(device='cuda').manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, main = [], None
-    for (L, N, C, K) in ((16, 512, 100, 128), (16, 137, 37, 128)):
-        args = iws_inputs(L, N, C, K, g)
+    for (L, N, C, K, scale, modes) in IWS_CASES:
+        args, y = iws_inputs(L, N, C, K, g, scale)
         max_l = torch.amax(iws_log_weights(*args), dim=0)
-        for ref_mode in (True, False):
+        big = L * C * N * K > 2 ** 30
+        for ref_mode in modes:
             out = iws_combine(*args, ref_mode=ref_mode)
             ref = iws_combine_plain(*args, ref_mode=ref_mode)
             torch.cuda.synchronize()
             # the sum term: mean-exp in [1/L, 1], or log-mean-exp in
             # [-log L, 0]; a wrong rescale, divisor or dropped sum is off
-            # by a share of it, tens of times the tolerance
+            # by a share of it, tens of times the tolerance.  At the prior
+            # scale 17 only the true class's weights are close enough over
+            # l to carry a sum term; the spread is read there
             sum_term = ref - max_l
+            if scale > 1:
+                sum_term = sum_term[y, torch.arange(N, device='cuda')]
             spread = sum_term.std().item()
             if not spread >= IWS_MIN_SPREAD:
                 raise AssertionError('iws inputs: the sum term spreads by {} '
@@ -291,21 +377,42 @@ def check_iws():
             torch.testing.assert_close(
                 out, ref, rtol=IWS_RTOL, atol=IWS_ATOL,
                 msg=lambda m: 'iws_combine {}: {}'.format(
-                    (L, N, C, K, ref_mode), m))
-            ms = time_ms(lambda: iws_combine(*args, ref_mode=ref_mode), 50)
-            plain = time_ms(lambda: iws_combine_plain(*args, ref_mode=ref_mode), 10)
+                    (L, N, C, K, scale, ref_mode), m))
+            comp = iws_composite(*args, ref_mode=ref_mode)
+            comp_dev = (comp - ref).abs()
+            t = time_iws(iws_combine, args, ref_mode)
+            plain = time_ms(lambda: iws_combine_plain(*args, ref_mode=ref_mode),
+                            3 if big else 10, 1)
+            lib_call = time_ms(lambda: iws_composite(*args, ref_mode=ref_mode),
+                               20)
+            lib = graph_ms(lambda: iws_composite(*args, ref_mode=ref_mode),
+                           5 if big else 20)
             nbytes = 4.0 * (sum(a.numel() for a in args) + C * N)
             flops = 3.0 * L * C * N * K         # (z - m), then an FMA
             b, by = bound_ms(nbytes, flops, CUDA_CORE_FLOPS)
-            row = {'shape': [L, N, C, K], 'ref_mode': ref_mode, 'ms': ms,
-                   'plain_ms': plain, 'library_ms': None, 'bound_ms': b,
-                   'bound_by': by, 'max_abs_err': err,
+            row = {'shape': [L, N, C, K], 'mean_scale': scale,
+                   'ref_mode': ref_mode, 'splits': kernel_splits(L, N, K, C),
+                   'ms': t['ms'], 'call_ms': t['call_ms'], 'plain_ms': plain,
+                   'library_ms': lib, 'library_call_ms': lib_call,
+                   'library': 'composite: prior_log_density(all_classes=True) '
+                              '(matmul expansion) + amax/exp/mean',
+                   'library_max_abs_dev': comp_dev.max().item(),
+                   'library_max_rel_dev': (comp_dev / ref.abs().clamp_min(1e-30)
+                                           ).max().item(),
+                   'bound_ms': b, 'bound_by': by,
+                   'share_of_bound': b / t['ms'],
+                   'floor_2instr_ms': 2.0 * L * C * N * K / (
+                       sms * LANES_PER_SM * SM_CLOCK_HZ) * 1e3,
+                   'max_abs_err': err,
                    'sum_term': [sum_term.min().item(), sum_term.max().item()],
                    'sum_term_std': spread}
             rows.append(row)
             print('iws', json.dumps(row), flush=True)
-            if (L, N, C, K) == (16, 512, 100, 128) and ref_mode:
+            if (L, N, C, K, scale) == (16, 512, 100, 128, 0.1) and ref_mode:
                 main = row                     # the flagship's mode
+            del out, ref, comp, comp_dev
+        del args, y, max_l
+        torch.cuda.empty_cache()
     return rows, main
 
 
@@ -412,6 +519,33 @@ def serve(card: str):
             raise AssertionError('bad labels/confidence')
     accept = float(np.mean([o['in_distribution'].mean() for o in outs]))
     img_s = BATCH * BATCHES / serve_s
+
+    # --- the reference's eval point: Scorer batches of 64 at L=128 ---
+    scorer128 = Scorer(job, methods=METHODS, thresholds=thresholds, L=L_EVAL)
+    same_grid_conv.launches = 0
+    iws_combine.launches = 0
+    outs128, ms128 = [], []
+    for _ in range(2):              # the first one meets new shapes
+        t0 = time.perf_counter()
+        outs128.append(scorer128(xs[2, :BATCH_EVAL]))
+        ms128.append((time.perf_counter() - t0) * 1e3)
+    launches128 = {'same_grid_conv': same_grid_conv.launches,
+                   'iws_combine': iws_combine.launches}
+    # --- end of the L=128 path ---
+    if launches128 != {'same_grid_conv': 2 * SITES_PER_BATCH, 'iws_combine': 2}:
+        raise AssertionError('launch counts {} for 2 batches at L={}'.format(
+            launches128, L_EVAL))
+    for o in outs128:
+        for m in METHODS:
+            if (o['scores'][m].shape != (BATCH_EVAL,)
+                    or not np.all(np.isfinite(o['scores'][m]))):
+                raise AssertionError('bad scores for {} at L={}'.format(m, L_EVAL))
+        if not np.all(np.isfinite(o['confidence'])):
+            raise AssertionError('bad confidence at L={}'.format(L_EVAL))
+    eval128 = {'L': L_EVAL, 'batch': BATCH_EVAL, 'batch_ms': ms128,
+               'launches': launches128}
+    print('serve_l128', json.dumps(eval128), flush=True)
+
     breakdown = profile_batch(scorer, xs[1])
 
     # --- card vs CPU on 8 inputs with injected noise ---
@@ -450,9 +584,9 @@ def serve(card: str):
                'batch': BATCH, 'batches': BATCHES,
                'L': L, 'accept_rate': accept,
                'card_vs_cpu_worst_elementwise_rel_err': worst,
-               'card': card, 'profile': breakdown}
+               'card': card, 'profile': breakdown, 'l128': eval128}
     print('serve', json.dumps(summary), flush=True)
-    return launches, summary
+    return launches, launches128, summary
 
 
 def main():
@@ -488,7 +622,7 @@ def main():
     conv_rows, conv = check_conv(sites)
     iws_rows, iws = check_iws()
     os.makedirs(WORK, exist_ok=True)
-    launches, summary = serve(card)
+    launches, launches128, summary = serve(card)
 
     kernels = [
         {'name': 'same_grid_conv', 'route': 'cuda',
@@ -509,11 +643,16 @@ def main():
          'source': 'joint_vae_tpu_torch/csrc/iws_combine.cu',
          'replaces': 'joint_vae_tpu/ops/pallas_kernels.py:99',
          'launches': launches['iws_combine'],
-         'max_abs_err': iws['max_abs_err'],
-         'ms': iws['ms'], 'kernel_ms': iws['ms'],
+         'launches_l128': launches128['iws_combine'],
+         'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
+         'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
-         'bound_by': iws['bound_by'], 'library_ms': None,
-         'per': 'one serve batch: L=16, N=512, C=100, K=128, reference mode',
+         'bound_by': iws['bound_by'], 'library_ms': iws['library_ms'],
+         'library': iws['library'],
+         'per': 'one serve batch: L=16, N=512, C=100, K=128, reference mode '
+                '(ms: device time, replayed from a CUDA graph; call_ms: '
+                'calls back to back, host included; library: a composite '
+                'of PyTorch calls); every case below',
          'cases': iws_rows},
     ]
     print(json.dumps({'kernels': kernels, 'serve': summary}), flush=True)

@@ -24,7 +24,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: every function returns its launch's cudaError_t as an int
+# C signatures: each launch returns its cudaError_t as an int
 SIGNATURES = {
     'same_grid_conv': {
         'same_grid_conv_f32': [_P, _P, _P] + [_I] * 9 + [_P],
@@ -32,6 +32,7 @@ SIGNATURES = {
     },
     'iws_combine': {
         'iws_combine_f32': [_P] * 6 + [_I] * 5 + [_P],
+        'iws_combine_splits': [_I] * 4,
     },
 }
 

@@ -82,3 +82,12 @@ def iws_combine(z: torch.Tensor, log_pxq: torch.Tensor, mean: torch.Tensor,
 
 
 iws_combine.launches = 0
+
+
+def kernel_splits(L: int, N: int, K: int, C: int) -> int:
+    """How many blocks of a cluster the kernel splits l across at this
+    shape on the current card (one launch whatever the split)."""
+    rc = cuda_lib.load('iws_combine').iws_combine_splits(L, N, K, C)
+    if rc < 0:
+        raise RuntimeError('iws_combine_splits: cudaError {}'.format(-rc))
+    return rc

@@ -5,7 +5,8 @@ against the JAX Pallas kernels in interpret mode and against the XLA
 references: the same-grid conv (``pallas_conv._same_grid_conv`` /
 ``_xla_conv``, asymmetric pads and a 3-channel head included) and the
 IWAE combine (``iws_fused(interpret=True)`` / ``iws_reference_combine``,
-on the four cases of tests/test_pallas.py).  Launch counters stay 0 on
+on the four cases of tests/test_pallas.py and on the shared ``IWS_CASES``,
+prior means at the flagship's scale 17 included).  Launch counters stay 0 on
 the CPU.  The CUDA kernels themselves are held against the plain versions
 on the card by test_torch_kernels_cuda.py.
 """
@@ -22,7 +23,8 @@ from joint_vae_tpu_torch.ops.iws import iws_combine, iws_combine_plain
 from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
                                                     same_grid_conv_plain)
 
-from torch_kernel_cases import CONV_GEOMS, conv_inputs, iws_inputs
+from torch_kernel_cases import (CONV_GEOMS, IWS_CASES, conv_inputs,
+                                iws_case_id, iws_case_inputs, iws_inputs)
 from torch_port_util import close
 
 @pytest.fixture
@@ -98,6 +100,30 @@ def test_iws_plain_sum_term_matches_jax(ref_mode, fresh_counters):
                                    atol=1e-4, err_msg=what)
 
 
+@pytest.mark.parametrize('ref_mode', [True, False])
+@pytest.mark.parametrize('case', IWS_CASES, ids=iws_case_id)
+def test_iws_cases_match_jax(case, ref_mode, fresh_counters):
+    """Elementwise, |got - want| <= 1e-4 + 1e-6 |want| against the XLA
+    combine, which sums (z - m)^2 directly as the plain version does.
+    ``iws_fused`` takes the zz - 2 zm + mm expansion, whose float32
+    cancellation costs up to ~2^-23 of 0.5 s2 (|z|^2 + |m|^2) per term
+    and per rounding; it is held to that scale, 2^-20 of it, on top
+    (about 0.08 at the prior scale 17, below 1e-5 at scale 0.1)."""
+    args = iws_case_inputs(case)
+    z, _, mean, s2, _ = args
+    got = iws_combine(*(torch.from_numpy(a) for a in args), ref_mode=ref_mode)
+    assert tuple(got.shape) == (case['C'], case['N'])
+    jargs = [jnp.asarray(a) for a in args]
+    want = np.asarray(iws_reference_combine(*jargs, ref_mode=ref_mode))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-4,
+                               err_msg='vs XLA combine')
+    cancel = 2.0 ** -20 * 0.5 * float(s2.max()) * float(
+        np.square(z).sum(-1).max() + np.square(mean).sum(-1).max())
+    fused = np.asarray(iws_fused(*jargs, ref_mode=ref_mode, interpret=True))
+    np.testing.assert_allclose(got.numpy(), fused, rtol=1e-6,
+                               atol=1e-4 + cancel, err_msg='vs pallas interpret')
+
+
 def test_wrappers_reject_bad_input(fresh_counters):
     x = torch.zeros(2, 4, 4, 3)
     with pytest.raises(ValueError):
@@ -109,4 +135,10 @@ def test_wrappers_reject_bad_input(fresh_counters):
     z = torch.zeros(2, 5, 4)
     with pytest.raises(ValueError):
         iws_combine(z, torch.zeros(2, 5), torch.zeros(3, 4), torch.zeros(3),
-                    torch.zeros(4))
+                    torch.zeros(4))                           # ldp (4,) != (3,)
+    with pytest.raises(ValueError):
+        iws_combine(z, torch.zeros(2, 5), torch.zeros(3, 5), torch.zeros(3),
+                    torch.zeros(3))                           # mean K != z K
+    with pytest.raises(ValueError):
+        iws_combine(z[0], torch.zeros(2, 5), torch.zeros(3, 4),
+                    torch.zeros(3), torch.zeros(3))           # z not (L,N,K)

@@ -11,11 +11,13 @@ import torch
 
 from joint_vae_tpu_torch.device import set_float32_math
 from joint_vae_tpu_torch.models.conv import ConvLayer, LayerPlan
-from joint_vae_tpu_torch.ops.iws import iws_combine, iws_combine_plain
+from joint_vae_tpu_torch.ops.iws import (iws_combine, iws_combine_plain,
+                                         kernel_splits)
 from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
                                                     same_grid_conv_plain)
 
-from torch_kernel_cases import (CONV_GEOMS, WIDE_CONV_GEOM, conv_inputs,
+from torch_kernel_cases import (CONV_GEOMS, IWS_CASES, WIDE_CONV_GEOM,
+                                conv_inputs, iws_case_id, iws_case_inputs,
                                 iws_inputs)
 
 
@@ -89,3 +91,61 @@ def test_iws_kernel_on_card(shape, ref_mode, cuda_device):
     # elementwise, far below the sum term (at least 1/L in reference mode)
     torch.testing.assert_close(
         got, iws_combine_plain(*args, ref_mode=ref_mode), rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ref_mode', [True, False])
+@pytest.mark.parametrize('case', IWS_CASES, ids=iws_case_id)
+def test_iws_case_on_card(case, ref_mode, cuda_device):
+    """The shared cases, prior means at scale 17 included, at the unchanged
+    elementwise gate; cases with few (C, N) tiles split l across the
+    blocks of a cluster."""
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in iws_case_inputs(case))
+    before = iws_combine.launches
+    got = iws_combine(*args, ref_mode=ref_mode)
+    torch.cuda.synchronize()
+    assert iws_combine.launches == before + 1
+    torch.testing.assert_close(
+        got, iws_combine_plain(*args, ref_mode=ref_mode), rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_iws_kernel_splits_and_unaligned_rows(cuda_device):
+    """L=128 over two (C, N) tiles takes a cluster of 8 or more; z and the means at
+    an offset of one float take the 4-byte copies."""
+    L, N, C, K = 128, 17, 10, 32
+    assert kernel_splits(L, N, K, C) >= 8
+    z, lp, mean, s2, ldp = (torch.from_numpy(a).to(cuda_device)
+                            for a in iws_inputs(L, N, C, K, seed=3))
+    zu = torch.empty(z.numel() + 1, device=cuda_device)[1:].view(z.shape)
+    mu = torch.empty(mean.numel() + 1, device=cuda_device)[1:].view(mean.shape)
+    zu.copy_(z)
+    mu.copy_(mean)
+    assert zu.is_contiguous() and zu.data_ptr() % 16 == 4
+    got = iws_combine(zu, lp, mu, s2, ldp)
+    torch.testing.assert_close(got, iws_combine_plain(z, lp, mean, s2, ldp),
+                               rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_iws_wrapper_refuses_on_card(cuda_device):
+    """What the kernel does not take raises, and nothing is counted: the
+    wrapper refuses types, layouts and devices, the kernel's planner a K
+    whose means and z slabs overflow shared memory (K > 352)."""
+    def args(L=2, N=5, C=3, K=4, **kw):
+        a = dict(z=torch.zeros(L, N, K), log_pxq=torch.zeros(L, N),
+                 mean=torch.zeros(C, K), s2=torch.ones(C),
+                 log_det_prior=torch.zeros(C))
+        a = {k: v.to(cuda_device) for k, v in a.items()}
+        a.update(kw)
+        return a
+    before = iws_combine.launches
+    bad = [args(z=torch.zeros(2, 5, 4, device=cuda_device, dtype=torch.float64)),
+           args(z=torch.zeros(2, 4, 5, device=cuda_device).transpose(1, 2)),
+           args(K=353),
+           args(s2=torch.ones(3))]                     # one input on the CPU
+    for a in bad:
+        with pytest.raises((TypeError, ValueError, RuntimeError)):
+            iws_combine(**a)
+    assert iws_combine.launches == before

@@ -28,15 +28,41 @@ def conv_inputs(geom, seed=0):
     return x, k
 
 
-def iws_inputs(L, N, C, K, seed=0):
+def iws_inputs(L, N, C, K, seed=0, mean_scale=0.1):
     """IWAE-combine inputs (z, log_pxq, mean, s2, log_det_prior) whose log
     weights spread by a few units over l, so that the sum term (mean-exp
-    or log-mean-exp), and not the max alone, carries the result."""
+    or log-mean-exp), and not the max alone, carries the result: z within
+    0.3 of its class mean per latent, log_pxq of unit noise about -1e3.
+    ``mean_scale`` 17 draws the means as the flagship's prior does
+    (``init_mean=17``, so |m|^2 ~ 289 K), where the true class's term is
+    a small difference of large norms."""
     rng = np.random.default_rng(seed)
-    mean = 0.1 * rng.standard_normal((C, K))
+    mean = mean_scale * rng.standard_normal((C, K))
     y = rng.integers(0, C, N)
     z = mean[y][None] + 0.3 * rng.standard_normal((L, N, K))
     lp = -1e3 + rng.standard_normal((L, N))
     vp = rng.uniform(0.5, 1.5, C)
     return tuple(a.astype(np.float32) for a in
                  (z, lp, mean, vp * vp, -2.0 * K * np.log(vp)))
+
+
+# IWAE-combine cases (L, N, C, K, mean scale), shared by the CPU tests
+# against the JAX package and the card tests against the plain version
+IWS_CASES = [
+    dict(L=16, N=32, C=100, K=128, mean_scale=17.0),   # the flagship's prior scale
+    dict(L=1, N=17, C=10, K=32, mean_scale=0.1),
+    dict(L=3, N=17, C=10, K=32, mean_scale=0.1),
+    dict(L=128, N=17, C=10, K=32, mean_scale=0.1),     # the reference's eval L
+    dict(L=8, N=33, C=12, K=20, mean_scale=0.1),       # K % 4 != 0
+    dict(L=8, N=40, C=1, K=16, mean_scale=0.1),
+    dict(L=4, N=24, C=40, K=256, mean_scale=0.1),      # the imagenet64 K
+]
+
+
+def iws_case_id(case):
+    return 'L{L}-N{N}-C{C}-K{K}-m{mean_scale:g}'.format(**case)
+
+
+def iws_case_inputs(case, seed=0):
+    return iws_inputs(case['L'], case['N'], case['C'], case['K'], seed=seed,
+                      mean_scale=case['mean_scale'])
