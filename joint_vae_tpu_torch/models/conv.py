@@ -15,11 +15,12 @@ module/vae_layers/conv.py:20-105 and conv-models.ini):
 The (de)convs follow the JAX package's lowerings (``conv_route``): every
 stride-1 conv or deconv whose output grid equals its input grid, and every
 stride-s deconv whose sub-pixel form keeps the grid, runs through
-:func:`ops.same_grid_conv.same_grid_conv` (the CUDA kernel on the card);
-the 1x1 latent expansion is one ``torch.matmul``.  The rest is PyTorch:
-strided convs and stride-1 convs that change the grid (``F.conv2d``), the
-other strided deconvs (``F.conv_transpose2d``), pooling, upsampling and
-eval-mode BatchNorm.  The JAX package's TPU-only lowerings (the
+:class:`ops.same_grid_conv.SameGridConvFn` (the CUDA kernel on the card,
+forward and input gradient); the 1x1 latent expansion is one
+``torch.matmul``.  The rest is PyTorch, gradients included: strided convs
+and stride-1 convs that change the grid (``F.conv2d``), the other strided
+deconvs (``F.conv_transpose2d``), pooling, upsampling and BatchNorm (flax
+semantics in both modes).  The JAX package's TPU-only lowerings (the
 phase-packed decoder whose packing persists through later layers, the
 grouped and c0-packed first conv) are not ported.
 Parameters keep the JAX tree names (``conv_3``, ``deconv_1``, ``bn_2``) and
@@ -36,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.same_grid_conv import same_grid_conv
+from ..ops.same_grid_conv import SameGridConvFn
 
 FEATURES_ARCHS = {
     'vgg11': '[x3-Mx2]64-M-128-M-256-256-M-512-512-M-512-512-M-Ax1',
@@ -433,11 +434,11 @@ class ConvLayer(nn.Module):
         wt = self.weight.to(x.dtype)
         if self.route == 'same_grid':
             lo = self.pads[0]
-            y = same_grid_conv(x.contiguous(), wt, lo, lo)
+            y = SameGridConvFn.apply(x.contiguous(), wt, lo, lo)
         elif self.route == 'subpixel':
             lo = self.pads[0]
             kd = _packed_kernel(wt, self.tap, self.tap).contiguous()
-            y = _unpack_to(same_grid_conv(x.contiguous(), kd, lo, lo),
+            y = _unpack_to(SameGridConvFn.apply(x.contiguous(), kd, lo, lo),
                            self.stride, *self.out_hw)
         elif self.route == 'matmul':
             k, p = self.kernel_size, self.padding
@@ -462,8 +463,16 @@ class ConvLayer(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over the last (channel) axis, flax
-    semantics (epsilon 1e-5); train-mode statistics come with training."""
+    """BatchNorm over the last (channel) axis with flax ``nn.BatchNorm``
+    semantics (epsilon 1e-5, momentum 0.99).  At inference it normalises
+    with the running statistics.  In training it normalises with the batch
+    mean and the biased batch variance over every other axis (flax's
+    E[x^2] - E[x]^2, clipped at 0) and, when ``updates`` is a dict, records
+    the new running statistics there under this module:
+    ``0.99 running + 0.01 batch`` (the biased variance again); the buffers
+    change only when the caller applies them (``apply_bn_updates``)."""
+
+    momentum = 0.99
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -473,10 +482,33 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(channels))
         self.register_buffer('running_var', torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean.to(x.dtype)) * mul.to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                updates: Optional[dict] = None) -> torch.Tensor:
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            xf = x.float()
+            mean = torch.mean(xf, dim=axes)
+            var = torch.clamp(torch.mean(torch.square(xf), dim=axes)
+                              - torch.square(mean), min=0.0)
+            if updates is not None:
+                m = self.momentum
+                updates[self] = (
+                    m * self.running_mean + (1 - m) * mean.detach(),
+                    m * self.running_var + (1 - m) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean.to(x.dtype)) * mul.to(x.dtype)
                 + self.bias.to(x.dtype))
+
+
+def apply_bn_updates(updates: dict) -> None:
+    """Copy the running statistics recorded by BatchNorm modules in
+    training (``{module: (mean, var)}``) into their buffers."""
+    with torch.no_grad():
+        for bn, (mean, var) in updates.items():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
 
 
 class ConvStack(nn.Module):
@@ -508,7 +540,10 @@ class ConvStack(nn.Module):
         return [(n, m) for n, m in self.named_children()
                 if isinstance(m, ConvLayer)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                bn_updates: Optional[dict] = None) -> torch.Tensor:
+        """``train`` switches BatchNorm to batch statistics, recorded
+        into ``bn_updates`` when given (:class:`BatchNorm`)."""
         lead = x.shape[:-3]
         c0, h0, w0 = self.input_shape
         x = x.reshape((-1, c0, h0, w0)).permute(0, 2, 3, 1).to(self.dtype)
@@ -528,7 +563,7 @@ class ConvStack(nn.Module):
                            .repeat_interleave(pl.stride, dim=3)
                 x = xc.permute(0, 2, 3, 1)
             if pl.batch_norm:
-                x = getattr(self, 'bn_{}'.format(i))(x)
+                x = getattr(self, 'bn_{}'.format(i))(x, train, bn_updates)
             if pl.activation is not None:
                 x = ACTIVATIONS[pl.activation](x)
         x = x.permute(0, 3, 1, 2)                       # NHWC -> NCHW

@@ -360,11 +360,13 @@ class CVNet(nn.Module):
             int(np.prod(encoder_input_shape)), cfg.latent_dim, cfg.num_labels,
             cfg.encoder, y_is_coded=cfg.y_is_coded, activation=cfg.activation,
             sigma_output_dim=sigma_head,
-            forced_variance=cfg.encoder_forced_variance, dtype=dtype)
+            forced_variance=cfg.encoder_forced_variance, dtype=dtype,
+            dropout=cfg.dropout)
 
         self.decoder = self.imager = None
         if cfg.x_is_generated:
-            self.decoder = MLP(cfg.latent_dim, cfg.decoder, cfg.activation, dtype)
+            self.decoder = MLP(cfg.latent_dim, cfg.decoder, cfg.activation, dtype,
+                               cfg.dropout)
             imager_input_dim = self.decoder.out_features
             if cfg.upsampler:
                 hw = find_input_shape(cfg.upsampler, cfg.input_shape[1:])
@@ -402,26 +404,38 @@ class CVNet(nn.Module):
                 torch.full((cfg.sigma_cfg.sdim,), v0, dtype=torch.float32))
 
     # ------ sub-applies ------
+    # ``train`` switches the MLPs' dropout (drawn from ``generator``) and
+    # the conv stacks' BatchNorm to training; ``bn_train`` overrides it for
+    # the conv imager only, and ``bn_updates`` collects the new BatchNorm
+    # running statistics (``models/conv.py``).
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False,
+                 bn_updates: Optional[dict] = None) -> torch.Tensor:
         if self.cfg.representation == 'hsv' and x.shape[-3] == 3:
             from .representation import rgb2hsv
             x = rgb2hsv(x)
         if self.features_stack is None:
             return x
-        return self.features_stack(x)
+        return self.features_stack(x, train, bn_updates)
 
-    def encode(self, t: torch.Tensor, y_onehot: Optional[torch.Tensor] = None):
+    def encode(self, t: torch.Tensor, y_onehot: Optional[torch.Tensor] = None,
+               train: bool = False,
+               generator: Optional[torch.Generator] = None):
         """t (..., *encoder_input_shape) -> (mu, log_var, sigma_coded)."""
         flat = t.reshape(t.shape[:t.ndim - len(self.encoder_input_shape)] + (-1,))
-        return self.encoder(flat, y_onehot)
+        return self.encoder(flat, y_onehot, train, generator)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, train: bool = False,
+               bn_train: Optional[bool] = None,
+               generator: Optional[torch.Generator] = None,
+               bn_updates: Optional[dict] = None) -> torch.Tensor:
         """z (..., K) -> reconstruction (..., [256,] *input_shape)."""
-        u = self.decoder(z)
+        u = self.decoder(z, train, generator)
         if isinstance(self.imager, ConvStack):
             lead = u.shape[:-1]
-            out = self.imager(u.reshape((-1,) + tuple(self.imager_input_shape)))
+            out = self.imager(u.reshape((-1,) + tuple(self.imager_input_shape)),
+                              train if bn_train is None else bn_train,
+                              bn_updates)
             return out.reshape(lead + out.shape[1:])
         return self.imager(u)
 

@@ -1,9 +1,8 @@
-"""The evaluation engine at inference: forward + losses + measures for all
-five types.
+"""The evaluation engine: forward + losses + measures for all five types,
+at inference and in training.
 
-Port of the ``train=False`` branch of ``joint_vae_tpu/models/evaluate.py``
-(ref cvae.py:523-917).  The (L+1) latent-sample axis and the C class axis
-are broadcast dims: per-class evaluation of a cvae runs the encoder and
+Port of ``joint_vae_tpu/models/evaluate.py`` (ref cvae.py:523-917).  The
+(L+1) latent-sample axis and the C class axis are broadcast dims: per-class evaluation of a cvae runs the encoder and
 decoder once per input and the class axis enters through the prior; for
 y-coded types (jvae/xvae) features are computed once and broadcast along C
 before the encoder.  ``iws_mode='reference'`` keeps the reference's
@@ -11,14 +10,18 @@ published estimator (mean(exp(delta)) + max), 'lme' the log-mean-exp.
 
 The per-class IWAE combine of a class-conditional gaussian prior with
 scalar variance goes through :func:`ops.iws.iws_combine` (the CUDA kernel
-on the card); every other combine is plain PyTorch.  Train-mode updates
-(sigma tracking, BatchNorm statistics) come with the training port.
+on the card); every other combine is plain PyTorch.  In training
+(``train=True``) gradients are on, the mean sample is not decoded, the
+KL carries beta and the warmup weights, cross_y enters the total for
+cvae/vae too, the sigma state tracks the rmse and BatchNorm uses batch
+statistics (their running updates returned when asked).
 
 Loss shapes: per-class (C, N); per-input (N,); 'total' broadcasts.
 """
 
 import dataclasses
 import math
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -28,7 +31,8 @@ from ..ops.iws import iws_combine
 from ..ops.losses import categorical_loss, mse_loss, x_loss
 from ..ops.priors import prior_kl, prior_log_density
 from ..ops.sampling import reparameterize
-from ..ops.sigma import SigmaState, sigma_value, update_sigma_coded
+from ..ops.sigma import (SigmaState, sigma_value, update_sigma_coded,
+                         update_sigma_rmse)
 from .cvnet import CVNet
 from .layers import capacity, dict_min_distance, onehot_encoding
 
@@ -47,19 +51,49 @@ class EvalOutput:
     sigma_state: SigmaState
 
 
-@torch.no_grad()
 def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
              *, sigma_state: SigmaState,
+             train: bool = False,
+             with_beta: bool = False,
+             kl_var_weighting: float = 1.0,
+             gamma_weighting: float = 1.0,
              L: Optional[int] = None,
+             compute_iws: Optional[bool] = None,
+             return_bn_updates: bool = False,
              decode_mean: bool = True,
+             bn_eval: bool = False,
+             native_scores: bool = False,
              eps: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None) -> EvalOutput:
-    """Evaluate a batch at inference.
+             generator: Optional[torch.Generator] = None):
+    """Evaluate a batch; returns EvalOutput, and with ``return_bn_updates``
+    also the BatchNorm running statistics of a training pass as
+    ``{module: (mean, var)}`` (``models/conv.py::apply_bn_updates``).
 
     x (N, *input_shape); y (N,) int labels or None (per-class evaluation).
     ``eps`` (L+1, *mu.shape) injects the latent noise (row 0 zeros);
-    otherwise it is drawn from ``generator``.  ``decode_mean=False`` skips
-    decoding the mean sample (scoring-only callers)."""
+    otherwise it is drawn from ``generator``, as is the dropout mask.
+    ``decode_mean=False`` skips decoding the mean sample (scoring-only
+    callers; training never decodes it).  ``compute_iws`` defaults to
+    ``not train``.  ``bn_eval`` keeps BatchNorm on its running statistics
+    while the rest trains.  Gradients are enabled only in training.
+    ``native_scores`` is the JAX package's TPU layout choice for the
+    reconstruction losses (equal losses); it is accepted and the port
+    computes in NCHW."""
+    grad_ctx = contextlib.nullcontext() if train else torch.no_grad()
+    with grad_ctx:
+        return _evaluate(model, x, y, sigma_state=sigma_state, train=train,
+                         with_beta=with_beta,
+                         kl_var_weighting=kl_var_weighting,
+                         gamma_weighting=gamma_weighting, L=L,
+                         compute_iws=compute_iws,
+                         return_bn_updates=return_bn_updates,
+                         decode_mean=decode_mean, bn_eval=bn_eval, eps=eps,
+                         generator=generator)
+
+
+def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
+              gamma_weighting, L, compute_iws, return_bn_updates, decode_mean,
+              bn_eval, eps, generator):
     cfg = model.cfg
     C = cfg.num_labels
     N = x.shape[0]
@@ -68,10 +102,16 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
     y_in_input = y is not None
     x_rep = cfg.y_is_coded and not y_in_input
     per_class = cfg.losses_per_class and not y_in_input
+    if compute_iws is None:
+        compute_iws = not train
     if L is None:
-        L = cfg.test_latent_sampling
+        L = cfg.latent_sampling if train else cfg.test_latent_sampling
     # the TRAIN-time L and beta decide whether the latent is stochastic
     sampled = cfg.latent_sampling > 1 or cfg.beta > 0
+    # the mean sample's reconstruction is not decoded in training
+    decode_mean = decode_mean and not train
+    mtrain = train and not bn_eval          # BatchNorm's mode
+    bn_updates = {} if (mtrain and return_bn_updates) else None
 
     prior_cfg = cfg.prior
     prior_params = model.prior()
@@ -81,16 +121,17 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
         y_fwd = torch.arange(C, device=x.device)[:, None].expand(C, N)
 
     # ---- forward: features -> encode -> sample -> decode -> classify ----
-    t = model.features(x)
+    t = model.features(x, mtrain, bn_updates)
     if x_rep:
         t = t[None].expand((C,) + t.shape)
     y_onehot = onehot_encoding(y_fwd, C, cfg.dtype) if cfg.y_is_coded else None
-    mu, log_var, sigma_coded = model.encode(t, y_onehot)
+    mu, log_var, sigma_coded = model.encode(t, y_onehot, train, generator)
     dist = 'uniform' if prior_cfg.distribution == 'uniform' else 'gaussian'
     z, eps_used = reparameterize(mu, log_var, L, dist, sampled, eps=eps,
                                  generator=generator)
     if cfg.x_is_generated:
-        x_reco = model.decode(z if decode_mean else z[1:])
+        x_reco = model.decode(z if decode_mean else z[1:], train, mtrain,
+                              generator, bn_updates)
     else:
         x_reco = x
     logits = model.classify(z)
@@ -166,6 +207,10 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
             cross_x = torch.mean(cat_ce_l, dim=0)
             log_iws = -cat_ce_l
         losses['cross_x'] = cross_x
+        if train and not scfg.coded:
+            new_sigma_state = update_sigma_rmse(
+                scfg, new_sigma_state,
+                torch.sqrt(torch.clamp(measures['mse'], min=0.0)))
 
     if cfg.x_is_generated and scfg.learned and not scfg.coded:
         measures['sigma'] = torch.sqrt(torch.mean(torch.square(sigma_div.float())))
@@ -183,7 +228,8 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
         else:
             all_classes = True
     kl_components = prior_kl(prior_cfg, prior_params, mu, log_var,
-                             y=y_for_prior, all_classes=all_classes)
+                             y=y_for_prior, var_weighting=kl_var_weighting,
+                             all_classes=all_classes)
     losses['kl'] = kl_components['kl']
     losses['zdist'] = kl_components['distance']
     losses['var_kl'] = kl_components['var_kl']
@@ -208,7 +254,7 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
         losses['cross_y'] = x_loss(y_for_xloss, logits, batch_mean=False)
 
     # ---- IWAE importance weights (ref cvae.py:793-873) ----
-    if cfg.x_is_generated:
+    if compute_iws and cfg.x_is_generated:
         z1 = z[1:].float()                             # (L, [C,] N, K)
         K = log_var.shape[-1]
         log_inv_q = (0.5 * (eps_norm + torch.sum(log_var.float(), dim=-1))
@@ -257,13 +303,19 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
     total = torch.zeros_like(losses['kl'])
     if cfg.x_is_generated:
         total = total + losses['cross_x']
-    if cfg.y_is_decoded and cfg.gamma and not (cfg.is_cvae or cfg.is_vae):
-        total = total + cfg.gamma * losses['cross_y']
-    total = total + losses['kl']       # beta weights the KL in training only
+    # cross_y: with gamma, and for cvae/vae in training only
+    if (cfg.y_is_decoded and cfg.gamma
+            and (train or not (cfg.is_cvae or cfg.is_vae))):
+        total = total + (gamma_weighting * cfg.gamma) * losses['cross_y']
+    beta = cfg.beta if with_beta else 1.0
+    total = total + beta * losses['kl']
     losses['total'] = total
 
     logits_out = (torch.mean(logits[1:], dim=0) if logits.shape[0] > 1
                   else logits[0])
-    return EvalOutput(x_reco=x_reco, logits=logits_out, losses=losses,
-                      measures=measures, mu=mu, log_var=log_var, z=z,
-                      sigma_state=new_sigma_state)
+    out = EvalOutput(x_reco=x_reco, logits=logits_out, losses=losses,
+                     measures=measures, mu=mu, log_var=log_var, z=z,
+                     sigma_state=new_sigma_state)
+    if return_bn_updates:
+        return out, (bn_updates or {})
+    return out

@@ -42,24 +42,41 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    1 - rate (a uniform draw from ``generator`` below 1 - rate) and scale
+    the kept ones by 1 / (1 - rate); all zeros at rate 1."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 class MLP(nn.Module):
-    """Dense + activation stack over the last axis (dropout is a training
-    concern: identity at inference)."""
+    """Dense + activation (+ dropout in training) stack over the last
+    axis."""
 
     def __init__(self, in_features: int, dims: Sequence[int],
-                 activation: str = 'relu', dtype=torch.float32):
+                 activation: str = 'relu', dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dims = tuple(dims)
         self.act = ACTIVATIONS[activation]
+        self.dropout = dropout
         d = in_features
         for i, o in enumerate(self.dims):
             self.add_module('dense_{}'.format(i), Dense(d, o, dtype))
             d = o
         self.out_features = d
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(len(self.dims)):
             x = self.act(getattr(self, 'dense_{}'.format(i))(x))
+            if train and self.dropout:
+                x = dropout(x, self.dropout, generator)
         return x
 
 
@@ -73,26 +90,29 @@ class Encoder(nn.Module):
                  intermediate_dims: Sequence[int] = (64,),
                  y_is_coded: bool = False, activation: str = 'relu',
                  sigma_output_dim: int = 0, forced_variance: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
         self.y_is_coded = y_is_coded
         self.num_labels = num_labels
         self.forced_variance = forced_variance
         d_in = input_dim + (num_labels if y_is_coded else 0)
-        self.dense_projs = MLP(d_in, intermediate_dims, activation, dtype)
+        self.dense_projs = MLP(d_in, intermediate_dims, activation, dtype,
+                               dropout)
         u = self.dense_projs.out_features
         self.dense_mean = Dense(u, latent_dim, dtype)
         if not forced_variance:
             self.dense_log_var = Dense(u, latent_dim, dtype)
         self.sigma = Dense(u, sigma_output_dim, dtype) if sigma_output_dim else None
 
-    def forward(self, x: torch.Tensor, y_onehot: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, y_onehot: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         if self.y_is_coded:
             if y_onehot is None:
                 raise ValueError('y is supposed to be an input of the net')
             x = torch.cat([x, y_onehot.expand(x.shape[:-1] + (self.num_labels,))
                            .to(x.dtype)], dim=-1)
-        u = self.dense_projs(x)
+        u = self.dense_projs(x, train, generator)
         z_mean = self.dense_mean(u)
         if self.forced_variance:
             z_log_var = torch.full_like(z_mean, math.log(self.forced_variance))

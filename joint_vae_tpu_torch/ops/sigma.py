@@ -3,9 +3,9 @@
 
 Port of ``joint_vae_tpu/ops/sigma.py`` (ref ``Sigma``,
 module/vae_layers/layers.py:73-213).  Modes: constant, learned (a
-log-sigma parameter), rmse, decay-to-rmse, coded (an encoder head).  The
-serving path only reads the state; ``update_sigma_coded`` records the
-coded head's batch mean, as the reference does in eval too.
+log-sigma parameter), rmse, decay-to-rmse, coded (an encoder head).
+Training moves the state with ``update_sigma_rmse``; ``update_sigma_coded``
+records the coded head's batch mean, as the reference does in eval too.
 """
 
 import dataclasses
@@ -97,8 +97,22 @@ def sigma_value(cfg: SigmaConfig, state: SigmaState) -> torch.Tensor:
     return torch.sqrt(torch.mean(v))
 
 
+def update_sigma_rmse(cfg: SigmaConfig, state: SigmaState,
+                      rmse: torch.Tensor) -> SigmaState:
+    """Decay-to-rmse update (ref Sigma.update, layers.py:146-168): records
+    ``rmse``; unless sigma is learned or does not decay, moves the data by
+    decay * (reach * rmse - data), clipped to +-max_step."""
+    rmse = rmse.detach()
+    if cfg.learned or not cfg.decay:
+        return SigmaState(data=state.data, rmse=rmse)
+    delta = cfg.decay * (cfg.reach * rmse - state.data)
+    if cfg.max_step:
+        delta = torch.clamp(delta, -cfg.max_step, cfg.max_step)
+    return SigmaState(data=state.data + delta, rmse=rmse)
+
+
 def update_sigma_coded(cfg: SigmaConfig, state: SigmaState,
                        coded: torch.Tensor) -> SigmaState:
     """Record the batch mean of the coded sigma head."""
     flat = coded.reshape(-1, cfg.sdim) if cfg.per_dim else coded.reshape(-1, 1)
-    return SigmaState(data=torch.mean(flat, dim=0), rmse=state.rmse)
+    return SigmaState(data=torch.mean(flat, dim=0).detach(), rmse=state.rmse)

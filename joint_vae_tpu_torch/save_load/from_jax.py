@@ -16,6 +16,21 @@ The port's modules carry the same names, so a path maps to a
 
 Both directions are exact (transposes and flips), so JAX -> port -> JAX
 returns the same bits.
+
+The optimizer state (``optimizer.npz``) is the flattened optax chain of
+``train/optimizers.py::build_optimizer`` in the JAX package; its keys
+depend on the chain's composition (``c`` = 1 with gradient clipping, else
+0; ``a`` = 1 with weight decay, else 0)::
+
+    {c}/count                           updates applied
+    {c}/hyperparams/learning_rate       the injected learning rate
+    {c}/inner_state/{a}/count           scale_by_adam's count
+    {c}/inner_state/{a}/mu/<param path> first moments (adam)
+    {c}/inner_state/{a}/nu/<param path> second moments (adam)
+    {c}/inner_state/{a}/trace/<param path>  momentum (sgd)
+
+with each moment in its parameter's JAX layout (converted like the
+parameter itself).
 """
 
 from typing import Dict
@@ -55,6 +70,78 @@ def _entries(model: nn.Module):
     if hasattr(model, 'sigma_param'):
         out.append(('params/sigma_param', 'sigma_param', None, None))
     return out
+
+
+def param_paths(model: nn.Module) -> Dict[str, str]:
+    """state_dict key of each parameter -> its JAX path under ``params/``
+    (``features_stack/conv_0/kernel``)."""
+    return {tkey: jkey[len('params/'):] for jkey, tkey, _, _ in _entries(model)
+            if jkey.startswith('params/')}
+
+
+def _opt_prefixes(opt_cfg):
+    c = 1 if opt_cfg.grad_clipping else 0
+    a = 1 if opt_cfg.weight_decay else 0
+    return '{}/'.format(c), '{}/inner_state/{}/'.format(c, a)
+
+
+def opt_state_to_jax(model: nn.Module, opt_cfg, opt_state
+                     ) -> Dict[str, np.ndarray]:
+    """The port's ``OptState`` -> the JAX package's optimizer.npz arrays."""
+    outer, inner = _opt_prefixes(opt_cfg)
+    out = {outer + 'count': np.asarray(opt_state.count, np.int32),
+           outer + 'hyperparams/learning_rate':
+               np.asarray(opt_state.learning_rate, np.float32)}
+    conv = {tkey: (jkey[len('params/'):], to_jax)
+            for jkey, tkey, _, to_jax in _entries(model)
+            if jkey.startswith('params/')}
+    moments = {'mu': opt_state.mu, 'nu': opt_state.nu,
+               'trace': opt_state.trace}
+    if opt_cfg.optim_type == 'adam':
+        out[inner + 'count'] = np.asarray(opt_state.adam_count, np.int32)
+    for kind, tensors in moments.items():
+        for tkey, t in tensors.items():
+            path, to_jax = conv[tkey]
+            t = t.detach().cpu().float()
+            if to_jax is not None:
+                t = to_jax(t)
+            out['{}{}/{}'.format(inner, kind, path)] = t.contiguous().numpy()
+    return out
+
+
+def jax_to_opt_state(model: nn.Module, opt_cfg, arrays: Dict[str, np.ndarray],
+                     opt_state):
+    """Fill ``opt_state`` (a fresh ``OptState`` for ``model``, on its
+    device) from optimizer.npz arrays; leaves the file lacks keep their
+    fresh values (as the JAX package's lenient load does)."""
+    outer, inner = _opt_prefixes(opt_cfg)
+    if outer + 'count' in arrays:
+        opt_state.count = int(arrays[outer + 'count'])
+    if outer + 'hyperparams/learning_rate' in arrays:
+        opt_state.learning_rate = float(np.float32(
+            arrays[outer + 'hyperparams/learning_rate']))
+    if inner + 'count' in arrays:
+        opt_state.adam_count = int(arrays[inner + 'count'])
+    conv = {tkey: (jkey[len('params/'):], to_port)
+            for jkey, tkey, to_port, _ in _entries(model)
+            if jkey.startswith('params/')}
+    for kind in ('mu', 'nu', 'trace'):
+        tensors = getattr(opt_state, kind)
+        for tkey, t in tensors.items():
+            path, to_port = conv[tkey]
+            key = '{}{}/{}'.format(inner, kind, path)
+            if key not in arrays:
+                continue
+            a = torch.from_numpy(np.array(arrays[key], dtype=np.float32))
+            if to_port is not None:
+                a = to_port(a)
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError('optimizer leaf {} has shape {}, the model '
+                                 'expects {}'.format(key, tuple(a.shape),
+                                                     tuple(t.shape)))
+            with torch.no_grad():
+                t.copy_(a)
+    return opt_state
 
 
 def jax_to_state_dict(model: nn.Module, arrays: Dict[str, np.ndarray]

@@ -45,7 +45,8 @@ def test_no_jax_import_in_source(path):
 def test_clean_import_loads_no_jax():
     code = ('import sys; sys.path.insert(0, {root!r}); '
             'import chip_smoke, joint_vae_tpu_torch.serve, '
-            'joint_vae_tpu_torch.cli.serve, joint_vae_tpu_torch.save_load.jobs; '
+            'joint_vae_tpu_torch.cli.serve, joint_vae_tpu_torch.save_load.jobs, '
+            'joint_vae_tpu_torch.train.trainer; '
             'bad = [m for m in sys.modules if m.split(".")[0] in {bad!r}]; '
             'print(bad); sys.exit(1 if bad else 0)').format(
                 root=ROOT, bad=FORBIDDEN)

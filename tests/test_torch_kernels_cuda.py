@@ -13,12 +13,23 @@ from joint_vae_tpu_torch.device import set_float32_math
 from joint_vae_tpu_torch.models.conv import ConvLayer, LayerPlan
 from joint_vae_tpu_torch.ops.iws import (iws_combine, iws_combine_plain,
                                          kernel_splits)
-from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
+from joint_vae_tpu_torch.ops.same_grid_conv import (SameGridConvFn,
+                                                    same_grid_conv,
+                                                    same_grid_conv_dx,
                                                     same_grid_conv_plain)
 
-from torch_kernel_cases import (CONV_GEOMS, IWS_CASES, WIDE_CONV_GEOM,
-                                conv_inputs, iws_case_id, iws_case_inputs,
-                                iws_inputs)
+from torch_kernel_cases import (CONV_GEOMS, FLAGSHIP_DX_GEOMS, IWS_CASES,
+                                WIDE_CONV_GEOM, conv_inputs, iws_case_id,
+                                iws_case_inputs, iws_inputs)
+
+# the conv gate's float32 tolerance (chip_smoke.py): |got - want| <=
+# tol (|want| + rms(want)), sums of up to 1,600 products in another order
+CONV_F32_TOL = 1e-4
+
+
+def conv_gate(got, want, tol=CONV_F32_TOL):
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * want.square().mean().sqrt().item())
 
 
 def close(got, want, tol):
@@ -149,3 +160,85 @@ def test_iws_wrapper_refuses_on_card(cuda_device):
         with pytest.raises((TypeError, ValueError, RuntimeError)):
             iws_combine(**a)
     assert iws_combine.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('site', sorted(FLAGSHIP_DX_GEOMS))
+def test_conv_fn_grads_on_card(site, cuda_device):
+    """SameGridConvFn under autograd at the flagship's dx geometries: dx
+    on the kernel (one dx launch, ci and co swapped: conv_6's 3 -> 32),
+    dw on the library, both against autograd through the plain version."""
+    set_float32_math()
+    geom = FLAGSHIP_DX_GEOMS[site]
+    n, h, w, ci, co, th, tw, ph, pw = geom
+    x, k = (torch.from_numpy(a).to(cuda_device) for a in conv_inputs(geom))
+    g = 0.05 * torch.randn((n, h, w, co), device=cuda_device,
+                           generator=torch.Generator(cuda_device).manual_seed(1))
+    xk = [x.clone().requires_grad_(), k.clone().requires_grad_()]
+    before = (same_grid_conv.launches, same_grid_conv_dx.launches)
+    y = SameGridConvFn.apply(xk[0], xk[1], ph, pw)
+    dx, dw = torch.autograd.grad(y, xk, g)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, same_grid_conv_dx.launches) == (
+        before[0] + 1, before[1] + 1)
+    xp = [x.clone().requires_grad_(), k.clone().requires_grad_()]
+    want_dx, want_dw = torch.autograd.grad(
+        same_grid_conv_plain(xp[0], xp[1], ph, pw), xp, g)
+    conv_gate(dx, want_dx)
+    conv_gate(dw, want_dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('geom', [(8, 32, 32, 32, 32, 5, 2, 2),    # conv_1
+                                  (8, 16, 16, 64, 64, 5, 2, 2),    # conv_3
+                                  (8, 8, 8, 64, 200, 7, 1, 0)])    # conv_4
+def test_library_conv_grads_on_card(geom, cuda_device):
+    """The flagship's convs that stay on the library (cuDNN, forward and
+    both gradients under autograd) in float32 against float64."""
+    import torch.nn.functional as F
+    set_float32_math()
+    n, h, w, ci, co, k, s, p = geom
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    x = torch.rand((n, h, w, ci), device=cuda_device, generator=gen)
+    wt = torch.randn((co, ci, k, k), device=cuda_device, generator=gen) / k
+    got, want = [], []
+    for dt, out in ((torch.float32, got), (torch.float64, want)):
+        xk = [x.to(dt).requires_grad_(), wt.to(dt).requires_grad_()]
+        y = F.conv2d(xk[0].permute(0, 3, 1, 2), xk[1], stride=s, padding=p)
+        g = torch.cos(torch.arange(y.numel(), device=cuda_device,
+                                   dtype=dt)).reshape(y.shape)
+        out += [y, *torch.autograd.grad(y, xk, g)]
+    for a, b in zip(got, want):
+        conv_gate(a.double(), b)
+
+
+@pytest.mark.cuda
+def test_full_width_backward_on_card(cuda_device):
+    """One backward through the full-width flagship on the card: 8 forward
+    and 7 dx launches, and every parameter that trains gets a finite,
+    nonzero gradient (nothing dropped on the way through the kernel)."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet, flagship_config, init_weights
+    from joint_vae_tpu_torch.models.evaluate import evaluate
+    from joint_vae_tpu_torch.ops.sigma import init_sigma_state
+    from joint_vae_tpu_torch.train.state import grad_mask
+    set_float32_math()
+    cfg = flagship_config()
+    model = init_weights(CVNet(cfg), 0).to(cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.rand((16,) + cfg.input_shape, device=cuda_device, generator=gen)
+    y = torch.randint(0, cfg.num_labels, (16,), device=cuda_device,
+                      generator=gen)
+    same_grid_conv.launches = same_grid_conv_dx.launches = 0
+    out = evaluate(model, x, y, sigma_state=init_sigma_state(cfg.sigma_cfg,
+                                                             cuda_device),
+                   train=True, with_beta=True, generator=gen)
+    torch.mean(out.losses['total']).backward()
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, same_grid_conv_dx.launches) == (8, 7)
+    mask = grad_mask(model)
+    for name, p in model.named_parameters():
+        if not mask[name]:
+            continue
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        assert torch.count_nonzero(p.grad) > 0, name

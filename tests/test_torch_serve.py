@@ -23,6 +23,8 @@ from joint_vae_tpu_torch import serve as tserve
 from joint_vae_tpu_torch.models.cvnet import flagship_config
 from joint_vae_tpu_torch.save_load import jobs as tjobs
 from joint_vae_tpu_torch.save_load.from_jax import state_dict_to_jax
+from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+from joint_vae_tpu_torch.train.state import create_train_state
 
 from torch_port_util import (close, inject_jax_eps, jax_arrays, make_eps,
                              port_model, port_sigma_state)
@@ -57,8 +59,9 @@ def x():
 
 def _port_job(jax_job):
     model = port_model(jax_job.model_cfg, jax_job.state)
-    return tjobs.Job(model_cfg=model.cfg, model=model,
-                     sigma_state=port_sigma_state(jax_job.state))
+    state = create_train_state(model, OptimizerConfig(),
+                               sigma_state=port_sigma_state(jax_job.state))
+    return tjobs.Job(model_cfg=model.cfg, state=state)
 
 
 def _compare(got, want):

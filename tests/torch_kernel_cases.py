@@ -19,6 +19,20 @@ CONV_GEOMS = [
 ]
 WIDE_CONV_GEOM = (3, 40, 70, 17, 40, 3, 3, 1, 1)   # several column tiles
 
+# The forward geometries (n, h, w, ci, co, th, tw, ph_lo, pw_lo) of the
+# flagship's seven same-grid sites whose input gradient a train step
+# launches (features conv_0 reads the data and has none); dx swaps ci and
+# co: conv_6's is 3 -> 32, the sub-pixel ones 256 -> 64 and 128 -> 32.
+FLAGSHIP_DX_GEOMS = {
+    'features_stack.conv_2': (8, 16, 16, 32, 64, 5, 5, 2, 2),
+    'imager.deconv_1': (8, 8, 8, 64, 64, 5, 5, 2, 2),
+    'imager.deconv_2': (8, 8, 8, 64, 256, 3, 3, 1, 1),     # sub-pixel, packed
+    'imager.deconv_3': (8, 16, 16, 64, 32, 5, 5, 2, 2),
+    'imager.deconv_4': (8, 16, 16, 32, 128, 3, 3, 1, 1),   # sub-pixel, packed
+    'imager.deconv_5': (8, 32, 32, 32, 32, 5, 5, 2, 2),
+    'imager.conv_6': (8, 32, 32, 32, 3, 5, 5, 2, 2),
+}
+
 
 def conv_inputs(geom, seed=0):
     n, h, w, ci, co, th, tw, _, _ = geom
