@@ -18,12 +18,15 @@ Phases, any failure raising (nonzero exit):
    float32 and bfloat16, the co=3 head also zero-padded to co=8 (the
    8-wide tensor-core tile, against float32's CUDA-core path); the IWAE
    combine at L=16, N=512, C=100, K=128 in both modes, a ragged C=37,
-   N=137 case, the same shape with prior means at the flagship's scale 17,
+   N=137 case, the OOD evaluation's ragged last batch N=272, the
+   flagship's shape with prior means at the flagship's scale 17,
    L=128 at N=64 and N=512, and C=1000, K=256 (``IWS_CASES``), each timed
    as called back to back and replayed from a CUDA graph, beside the
    composite of PyTorch calls that the JAX package's default path
    computes (``library_ms``, its deviation from the plain version
-   printed, not gated);
+   printed, not gated); the conv at its eight sites for the OOD
+   evaluation's ragged last batch (272 images: n=272 features, n=4352
+   decoder), float32, against its plain version (``conv_tail`` lines);
 4. serve the full-width flagship CVAE (random weights from a numpy seed)
    through the entry points: ``save_job``, the serve CLI on ``.npy``
    inputs, ``Scorer`` on 4 batches of 512 at L=16; check that the conv
@@ -52,8 +55,33 @@ Phases, any failure raising (nonzero exit):
    the card; one step profiled by kernel; and the card against
    the CPU on a batch of 8 from one init with injected noise: the first
    step's gradients per tensor and the losses of 3 steps;
-6. print one JSON line ``{"kernels": [...]}``;
-7. print ``{"ok": true, "device": {...}}`` as the last line.
+6. evaluate the flagship per class through the engines (the
+   evaluation slice): phase 4's job, the registry's cifar100 test set
+   and its companions cifar10, svhn and lsunc (10,000 images each, the
+   synthetic substitutes where no data is at hand), batch 512, L=16:
+   ``ood_detection_rates`` (compute tier; 8 conv and 1 combine launches
+   per batch, the 272-image tail included), then ``accuracy`` and
+   ``misclassification_detection_rates`` and a repeated OOD call, which
+   the recorders and the json tier serve with no launch; the compute
+   tier's images/s and ms per set, the record files' write ms, the
+   ROC's ms per (set, method) on the card; the ROC on the card against
+   the CPU over the same scores (rates and AUC within 1e-6, thresholds
+   equal), and the engine replayed on the CPU from a copy of the record
+   files, entry by entry against the card's results (rates and AUC
+   within 1e-6; thresholds equal where the two derive equal scores from
+   the records, else within their difference);
+   the record file's native and Python writers on cifar100's file, bytes
+   equal, each timed; one compute-tier evaluation profiled by kernel
+   group; ODIN on a full-width vib (batch 64, 2 temperatures x 2
+   epsilons: 6 forward and 4 dx launches, conv_0's 32 -> 3 dx among
+   them), card against CPU with the same noise within 1e-4, then the dx
+   at conv_0 against its plain version on the output gradient that ODIN
+   gave it and on a random one (the conv's float32 form), timed;
+   ``python -m joint_vae_tpu_torch.cli.train`` in a subprocess with
+   the flagship's flags, one epoch on 2,048 images with cifar10 and svhn
+   as OOD sets, its job dir checked and loaded (``ood`` line);
+7. print one JSON line ``{"kernels": [...]}``;
+8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -91,7 +119,9 @@ CPU.
 
 import json
 import os
+import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -125,6 +155,13 @@ GRAD_FLIP_TOL, GRAD_FLIP_SHARE = 5e-2, 1.0 / 16
 # the backward spans of SameGridConvFn (record_function)
 SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw')
 METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
+# phase 6: the flagship's test set and three same-size companions, as
+# the registry gives them (10,000 images each), at test batch 512
+OOD_SETS = ('cifar10', 'svhn', 'lsunc')
+OOD_SET_SIZE, OOD_BATCH = 10000, 512
+ROC_TOL = 1e-6
+ODIN_BATCH, ODIN_TEMPS, ODIN_EPS, ODIN_TOL = 64, [1, 1000], [0.0, 0.002], 1e-4
+CLI_SIZE = 2048
 
 
 def card_line() -> str:
@@ -278,6 +315,31 @@ def check_conv(sites):
     return rows, total
 
 
+def check_tail_conv(sites) -> float:
+    """The conv at every site for the OOD evaluation's ragged last batch
+    (10,000 = 19 x 512 + 272 images: n=272 at the features, 16 x 272 =
+    4,352 at the decoder), float32, against its plain version in the
+    conv's form.  Returns the largest error."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
+                                                        same_grid_conv_plain)
+    g = torch.Generator(device='cuda').manual_seed(6)
+    worst = 0.0
+    for site in sites:
+        x, _, kd = site_inputs(site, torch.float32, g)
+        lo = site['lo']
+        y = same_grid_conv(x, kd, lo, lo)
+        ref = same_grid_conv_plain(x, kd, lo, lo)
+        conv_gate(y, ref, 'same_grid_conv at the ragged tail ' + site['site'])
+        err = (y - ref).abs().max().item()
+        worst = max(worst, err)
+        print('conv_tail', json.dumps({
+            'site': site['site'], 'launched_shape': list(x.shape) + list(kd.shape),
+            'max_abs_err': err}), flush=True)
+        del x, kd, y, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
 def sass_counts(name: str) -> dict:
     """Tensor-core instructions in the built library, by opcode and by
     kernel (``cuobjdump -sass``): HMMA (mma.sync) and HGMMA (wgmma)."""
@@ -309,11 +371,14 @@ def sass_counts(name: str) -> dict:
 
 
 # the combine's cases: (L, N, C, K, mean scale, modes).  The flagship
-# serve point in both modes, a ragged one, the flagship's prior scale
-# (init_mean=17), the reference's eval L=128 at a scorer batch of 64 and
-# of 512, and the imagenet64 geometry (C=1000, K=256)
+# serve point in both modes, a ragged one, the ragged last batch of a
+# 10,000-image set at batch 512 (the OOD evaluation's, N=272), the
+# flagship's prior scale (init_mean=17), the reference's eval L=128 at a
+# scorer batch of 64 and of 512, and the imagenet64 geometry (C=1000,
+# K=256)
 IWS_CASES = ((16, 512, 100, 128, 0.1, (True, False)),
              (16, 137, 37, 128, 0.1, (True, False)),
+             (16, 272, 100, 128, 0.1, (True, False)),
              (16, 512, 100, 128, 17.0, (True, False)),
              (128, 64, 100, 128, 0.1, (True,)),
              (128, 512, 100, 128, 0.1, (True,)),
@@ -672,6 +737,7 @@ def check_train_conv(sites):
     keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dw_ms',
             'dw_cudnn_ms', 't_bytes', 't_ops')
     total = {'fwd_ms': 0.0, 'fwd_max_abs_err': 0.0, 'max_abs_err': 0.0,
+             'fwd_bound_ms': 0.0, 'fwd_t_bytes': 0.0, 'fwd_t_ops': 0.0,
              'dw_max_rel_err': 0.0, 'dw_cudnn_max_rel_err': 0.0,
              **{k: 0.0 for k in keys}}
     for j, site in enumerate(sites):
@@ -684,10 +750,17 @@ def check_train_conv(sites):
         conv_gate(y, ref, 'train forward ' + name)
         fwd_err = (y - ref).abs().max().item()
         fwd_ms = time_ms(lambda: same_grid_conv(x, kd, lo, lo), 10)
+        fwd_bytes = 4.0 * (x.numel() + kd.numel() + n * h * w * co)
+        fwd_flops = 2.0 * n * h * w * th * tw * ci * co
+        fb, fby = bound_ms(fwd_bytes, fwd_flops, PEAK_FLOPS[dt])
         fwd_rows.append({'site': name, 'launched_shape': [n, h, w, ci, co, th, tw],
-                         'ms': fwd_ms, 'max_abs_err': fwd_err})
+                         'ms': fwd_ms, 'bound_ms': fb, 'bound_by': fby,
+                         'max_abs_err': fwd_err})
         print('train_conv', json.dumps(fwd_rows[-1]), flush=True)
         total['fwd_ms'] += fwd_ms
+        total['fwd_bound_ms'] += fb
+        total['fwd_t_bytes'] += fwd_bytes / HBM_BYTES_PER_S * 1e3
+        total['fwd_t_ops'] += fwd_flops / PEAK_FLOPS[dt] * 1e3
         total['fwd_max_abs_err'] = max(total['fwd_max_abs_err'], fwd_err)
         del y, ref
         if j == 0:
@@ -931,7 +1004,8 @@ def train(card: str):
     from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
     from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
     from joint_vae_tpu_torch.train.steps import make_train_step, pull_metrics
-    from joint_vae_tpu_torch.train.trainer import to_device, train_model
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.train.trainer import train_model
     from joint_vae_tpu_torch.utils.print_log import EpochOutput
 
     cfg = flagship_config()
@@ -1058,6 +1132,453 @@ def train(card: str):
     return launches, summary
 
 
+def _eval_bucket(name: str) -> str:
+    """Kernel groups of an OOD evaluation: the two kernels of the port,
+    the ROC's sorts and searches, then the train step's groups."""
+    low = name.lower()
+    if 'iws' in low:
+        return 'iws_combine_kernel'
+    if 'sort' in low or 'search' in low:
+        return 'sort_and_search'
+    return _bucket(name)
+
+
+def profile_ood(ood_detection_rates, job, testset, oodsets) -> dict:
+    """One compute-tier OOD evaluation of the test set against one OOD set
+    under torch.profiler: device time by kernel group, the busy share of
+    the wall time, and the host's top operators."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ood_detection_rates(job, testset, oodsets, batch_size=OOD_BATCH,
+                            from_where=('compute',), update_self_ood=False,
+                            recording=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, kernels = {}, []
+    for ev in prof.key_averages():
+        dev = getattr(ev, 'self_device_time_total',
+                      getattr(ev, 'self_cuda_time_total', 0)) / 1e3
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev > 0:
+            kernels.append((dev, ev.key[:80], ev.count))
+            by_name[_eval_bucket(ev.key)] = by_name.get(_eval_bucket(ev.key), 0.0) + dev
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    host = sorted(((ev.self_cpu_time_total / 1e3, ev.key[:60], ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type != torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    return {'sets': 1 + len(oodsets), 'wall_ms': wall_ms, 'device_ms': busy,
+            'device_busy_share': busy / wall_ms if wall_ms else None,
+            'by_name_ms': by_name,
+            'top': [{'ms': ms, 'kernel': k, 'calls': c}
+                    for ms, k, c in kernels[:12]],
+            'top_host': [{'ms': ms, 'op': k, 'calls': c}
+                         for ms, k, c in host[:12]]}
+
+
+def odin_gate(card: str) -> dict:
+    """ODIN on the card: a vib with the flagship's conv32 features and
+    widths, one batch of 64, a 2-temperature x 2-epsilon grid, its
+    input gradient through the conv kernel's dx (conv_0's 32 -> 3
+    included); the scores against the CPU with the same weights and the
+    same latent noise.  Then the dx at conv_0 against its plain version,
+    on the output gradient that ODIN's first backward gave conv_0 on the
+    card and on a random one of the same shape, timed beside cuDNN's
+    dgrad and the bound."""
+    import dataclasses
+    from joint_vae_tpu_torch.evals.odin import make_odin_scores
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.ops.priors import PriorConfig
+    from joint_vae_tpu_torch.ops.same_grid_conv import (
+        same_grid_conv, same_grid_conv_dx, same_grid_conv_dx_plain)
+    from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
+    cfg = dataclasses.replace(flagship_config(), type='vib',
+                              prior=PriorConfig(dim=128))
+    job_dir = os.path.join(WORK, 'vib_job')
+    save_job(new_job(cfg, seed=3, device='cuda'), job_dir)
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0, 1, (ODIN_BATCH,) + cfg.input_shape).astype(np.float32)
+    eps = rng.standard_normal((cfg.test_latent_sampling + 1, ODIN_BATCH,
+                               cfg.latent_dim)).astype(np.float32)
+    eps[0] = 0.0
+    scores, launches = {}, None
+    for dev in ('cuda', 'cpu'):
+        job = load_job(job_dir, device=dev)
+        odin = make_odin_scores(job.model, temps=ODIN_TEMPS, eps_grid=ODIN_EPS)
+        xt = torch.from_numpy(x).to(job.device)
+        et = torch.from_numpy(eps).to(job.device)
+        if dev == 'cuda':
+            # conv_0's output gradient (its bias add passes it through):
+            # the g of the dx launch at conv_0, kept from the first backward
+            conv_0 = job.model.features_stack.conv_0
+            seen = []
+
+            def keep_grad(module, inputs, y):
+                if y.requires_grad and not seen:
+                    y.register_hook(lambda gy: seen.append(
+                        gy.detach().contiguous()) if not seen else None)
+            hook = conv_0.register_forward_hook(keep_grad)
+            same_grid_conv.launches = same_grid_conv_dx.launches = 0
+            t0 = time.perf_counter()
+        out = odin(xt, eps=et)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {'same_grid_conv': same_grid_conv.launches,
+                        'same_grid_conv_dx': same_grid_conv_dx.launches}
+            hook.remove()
+            k0 = conv_0.weight.detach().contiguous()
+            lo0 = conv_0.pads[0]
+        scores[dev] = {k: v.cpu().numpy() for k, v in out.items()}
+    # per temperature: one backward through the features' two same-grid
+    # sites (conv_0 and conv_2); forwards: the unperturbed batch, then one
+    # batch of all epsilons per temperature
+    want = {'same_grid_conv': 2 * (1 + len(ODIN_TEMPS)),
+            'same_grid_conv_dx': 2 * len(ODIN_TEMPS)}
+    if launches != want:
+        raise AssertionError('ODIN launches {}, expected {}'.format(
+            launches, want))
+    worst, spread = 0.0, {}
+    for k, want_s in scores['cpu'].items():
+        got = scores['cuda'][k]
+        if got.shape != (ODIN_BATCH,) or not np.all(np.isfinite(got)):
+            raise AssertionError('bad ODIN scores for {}'.format(k))
+        np.testing.assert_allclose(got, want_s, rtol=0, atol=ODIN_TOL,
+                                   err_msg='card vs CPU, ' + k)
+        worst = max(worst, float(np.max(np.abs(got - want_s))))
+        spread[k] = float(np.ptp(want_s))
+    # the dx at conv_0 (64 x 32 x 32, 32 -> 3 channels, 5x5) against its
+    # plain version, in the conv's float32 form
+    if len(seen) != 1 or not seen[0].abs().max().item() > 0:
+        raise AssertionError('no output gradient reached conv_0')
+    g_cuda = torch.Generator(device='cuda').manual_seed(12)
+    g_rand = 0.05 * torch.randn(seen[0].shape, generator=g_cuda, device='cuda')
+    dx_err = {}
+    for what, g0 in (('odin', seen[0]), ('random', g_rand)):
+        dx = same_grid_conv_dx(g0, k0, lo0, lo0)
+        dx_ref = same_grid_conv_dx_plain(g0, k0, lo0, lo0)
+        conv_gate(dx, dx_ref, 'dx conv_0 at ODIN\'s shape, {} g'.format(what))
+        dx_err[what] = (dx - dx_ref).abs().max().item()
+    n, h, w, co = g_rand.shape
+    th, tw, ci, _ = k0.shape
+    wc, gc = k0.permute(3, 2, 0, 1).contiguous(), g_rand.permute(0, 3, 1, 2)
+    b, by = bound_ms(4.0 * (g_rand.numel() + k0.numel() + n * h * w * ci),
+                     2.0 * n * h * w * th * tw * ci * co,
+                     PEAK_FLOPS[torch.float32])
+    conv_0_dx = {
+        'dx_shape': [n, h, w, co, ci, th, tw], 'max_abs_err': dx_err,
+        'odin_g_rms': seen[0].square().mean().sqrt().item(),
+        'ms': time_ms(lambda: same_grid_conv_dx(g_rand, k0, lo0, lo0), 20),
+        'plain_ms': time_ms(lambda: same_grid_conv_dx_plain(
+            g_rand, k0, lo0, lo0), 5, 1),
+        'library_ms': time_ms(lambda: torch.nn.grad.conv2d_input(
+            (n, ci, h, w), wc, gc, padding=lo0), 20),
+        'bound_ms': b, 'bound_by': by}
+    return {'batch': ODIN_BATCH, 'temps': ODIN_TEMPS, 'eps': ODIN_EPS,
+            'launches': launches, 'first_call_ms': ms,
+            'card_vs_cpu_max_abs_err': worst, 'tol': ODIN_TOL,
+            'score_spread': spread, 'conv_0_dx': conv_0_dx, 'card': card}
+
+
+def train_cli(card: str) -> dict:
+    """``python -m joint_vae_tpu_torch.cli.train`` in a subprocess with the
+    flagship's flags, one epoch on 2,048 images with cifar10 and svhn as
+    OOD sets; the job dir's files and ``load_job``."""
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.save_load.recorders import find_record
+    jobs = os.path.join(WORK, 'cli_jobs')
+    shutil.rmtree(jobs, ignore_errors=True)
+    argv = [sys.executable, '-m', 'joint_vae_tpu_torch.cli.train',
+            '--dataset', 'cifar100', '--type', 'cvae', '--features', 'conv32',
+            '--upsampler', 'deconv32', '-K', '128', '--encoder', '512',
+            '--decoder', '512', '--classifier', '--gamma', '500',
+            '--beta', '1e-4', '--sigma', '0.1', '--latent-sampling', '1',
+            '--test-latent-sampling', '16', '--prior', 'gaussian',
+            '--prior-means', '17', '--learned-prior-means', '--lr', '1e-4',
+            '--epochs', '1', '--batch-size', '256', '--test-batch-size', '512',
+            '--dataset-size', str(CLI_SIZE), '--oodsets', 'cifar10', 'svhn',
+            '--job-dir', jobs, '--job-number', '1']
+    where = subprocess.run(argv + ['--where'], cwd=ROOT, check=True,
+                           capture_output=True, text=True,
+                           timeout=120).stdout.strip()
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError('train CLI exited {}:\n{}'.format(
+            r.returncode, r.stderr[-4000:]))
+    for f in ('params.json', 'train_params.json', 'state.npz',
+              'optimizer.npz', 'test.json', 'ood.json', 'history.json',
+              'output.out'):
+        if not os.path.exists(os.path.join(where, f)):
+            raise AssertionError('train CLI wrote no {}'.format(f))
+    sdir = os.path.join(where, 'samples', '0001')
+    for name in ('cifar100', 'cifar10', 'svhn'):
+        if find_record(sdir, name) is None:
+            raise AssertionError('no recorder for {} in {}'.format(name, sdir))
+    job = load_job(where)
+    ood = job.ood_results.get(1, {})
+    if set(ood) != {'cifar10', 'svhn'} or job.trained != 1:
+        raise AssertionError('train CLI job: epochs {}, ood sets {}'.format(
+            job.trained, sorted(ood)))
+    aucs = {s: {m: ood[s][m]['auc'] for m in ('iws', 'elbo')} for s in ood}
+    if not all(np.isfinite(v) for r_ in aucs.values() for v in r_.values()):
+        raise AssertionError('non-finite AUCs {}'.format(aucs))
+    return {'seconds': seconds, 'job_dir': os.path.relpath(where, ROOT),
+            'size': CLI_SIZE, 'accuracy': {m: r_['accuracy'] for m, r_ in
+                                           job.testing.get(1, {}).items()},
+            'auc': aucs, 'card': card}
+
+
+def replay_gate(cpu_res: dict, res: dict, cpu_scores: dict,
+                card_scores: dict) -> dict:
+    """The engine replayed on the CPU from a copy of the card's record
+    files against the card's results, entry by entry: AUC, fpr and
+    precision within ROC_TOL.  A threshold is a score, and each side
+    derives the scores from the recorded losses with its own exp, log
+    and sums over the classes: where a method's scores are equal on
+    both, its thresholds must be equal; else within the largest
+    difference of its scores (printed per method)."""
+    if set(cpu_res) != set(res):
+        raise AssertionError('replayed sets {}'.format(sorted(cpu_res)))
+    score_diff = {}
+    for s_name, ms in cpu_scores.items():
+        for m, v in ms.items():
+            d = (v - card_scores[s_name][m].cpu()).abs().max().item()
+            score_diff[m] = max(score_diff.get(m, 0.0), d)
+    worst = {'auc': 0.0, 'fpr': 0.0, 'precision': 0.0, 'thresholds': {}}
+    for s_name, ms in res.items():
+        for m, r in ms.items():
+            c = cpu_res[s_name][m]
+            for k in ('auc', 'fpr', 'precision'):
+                err = float(np.max(np.abs(np.subtract(c[k], r[k]))))
+                worst[k] = max(worst[k], err)
+                if not err <= ROC_TOL:
+                    raise AssertionError('replayed {} {} {}: {}'.format(
+                        s_name, m, k, err))
+            for k in ('thresholds', 'thresholds_up'):
+                a, b = np.asarray(c[k]), np.asarray(r[k])
+                same = a == b
+                err = float(np.max(np.abs(a[~same] - b[~same]), initial=0.0))
+                worst['thresholds'][m] = max(worst['thresholds'].get(m, 0.0),
+                                             err)
+                if not err <= score_diff[m]:
+                    raise AssertionError(
+                        'replayed {} {} {}: {} vs {}, off by {} where the '
+                        'scores differ by {}'.format(s_name, m, k, c[k], r[k],
+                                                     err, score_diff[m]))
+    return {**worst, 'scores_cpu_vs_card': score_diff}
+
+
+def writer_check(path: str) -> dict:
+    """The record file's two writers on one of the evaluation's record
+    files (cifar100's, ~32 MB): the native library (``native/recstore.cpp``
+    through ctypes) and the Python fallback, each writing the file's
+    arrays twice, alternately; the bytes must equal the file's.  Wall ms
+    of each write."""
+    from joint_vae_tpu_torch.save_load import native_store
+    meta, arrays = native_store.read_jvr(path, writeable=True)
+    args = (arrays, meta['batch_size'], meta['recorded_batches'],
+            meta['last_batch_size'], meta['seed'])
+    with open(path, 'rb') as f:
+        want = f.read()
+    lib, ms = native_store.get_lib, {'native': [], 'python': []}
+    if lib() is None:
+        raise AssertionError('native/librecstore.so did not build')
+    for name in ('native', 'python') * 2:
+        out = os.path.join(WORK, 'writer-{}.jvr'.format(name))
+        native_store.get_lib = lib if name == 'native' else (lambda: None)
+        try:
+            t0 = time.perf_counter()
+            native_store.write_jvr(out, *args)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            native_store.get_lib = lib
+        with open(out, 'rb') as f:
+            if f.read() != want:
+                raise AssertionError('the {} writer wrote other bytes than '
+                                     '{}'.format(name, path))
+        os.remove(out)
+    return {'bytes': len(want), 'native_ms': ms['native'],
+            'python_ms': ms['python']}
+
+
+def ood_eval(card: str):
+    """Phase 6: the flagship's per-class OOD and misclassification
+    evaluation through the engines, ODIN on a vib, and the train CLI."""
+    from joint_vae_tpu_torch.data.loaders import get_dataset
+    from joint_vae_tpu_torch.evals import engines
+    from joint_vae_tpu_torch.ops.iws import iws_combine
+    from joint_vae_tpu_torch.ops.roc import roc_curve, two_sided_from_method
+    from joint_vae_tpu_torch.ops.same_grid_conv import same_grid_conv
+    from joint_vae_tpu_torch.save_load import native_store
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.save_load.recorders import LossRecorder, find_record
+
+    job_dir = os.path.join(WORK, 'flagship_job')       # phase 4's job
+    # record files of an earlier run of this script would serve the sets
+    shutil.rmtree(os.path.join(job_dir, 'samples'), ignore_errors=True)
+    job = load_job(job_dir)
+    cfg = job.model_cfg
+    _, testset = get_dataset('cifar100', splits=['test'])
+    oodsets = [get_dataset(n, splits=['test'])[1] for n in OOD_SETS]
+    sets = [testset] + oodsets
+    if any(len(s) != OOD_SET_SIZE for s in sets):
+        raise AssertionError('set sizes {}'.format([len(s) for s in sets]))
+    batches = -(-OOD_SET_SIZE // OOD_BATCH)
+
+    # the record files' native writer is built (g++) at its first use:
+    # built here, outside the timed call
+    t0 = time.perf_counter()
+    have_writer = native_store.get_lib() is not None
+    writer_build_s = time.perf_counter() - t0
+
+    # per-set compute-tier times (the engine's per-set loop) and record
+    # file writes, timed around
+    set_ms, save_ms = {}, {}
+    collect, save = engines._collect_scores, engines._save_recorder
+
+    def timed_collect(job_, dataset, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect(job_, dataset, *a, **k)
+        torch.cuda.synchronize()
+        set_ms[dataset.name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_save(rec, path):
+        t0 = time.perf_counter()
+        save(rec, path)
+        save_ms[os.path.basename(path)] = (time.perf_counter() - t0) * 1e3
+    engines._collect_scores = timed_collect
+    engines._save_recorder = timed_save
+    try:
+        same_grid_conv.launches = 0
+        iws_combine.launches = 0
+        # --- the main path: the three engines, in order ---
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engines.ood_detection_rates(job, testset, oodsets,
+                                          batch_size=OOD_BATCH)
+        torch.cuda.synchronize()
+        ood_s = time.perf_counter() - t0
+        launches = {'same_grid_conv': same_grid_conv.launches,
+                    'iws_combine': iws_combine.launches}
+        t0 = time.perf_counter()
+        acc = engines.accuracy(job, testset, batch_size=OOD_BATCH)
+        mis = engines.misclassification_detection_rates(
+            job, testset, batch_size=OOD_BATCH)
+        again = engines.ood_detection_rates(job, testset, oodsets,
+                                            batch_size=OOD_BATCH,
+                                            from_where=('json', 'recorders'))
+        reuse_s = time.perf_counter() - t0
+        reuse_launches = {'same_grid_conv': same_grid_conv.launches
+                          - launches['same_grid_conv'],
+                          'iws_combine': iws_combine.launches
+                          - launches['iws_combine']}
+        # --- end of the main path ---
+    finally:
+        engines._collect_scores = collect
+        engines._save_recorder = save
+    want = {'same_grid_conv': SITES_PER_BATCH * batches * len(sets),
+            'iws_combine': batches * len(sets)}
+    if launches != want:
+        raise AssertionError('OOD launches {}, expected {} ({} sets of {} '
+                             'batches)'.format(launches, want, len(sets),
+                                               batches))
+    if reuse_launches != {'same_grid_conv': 0, 'iws_combine': 0}:
+        raise AssertionError('the recorder tier launched {}'.format(
+            reuse_launches))
+    if again != res or set(res) != set(OOD_SETS):
+        raise AssertionError('the json tier changed the results')
+    for s_name, ms in res.items():
+        for m, r in ms.items():
+            vals = [r['auc'], r['mean'], r['std']] + r['fpr'] + r['precision']
+            if r['n'] != OOD_SET_SIZE or not np.all(np.isfinite(vals)):
+                raise AssertionError('bad ood entry {} {}'.format(s_name, m))
+    if (set(acc) != set(cfg.predict_methods)
+            or job.testing[0]['iws']['n'] != OOD_SET_SIZE):
+        raise AssertionError('accuracy {} / testing {}'.format(
+            acc, job.testing.get(0)))
+    if not mis or not all(np.isfinite(r['accuracy']) for r in mis.values()):
+        raise AssertionError('misclassification results {}'.format(mis))
+
+    # --- the ROC alone, per (set, method), on the card; then on the CPU
+    # over the same scores ---
+    sdir = os.path.join(job_dir, 'samples', '0000')
+    scores = {s.name: engines._scores_from_recorder(
+        job, LossRecorder.load(find_record(sdir, s.name)), cfg.ood_methods)
+        for s in sets}
+    roc_ms, worst = {}, {'auc': 0.0, 'fpr': 0.0, 'precision': 0.0}
+    for s_name in OOD_SETS:
+        for m in cfg.ood_methods:
+            ins, outs = scores[testset.name][m], scores[s_name][m]
+            geo = two_sided_from_method(m)
+            roc_ms['{}/{}'.format(s_name, m)] = time_ms(
+                lambda: roc_curve(ins, outs, two_sided=geo), 5)
+            card_r = roc_curve(ins, outs, two_sided=geo)
+            cpu_r = roc_curve(ins.cpu(), outs.cpu(), two_sided=geo)
+            for k in ('auc', 'fpr', 'precision'):
+                err = (card_r[k].cpu() - cpu_r[k]).abs().max().item()
+                worst[k] = max(worst[k], err)
+                if err > ROC_TOL:
+                    raise AssertionError('card vs CPU ROC {} {} {}: {}'.format(
+                        s_name, m, k, err))
+            for k in ('thresholds_low', 'thresholds_up'):
+                if not torch.equal(card_r[k].cpu(), cpu_r[k]):
+                    raise AssertionError('card vs CPU thresholds {} {} {}'
+                                         .format(s_name, m, k))
+    # the whole engine replayed on the CPU from a copy of the recorders
+    cpu_dir = os.path.join(WORK, 'flagship_job_cpu')
+    shutil.rmtree(cpu_dir, ignore_errors=True)
+    shutil.copytree(job_dir, cpu_dir)
+    cpu_job = load_job(cpu_dir, device='cpu')
+    cpu_job.ood_results.clear()
+    cpu_res = engines.ood_detection_rates(cpu_job, testset, oodsets,
+                                          batch_size=OOD_BATCH,
+                                          from_where=('recorders',))
+    replay_err = replay_gate(cpu_res, res, {
+        s.name: engines._scores_from_recorder(
+            cpu_job, LossRecorder.load(find_record(
+                os.path.join(cpu_dir, 'samples', '0000'), s.name)),
+            cfg.ood_methods) for s in sets}, scores)
+    writers = writer_check(find_record(sdir, testset.name))
+    breakdown = profile_ood(engines.ood_detection_rates, job, testset,
+                            oodsets[:1])
+    odin = odin_gate(card)
+    cli = train_cli(card)
+    n_images = OOD_SET_SIZE * len(sets)
+    summary = {'sets': [s.name for s in sets], 'set_size': OOD_SET_SIZE,
+               'synthetic': [s.synthetic for s in sets],
+               'batch': OOD_BATCH, 'L': cfg.test_latent_sampling,
+               'C': cfg.num_labels, 'methods': cfg.ood_methods,
+               'ood_seconds': ood_s,
+               'compute_ms_per_set': set_ms,
+               'ood_images_per_s': n_images / (sum(set_ms.values()) / 1e3),
+               'ood_images_per_s_with_roc': n_images / ood_s,
+               'record_write_ms': save_ms,
+               'record_writer': 'native' if have_writer else 'python',
+               'record_writer_build_s': writer_build_s,
+               'reuse_seconds': reuse_s,
+               'roc_ms': roc_ms, 'roc_ms_total': sum(roc_ms.values()),
+               'launches': launches, 'reuse_launches': reuse_launches,
+               'auc': {s: {m: res[s][m]['auc'] for m in ('iws', 'elbo')}
+                       for s in res},
+               'accuracy': acc,
+               'misclass_auc_iws': {pm: r.get('iws', {}).get('auc')
+                                    for pm, r in mis.items()},
+               'roc_card_vs_cpu_max_abs_err': worst,
+               'engine_cpu_replay_max_abs_err': replay_err,
+               'record_writers': writers,
+               'profile': breakdown, 'odin': odin, 'train_cli': cli,
+               'card': card}
+    print('ood', json.dumps(summary), flush=True)
+    return launches, odin['launches'], summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -1089,6 +1610,8 @@ def main():
     if len(sites) != SITES_PER_BATCH:
         raise AssertionError('{} same-grid sites'.format(len(sites)))
     conv_rows, conv = check_conv(sites)
+    tail_err = check_tail_conv(same_grid_sites(
+        CVNet(cfg), OOD_SET_SIZE % OOD_BATCH, cfg.test_latent_sampling))
     iws_rows, iws = check_iws()
     train_sites = same_grid_sites(CVNet(cfg), TRAIN_BATCH, cfg.latent_sampling)
     fwd_rows, dx_rows, dxt = check_train_conv(train_sites)
@@ -1096,6 +1619,8 @@ def main():
     os.makedirs(WORK, exist_ok=True)
     launches, launches128, summary = serve(card)
     train_launches, train_summary = train(card)
+    ood_launches, odin_launches, ood_summary = ood_eval(card)
+    odin_conv_0 = ood_summary['odin']['conv_0_dx']
 
     kernels = [
         {'name': 'same_grid_conv', 'route': 'cuda',
@@ -1103,9 +1628,16 @@ def main():
          'replaces': 'joint_vae_tpu/ops/pallas_conv.py:109',
          'launches': launches['same_grid_conv'],
          'launches_train': train_launches['same_grid_conv'],
-         'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err']),
+         'launches_ood': ood_launches['same_grid_conv'],
+         'launches_odin': odin_launches['same_grid_conv'],
+         'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
+                            tail_err),
+         'tail_max_abs_err': tail_err,
          'ms': conv['ms'], 'kernel_ms': conv['ms'],
          'train_step_ms': dxt['fwd_ms'],
+         'train_step_bound_ms': dxt['fwd_bound_ms'],
+         'train_step_bound_by': ('bytes' if dxt['fwd_t_bytes'] >= dxt['fwd_t_ops']
+                                 else 'operations'),
          'plain_ms': conv['plain_ms'], 'bound_ms': conv['bound_ms'],
          'bound_by': 'bytes' if conv['t_bytes'] >= conv['t_ops'] else 'operations',
          'bound_ms_cuda_core': conv['bound_ms_cuda_core'],
@@ -1114,13 +1646,16 @@ def main():
                 'the 3xTF32 rate; library: F.conv2d, or F.conv_transpose2d '
                 'of the true deconv at the sub-pixel sites); '
                 'train_step_ms: the eight sites at the train step\'s shapes '
-                '(batch 1024, L=1)',
+                '(batch 1024, L=1), with their bound (train_step_bound_ms)',
          'sites': conv_rows, 'train_sites': fwd_rows},
         {'name': 'same_grid_conv_dx', 'route': 'cuda',
          'source': 'joint_vae_tpu_torch/csrc/same_grid_conv.cu',
          'replaces': 'joint_vae_tpu/ops/pallas_conv.py:109',
          'launches': train_launches['same_grid_conv_dx'],
-         'max_abs_err': dxt['max_abs_err'],
+         'launches_odin': odin_launches['same_grid_conv_dx'],
+         'max_abs_err': max([dxt['max_abs_err']] + list(
+             odin_conv_0['max_abs_err'].values())),
+         'odin_conv_0': odin_conv_0,
          'ms': dxt['ms'], 'kernel_ms': dxt['ms'],
          'plain_ms': dxt['plain_ms'], 'bound_ms': dxt['bound_ms'],
          'bound_by': 'bytes' if dxt['t_bytes'] >= dxt['t_ops'] else 'operations',
@@ -1143,6 +1678,7 @@ def main():
          'replaces': 'joint_vae_tpu/ops/pallas_kernels.py:99',
          'launches': launches['iws_combine'],
          'launches_l128': launches128['iws_combine'],
+         'launches_ood': ood_launches['iws_combine'],
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -1155,7 +1691,7 @@ def main():
          'cases': iws_rows},
     ]
     print(json.dumps({'kernels': kernels, 'serve': summary,
-                      'train': train_summary,
+                      'train': train_summary, 'ood': ood_summary,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

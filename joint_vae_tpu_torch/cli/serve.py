@@ -22,21 +22,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-IMG_EXTS = ('.jpg', '.jpeg', '.png', '.bmp')
-
-
-def _decode_one(path: str, shape) -> np.ndarray:
-    """Decode + resize one image to (C, H, W) uint8."""
-    from PIL import Image
-    c, h, w = shape
-    img = Image.open(path).convert('RGB' if c == 3 else 'L').resize((w, h))
-    arr = np.asarray(img, np.uint8)
-    if arr.ndim == 2:
-        arr = arr[None]
-    else:
-        arr = arr.transpose(2, 0, 1)
-    return arr
-
+from ..data.loaders import IMG_EXTS, decode_image
+from . import add_device_arg
 
 def _load_inputs(paths, shape) -> Tuple[np.ndarray, List[str]]:
     """-> (x (N, C, H, W) float32 in [0, 1], per-row source names)."""
@@ -57,7 +44,7 @@ def _load_inputs(paths, shape) -> Tuple[np.ndarray, List[str]]:
             names.append('{}[{}]'.format(name, i) if a.shape[0] > 1 else name)
 
     def add_image(p):
-        xs.append(_decode_one(p, shape).astype(np.float32) / 255.0)
+        xs.append(decode_image(p, shape).astype(np.float32) / 255.0)
         names.append(p)
 
     for p in paths:
@@ -109,8 +96,7 @@ def main(argv=None):
                    help='write JSON lines here instead of stdout')
     p.add_argument('--summary-only', action='store_true',
                    help='print only the summary line')
-    p.add_argument('--device', default=None,
-                   help="torch device: default the CUDA card; 'cpu' on request")
+    add_device_arg(p)
     p.add_argument('-v', '--verbose', action='count', default=0)
     p.add_argument('--debug', action='store_true')
     args = p.parse_args(argv)

@@ -8,6 +8,7 @@ for both cuBLAS matmuls and cuDNN convolutions (cuDNN defaults to TF32).
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -41,3 +42,12 @@ def module_device(module: torch.nn.Module) -> Optional[torch.device]:
     for p in module.parameters():
         return p.device
     return None
+
+
+def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``; to the card through pinned memory, so
+    that the copy does not wait for the card's queue."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == 'cuda':
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

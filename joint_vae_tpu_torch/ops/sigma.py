@@ -71,6 +71,24 @@ class SigmaConfig:
             d['input_dim'] = list(d['input_dim'])
         return d
 
+    def describe(self, state: Optional['SigmaState'] = None) -> str:
+        """Short description used in job paths (the JAX package's)."""
+        if self.is_rmse:
+            if state is None or not bool(torch.isfinite(state.rmse)):
+                return 'rmse'
+            return 'rmse ({:g})'.format(float(state.rmse))
+        if self.coded:
+            return 'coded {}'.format('mask' if self.per_dim else 'scalar')
+        if self.learned:
+            v = (float(sigma_value(self, state)) if state is not None
+                 else self.sigma0)
+            return '{:g}->rmse[l] ({:g})'.format(self.sigma0, v)
+        if not self.decay:
+            return '{:g}'.format(self.value)
+        mult = '' if self.reach == 1 else '{:g}*'.format(self.reach)
+        mx = '<{:g}'.format(self.max_step) if self.max_step else ''
+        return '{:g}->{}rmse[-{:g}*{}]'.format(self.sigma0, mult, self.decay, mx)
+
 
 @dataclasses.dataclass
 class SigmaState:

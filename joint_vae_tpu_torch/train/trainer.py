@@ -14,11 +14,11 @@ cvae.py:2081-2547):
   card until they are pulled together every ``metrics_every`` steps (8 on
   the card, 1 on the CPU), so the host does not wait for each step.
 
-Not ported here: the mesh, multi-process and device-resident dataset
-branches, and the dataset registry (a ``trainset`` must be given).  The
-in-training accuracy and OOD evaluations need the evaluation engines,
-which are not ported yet: a run that would reach them raises
-``NotImplementedError``.
+Per epoch, every ``ood_detection_every`` and ``full_test_every`` epochs,
+and once at the end, it runs the evaluation engines (``evals/engines.py``:
+``ood_detection_rates``, ``accuracy``), the in-training ones capped at
+``test_sample_size`` samples.  Not ported here: the mesh, multi-process
+and device-resident dataset branches.
 """
 
 import logging
@@ -28,7 +28,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.loaders import ArrayDataset, DataLoader
+from ..data.loaders import ArrayDataset, DataLoader, get_dataset
+from ..device import to_device
+from ..evals.engines import accuracy, ood_detection_rates
 from ..models.cvnet import CVNet
 from ..models.evaluate import evaluate
 from ..save_load.jobs import Job, mark, save_job
@@ -37,10 +39,6 @@ from ..utils.signaling import SIGHandler
 from .optimizers import set_learning_rate
 from .state import TrainState, make_generator
 from .steps import make_train_step, pull_metrics
-
-_ENGINES = ('the evaluation engines (evals/engines.py: accuracy, '
-            'ood_detection_rates) are not ported yet; pass final_test=False '
-            'and final_ood=False, and no full tests or oodsets in training')
 
 
 def split_validation(dataset: ArrayDataset, validation: int, seed: int):
@@ -52,17 +50,8 @@ def split_validation(dataset: ArrayDataset, validation: int, seed: int):
     return dataset.subset(perm[validation:]), dataset.subset(perm[:validation])
 
 
-def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch on ``device``; to the card through pinned memory, so
-    that the copy does not wait for the card's queue."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type == 'cuda':
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def train_model(job: Job,
-                trainset: ArrayDataset,
+                trainset: Optional[ArrayDataset] = None,
                 testset: Optional[ArrayDataset] = None,
                 oodsets: Optional[Sequence[ArrayDataset]] = None,
                 epochs: int = 2,
@@ -73,6 +62,7 @@ def train_model(job: Job,
                 warmup=(0, 0), warmup_gamma=(0, 0),
                 full_test_every: int = 10,
                 ood_detection_every: int = 10,
+                test_sample_size: int = 0,
                 save_dir: Optional[str] = None,
                 signal_handler: Optional[SIGHandler] = None,
                 outputs: Optional[EpochOutput] = None,
@@ -82,17 +72,23 @@ def train_model(job: Job,
                 final_test: bool = True,
                 final_ood: bool = True,
                 metrics_every: int = 0) -> Job:
-    """Train ``job.state`` in place on the job's device; returns the job."""
+    """Train ``job.state`` in place on the job's device; returns the job.
+    Without a trainset, the job's set comes from the registry
+    (``get_dataset``), its test split as the testset."""
     if trainset is None:
-        raise NotImplementedError('train_model needs a trainset: the dataset '
-                                  'registry (data/registry.py) is not ported '
-                                  'yet')
+        name = job.training_parameters.get('set') or 'cifar10'
+        trainset, ts = get_dataset(name)
+        testset = testset if testset is not None else ts
     cfg = job.model_cfg
     state = job.state
     model = state.model
     dev = state.device
     outputs = outputs or EpochOutput()
     signal_handler = signal_handler or _NullSignal()
+    # cap for the in-training monitoring evals; the final pass stays full
+    # (ref validation_sample_size, cvae.py:2098,2171)
+    eval_num_batch = (-(-test_sample_size // test_batch_size)
+                      if test_sample_size else None)
 
     # persisted warmup + validation seed (ref cvae.py:2196-2202, 2155-2167)
     tp = job.training_parameters
@@ -137,9 +133,13 @@ def train_model(job: Job,
             # persists the fresh/resumed job before any training
             save_job(job, save_dir)
 
-        if (ood_now and testset is not None) or (
-                full_test and testset is not None and cfg.predict_methods):
-            raise NotImplementedError(_ENGINES)
+        if ood_now and testset is not None:
+            ood_detection_rates(job, testset, oodsets,
+                                batch_size=test_batch_size, epoch=epoch,
+                                num_batch=eval_num_batch, outputs=outputs)
+        if full_test and testset is not None and cfg.predict_methods:
+            accuracy(job, testset, batch_size=test_batch_size, epoch=epoch,
+                     num_batch=eval_num_batch, outputs=outputs)
 
         # per-epoch LR decay (ref optimizer.update_lr, optimizers.py:123-127)
         set_learning_rate(state.opt_state, job.opt_cfg.lr_at_epoch(epoch))
@@ -221,8 +221,12 @@ def train_model(job: Job,
 
     # final full evaluation (ref cvae.py:2505-2547)
     if signal_handler.sig <= 3 and testset is not None:
-        if (cfg.predict_methods and final_test) or (oodsets and final_ood):
-            raise NotImplementedError(_ENGINES)
+        if cfg.predict_methods and final_test:
+            accuracy(job, testset, batch_size=test_batch_size,
+                     outputs=outputs)
+        if oodsets and final_ood:
+            ood_detection_rates(job, testset, oodsets,
+                                batch_size=test_batch_size, outputs=outputs)
         if save_dir:
             save_job(job, save_dir)
     return job

@@ -40,3 +40,12 @@ class SIGHandler:
     def __str__(self):
         return 'SIGHandler(level={})'.format(self.sig)
 
+
+
+def default_handler() -> SIGHandler:
+    """A handler installed for SIGINT, SIGTERM and (where it exists)
+    SIGUSR1."""
+    sigs = [signal.SIGINT, signal.SIGTERM]
+    if hasattr(signal, 'SIGUSR1'):
+        sigs.append(signal.SIGUSR1)
+    return SIGHandler(*sigs)

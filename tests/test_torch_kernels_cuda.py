@@ -242,3 +242,81 @@ def test_full_width_backward_on_card(cuda_device):
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all(), name
         assert torch.count_nonzero(p.grad) > 0, name
+
+
+@pytest.mark.cuda
+def test_conv_0_dx_on_card(cuda_device):
+    """The input gradient at the features' first conv (3 -> 32, 5x5 on
+    32x32), which only ODIN takes (training never needs it: conv_0 reads
+    the data): its dx is a same-grid conv 32 -> 3 on the kernel."""
+    set_float32_math()
+    n, h, w, ci, co, th, tw, ph, pw = 8, 32, 32, 3, 32, 5, 5, 2, 2
+    x, k = (torch.from_numpy(a).to(cuda_device) for a in conv_inputs(
+        (n, h, w, ci, co, th, tw, ph, pw)))
+    g = 0.05 * torch.randn((n, h, w, co), device=cuda_device,
+                           generator=torch.Generator(cuda_device).manual_seed(3))
+    xg = x.clone().requires_grad_()
+    before = same_grid_conv_dx.launches
+    dx, = torch.autograd.grad(SameGridConvFn.apply(xg, k, ph, pw), xg, g)
+    torch.cuda.synchronize()
+    assert same_grid_conv_dx.launches == before + 1
+    xp = x.clone().requires_grad_()
+    want, = torch.autograd.grad(same_grid_conv_plain(xp, k, ph, pw), xp, g)
+    conv_gate(dx, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('two_sided', [False, 'around-mean', (4, 1)], ids=str)
+def test_roc_on_card_matches_cpu(two_sided, cuda_device):
+    """The ROC on the card against the same call on the CPU: rates and AUC
+    within 1e-6, thresholds equal."""
+    from joint_vae_tpu_torch.ops.roc import roc_curve
+    g = torch.Generator().manual_seed(4)
+    ins = torch.randn(5000, generator=g) + 1.0
+    outs = 1.5 * torch.randn(3000, generator=g)
+    ins[:500] = torch.round(ins[:500], decimals=1)        # ties
+    perm = torch.randperm(5000, generator=g)
+    kw = dict(two_sided=two_sided, validation=1000 if two_sided else 0,
+              perm=perm)
+    got = roc_curve(ins.to(cuda_device), outs.to(cuda_device), **kw)
+    want = roc_curve(ins, outs, **kw)
+    for k in ('auc', 'fpr', 'tpr', 'precision'):
+        close(got[k].cpu(), want[k], 1e-6)
+    for k in ('thresholds_low', 'thresholds_up'):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_engine_launches_at_a_ragged_tail(tmp_path, cuda_device):
+    """The OOD engine on the full-width flagship over sets of 100 images at
+    batch 64 (a full batch and a ragged 36): one combine and 8 conv
+    launches per batch of each set; then the recorder tier serves the same
+    call and accuracy with no launch."""
+    import numpy as np
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    from joint_vae_tpu_torch.evals.engines import (accuracy,
+                                                   ood_detection_rates)
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job, save_job
+    cfg = flagship_config()
+    job = new_job(cfg, seed=0, device=cuda_device)
+    save_job(job, str(tmp_path / 'job'))
+    rng = np.random.default_rng(0)
+    sets = [ArrayDataset(rng.uniform(0, 1, (100,) + cfg.input_shape)
+                         .astype(np.float32), rng.integers(0, 100, 100), name)
+            for name in ('test', 'ood')]
+    kw = dict(batch_size=64, method=['iws', 'elbo', 'iws-2s'])
+    same_grid_conv.launches = iws_combine.launches = 0
+    res = ood_detection_rates(job, sets[0], sets[1:], **kw)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, iws_combine.launches) == (2 * 2 * 8, 2 * 2)
+    assert all(np.isfinite(r['auc']) for r in res['ood'].values())
+    same_grid_conv.launches = iws_combine.launches = 0
+    job.ood_results.clear()
+    again = ood_detection_rates(job, sets[0], sets[1:],
+                                from_where=('recorders',), **kw)
+    acc = accuracy(job, sets[0], batch_size=64, from_where=('recorders',))
+    assert (same_grid_conv.launches, iws_combine.launches) == (0, 0)
+    assert set(acc) == set(cfg.predict_methods)
+    for m, r in res['ood'].items():
+        assert abs(again['ood'][m]['auc'] - r['auc']) <= 1e-6, m
