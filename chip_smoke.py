@@ -80,8 +80,31 @@ Phases, any failure raising (nonzero exit):
    ``python -m joint_vae_tpu_torch.cli.train`` in a subprocess with
    the flagship's flags, one epoch on 2,048 images with cifar10 and svhn
    as OOD sets, its job dir checked and loaded (``ood`` line);
-7. print one JSON line ``{"kernels": [...]}``;
-8. print ``{"ok": true, "device": {...}}`` as the last line.
+7. the bench's train path (``bench.py`` trains in bfloat16 from a set
+   held on the device): the conv in bfloat16 at the train step's shapes
+   first (phase 5's ``train_conv``/``dx`` checks in bfloat16:
+   ``train_conv_bf16`` and ``dx_bf16`` lines, cuDNN bf16 beside, the
+   weight gradient summed in float32 against float64); then the
+   full-width flagship in bfloat16 for one epoch over a 50,000-image
+   uint8 set held on the card (CIFAR-100-train's size), through
+   ``train_model(device_data=True)`` at batch 1024 and
+   ``train_epochs_on_device(fused=True)`` at 512, the launches of each
+   epoch checked (8 forward and 7 dx per step, all of the bfloat16 build
+   by ``same_grid_conv.py::bf16_launches``; no combine), then 10 timed
+   device-fed steps of each and one profiled (``bench_train_bf16``
+   lines); the float32
+   step fed from the card beside phase 5's host-fed one; one device-fed
+   epoch profiled (one gather of the set, no per-step copy); the
+   bfloat16 gate on training (card bf16 against CPU float32 on a batch
+   of 8, its reconstruction checked to be bfloat16; first-step gradients
+   per tensor and every metric of 3 steps)
+   and on a ``Scorer`` batch of 512 at L=16 (8 conv and 1 combine
+   launches; scores against the card's float32 Scorer of the same
+   weights and noise); ``cli.train --device-data --compute-dtype
+   bfloat16`` in a subprocess, its job loaded, and ``cli.serve`` by the
+   job's number naming cifar100's classes (``bench_train`` line);
+8. print one JSON line ``{"kernels": [...]}``;
+9. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -115,6 +138,20 @@ Weights are not compared after a step: Adam's first steps move every
 weight by about lr whatever the size of its gradient, so a gradient that
 is zero to rounding may move one way on the card and the other on the
 CPU.
+
+bfloat16 (phase 7).  The conv and its dx in the conv's form at 1.6e-2;
+the weight gradient, summed in float32 and rounded once, within
+2^-8 |want| + 1e-4 rms(want) of the float64 sum of the same inputs.  A
+bfloat16 model is ~1e-3 from its float32 self, so it is held by the
+bfloat16 gate, per tensor, metric or score, with err the rms-relative
+error ||got - ref||_2 / ||ref||_2:
+err(card bf16, CPU f32) <= a err(CPU bf16, CPU f32) + b, a = 2,
+b = 2.5e-4, fixed on the tiny flagship against the JAX package before
+any chip run (``tests/test_torch_bf16.py``: the port's error at most 1.4
+times JAX's; b covers a scalar mean whose errors cancel in one run and
+not the other).  The Scorer's scores: err(card bf16, card f32) over the
+batch of 512 against the same right side from the CPU on its first 32
+inputs.
 """
 
 import json
@@ -162,6 +199,14 @@ OOD_SET_SIZE, OOD_BATCH = 10000, 512
 ROC_TOL = 1e-6
 ODIN_BATCH, ODIN_TEMPS, ODIN_EPS, ODIN_TOL = 64, [1, 1000], [0.0, 0.002], 1e-4
 CLI_SIZE = 2048
+# phase 7: bench.py's train path in bfloat16 (bench.py:99), fed from the
+# card: CIFAR-100-train's size as uint8, batch 1024 (train) and 512
+# (pipeline); the bfloat16 gate's constants (tests/test_torch_bf16.py)
+BENCH_SET = 50000
+BENCH_BATCHES = {'train': 1024, 'pipeline': 512}
+GATE_A, GATE_B = 2.0, 2.5e-4
+SERVE_GATE_N = 32
+BF16_CLI_SIZE = 4096
 
 
 def card_line() -> str:
@@ -700,9 +745,10 @@ def serve(card: str):
     return launches, launches128, summary
 
 
-def conv_gate(got, want, what):
-    """The conv's float32 form: |got - want| <= tol (|want| + rms(want))."""
-    tol = CONV_TOL[torch.float32]
+def conv_gate(got, want, what, dt=torch.float32):
+    """The conv's form: |got - want| <= tol (|want| + rms(want)), tol the
+    float32 one unless ``dt`` says otherwise."""
+    tol = CONV_TOL[dt]
     torch.testing.assert_close(
         got.float(), want.float(), rtol=tol,
         atol=tol * want.float().square().mean().sqrt().item(),
@@ -720,24 +766,45 @@ def cudnn_wgrad(x, g, th, tw, lo):
     return dw.permute(2, 3, 1, 0)
 
 
-def check_train_conv(sites):
-    """The same-grid conv at the train step's shapes (batch 1024, L=1):
-    the forward at every site; at the sites whose input needs a gradient
-    the dx kernel against its plain version (``library_ms``: cuDNN's data
-    gradient of the same conv, ``torch.nn.grad.conv2d_input``), and the
-    weight gradient (a float32 im2col product) against the same product
-    in float64, timed beside cuDNN's float32 weight gradient, whose error
-    against float64 is printed (not gated)."""
+def dw_gate(dw, dw64, what, dt):
+    """The weight gradient against the float64 product of the same
+    inputs: float32 in the conv's float32 form; bfloat16, summed in
+    float32 and rounded once, within half a bfloat16 ulp (2^-8 |want|)
+    plus the float32 form's absolute term."""
+    if dt == torch.float32:
+        conv_gate(dw, dw64, what)
+        return
+    bound = (2.0 ** -8 * dw64.abs()
+             + CONV_TOL[torch.float32] * dw64.square().mean().sqrt())
+    bad = int(((dw.double() - dw64).abs() > bound).sum())
+    if bad:
+        raise AssertionError('{}: {} elements beyond one bfloat16 rounding '
+                             'of the float64 sum'.format(what, bad))
+
+
+def check_train_conv(sites, dt=torch.float32):
+    """The same-grid conv at the train step's shapes (batch 1024, L=1) in
+    ``dt``: the forward at every site against its plain version (timed
+    beside cuDNN's forward, ``F.conv2d`` of the launched kernel); at the
+    sites whose input needs a gradient the dx kernel against its plain
+    version (``library_ms``: cuDNN's data gradient of the same conv,
+    ``torch.nn.grad.conv2d_input``), and the weight gradient (an im2col
+    product summed in float32) against the same product in float64
+    (:func:`dw_gate`), timed beside cuDNN's weight gradient in ``dt``,
+    whose error against float64 is printed (not gated)."""
+    import torch.nn.functional as F
     from joint_vae_tpu_torch.ops.same_grid_conv import (
         same_grid_conv, same_grid_conv_dw, same_grid_conv_dx,
         same_grid_conv_dx_plain, same_grid_conv_plain)
     g_cuda = torch.Generator(device='cuda').manual_seed(3)
-    dt = torch.float32
+    tag = '' if dt == torch.float32 else '_bf16'
+    es = torch.empty((), dtype=dt).element_size()
     fwd_rows, dx_rows = [], []
     keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dw_ms',
             'dw_cudnn_ms', 't_bytes', 't_ops')
     total = {'fwd_ms': 0.0, 'fwd_max_abs_err': 0.0, 'max_abs_err': 0.0,
              'fwd_bound_ms': 0.0, 'fwd_t_bytes': 0.0, 'fwd_t_ops': 0.0,
+             'fwd_plain_ms': 0.0, 'fwd_library_ms': 0.0,
              'dw_max_rel_err': 0.0, 'dw_cudnn_max_rel_err': 0.0,
              **{k: 0.0 for k in keys}}
     for j, site in enumerate(sites):
@@ -747,17 +814,24 @@ def check_train_conv(sites):
         th, tw, _, co = kd.shape
         y = same_grid_conv(x, kd, lo, lo)
         ref = same_grid_conv_plain(x, kd, lo, lo)
-        conv_gate(y, ref, 'train forward ' + name)
-        fwd_err = (y - ref).abs().max().item()
+        conv_gate(y, ref, 'train forward {} {}'.format(name, dt), dt)
+        fwd_err = (y.float() - ref.float()).abs().max().item()
         fwd_ms = time_ms(lambda: same_grid_conv(x, kd, lo, lo), 10)
-        fwd_bytes = 4.0 * (x.numel() + kd.numel() + n * h * w * co)
+        fwd_plain = time_ms(lambda: same_grid_conv_plain(x, kd, lo, lo), 2, 1)
+        xc, wk = x.permute(0, 3, 1, 2), kd.permute(3, 2, 0, 1)
+        fwd_lib = time_ms(lambda: F.conv2d(xc, wk, padding=lo), 10)
+        fwd_bytes = es * (x.numel() + kd.numel() + n * h * w * co)
         fwd_flops = 2.0 * n * h * w * th * tw * ci * co
         fb, fby = bound_ms(fwd_bytes, fwd_flops, PEAK_FLOPS[dt])
         fwd_rows.append({'site': name, 'launched_shape': [n, h, w, ci, co, th, tw],
-                         'ms': fwd_ms, 'bound_ms': fb, 'bound_by': fby,
+                         'dtype': str(dt).split('.')[-1], 'ms': fwd_ms,
+                         'plain_ms': fwd_plain, 'library_ms': fwd_lib,
+                         'bound_ms': fb, 'bound_by': fby,
                          'max_abs_err': fwd_err})
-        print('train_conv', json.dumps(fwd_rows[-1]), flush=True)
+        print('train_conv' + tag, json.dumps(fwd_rows[-1]), flush=True)
         total['fwd_ms'] += fwd_ms
+        total['fwd_plain_ms'] += fwd_plain
+        total['fwd_library_ms'] += fwd_lib
         total['fwd_bound_ms'] += fb
         total['fwd_t_bytes'] += fwd_bytes / HBM_BYTES_PER_S * 1e3
         total['fwd_t_ops'] += fwd_flops / PEAK_FLOPS[dt] * 1e3
@@ -765,13 +839,14 @@ def check_train_conv(sites):
         del y, ref
         if j == 0:
             continue              # features conv_0 reads the data: no dx
-        g = 0.05 * torch.randn((n, h, w, co), generator=g_cuda, device='cuda')
+        g = (0.05 * torch.randn((n, h, w, co), generator=g_cuda,
+                                device='cuda')).to(dt)
         dx = same_grid_conv_dx(g, kd, lo, lo)
         dx_ref = same_grid_conv_dx_plain(g, kd, lo, lo)
-        conv_gate(dx, dx_ref, 'dx ' + name)
+        conv_gate(dx, dx_ref, 'dx {} {}'.format(name, dt), dt)
         dw = same_grid_conv_dw(x, g, th, tw, lo, lo)
         dw64 = same_grid_conv_dw(x.double(), g.double(), th, tw, lo, lo)
-        conv_gate(dw, dw64, 'dw ' + name)
+        dw_gate(dw, dw64, 'dw {} {}'.format(name, dt), dt)
         rms64 = dw64.square().mean().sqrt().item()
         dw_cudnn = cudnn_wgrad(x, g, th, tw, lo)
         wc = kd.permute(3, 2, 0, 1).contiguous()
@@ -782,20 +857,21 @@ def check_train_conv(sites):
             (n, ci, h, w), wc, gc, padding=lo), 10)
         dw_ms = time_ms(lambda: same_grid_conv_dw(x, g, th, tw, lo, lo), 5)
         dw_cudnn_ms = time_ms(lambda: cudnn_wgrad(x, g, th, tw, lo), 5)
-        nbytes = 4.0 * (g.numel() + kd.numel() + x.numel())
+        nbytes = es * (g.numel() + kd.numel() + x.numel())
         flops = 2.0 * n * h * w * th * tw * ci * co
         b, by = bound_ms(nbytes, flops, PEAK_FLOPS[dt])
         row = {'site': name, 'dx_shape': [n, h, w, co, ci, th, tw],
+               'dtype': str(dt).split('.')[-1],
                'ms': ms, 'plain_ms': plain, 'library_ms': lib,
                'bound_ms': b, 'bound_by': by, 'share_of_bound': b / ms,
-               'max_abs_err': (dx - dx_ref).abs().max().item(),
+               'max_abs_err': (dx.float() - dx_ref.float()).abs().max().item(),
                'tflops': flops / ms / 1e9,
                'dw_ms': dw_ms, 'dw_cudnn_ms': dw_cudnn_ms,
-               'dw_max_rel_err': (dw - dw64).abs().max().item() / rms64,
+               'dw_max_rel_err': (dw.double() - dw64).abs().max().item() / rms64,
                'dw_cudnn_max_rel_err':
-                   (dw_cudnn - dw64).abs().max().item() / rms64}
+                   (dw_cudnn.double() - dw64).abs().max().item() / rms64}
         dx_rows.append(row)
-        print('dx', json.dumps(row), flush=True)
+        print('dx' + tag, json.dumps(row), flush=True)
         for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dw_ms',
                     'dw_cudnn_ms'):
             total[key] += row[key]
@@ -803,7 +879,7 @@ def check_train_conv(sites):
         total['t_ops'] += flops / PEAK_FLOPS[dt] * 1e3
         for key in ('max_abs_err', 'dw_max_rel_err', 'dw_cudnn_max_rel_err'):
             total[key] = max(total[key], row[key])
-        del x, kern, kd, g, dx, dx_ref, dw, dw64, dw_cudnn, wc, gc
+        del x, kern, kd, g, dx, dx_ref, dw, dw64, dw_cudnn, wc, gc, xc, wk
         torch.cuda.empty_cache()
     if len(dx_rows) != DX_PER_STEP:
         raise AssertionError('{} dx sites'.format(len(dx_rows)))
@@ -1579,6 +1655,393 @@ def ood_eval(card: str):
     return launches, odin['launches'], summary
 
 
+def rel_rms(got, ref) -> float:
+    """The bfloat16 gate's error: ||got - ref||_2 / ||ref||_2 (float64)."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+def bf16_gate(card, cpu_bf16, cpu_f32, what) -> float:
+    """err(card bf16, cpu f32) <= GATE_A err(cpu bf16, cpu f32) + GATE_B;
+    -> the ratio of the left side to the right."""
+    want = GATE_A * rel_rms(cpu_bf16, cpu_f32) + GATE_B
+    got = rel_rms(card, cpu_f32)
+    if got > want:
+        raise AssertionError('bf16 gate {}: err(card bf16, cpu f32) {:.3e} > '
+                             '{} x err(cpu bf16, cpu f32) + {}'.format(
+                                 what, got, GATE_A, GATE_B))
+    return got / want
+
+
+def _count_reset():
+    from joint_vae_tpu_torch.ops.iws import iws_combine
+    from joint_vae_tpu_torch.ops.same_grid_conv import (
+        bf16_launches, same_grid_conv, same_grid_conv_dx)
+    same_grid_conv.launches = 0
+    same_grid_conv_dx.launches = 0
+    iws_combine.launches = 0
+    for k in bf16_launches:
+        bf16_launches[k] = 0
+
+
+def _check_bf16_counts(launches: dict, bf16: bool, what: str):
+    """Every conv launch since ``_count_reset`` ran the bfloat16 build when
+    ``bf16``, none of them when not."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import bf16_launches
+    got = dict(bf16_launches)
+    want = {k: launches[k] if bf16 else 0 for k in got}
+    if got != want:
+        raise AssertionError('{}: {} bf16 conv launches, want {}'.format(
+            what, got, want))
+
+
+def _counts() -> dict:
+    from joint_vae_tpu_torch.ops.iws import iws_combine
+    from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
+                                                        same_grid_conv_dx)
+    return {'same_grid_conv': same_grid_conv.launches,
+            'same_grid_conv_dx': same_grid_conv_dx.launches,
+            'iws_combine': iws_combine.launches}
+
+
+def _want(steps: int, batches: int = 0) -> dict:
+    """Launches of ``steps`` train steps and ``batches`` scored batches."""
+    return {'same_grid_conv': SITES_PER_BATCH * (steps + batches),
+            'same_grid_conv_dx': DX_PER_STEP * steps,
+            'iws_combine': batches}
+
+
+def time_device_steps(job, dd, batch: int) -> dict:
+    """The epoch's gather and 10 device-fed steps after 3 warm-up ones,
+    from a DeviceDataset, with their launches; then one step profiled
+    (phase 5's breakdown)."""
+    from joint_vae_tpu_torch.train.device_data import (epoch_permutation,
+                                                       make_device_train_step)
+    from joint_vae_tpu_torch.train.steps import pull_metrics
+    step = make_device_train_step(job.model, job.opt_cfg, batch)
+    state = job.state
+    perm = epoch_permutation(dd.n, 1, 0, dd.x.device)
+    shuffle_ms = time_ms(lambda: dd.shuffled(perm), 3, 1)
+    ex, ey = dd.shuffled(perm)
+    for i in range(TRAIN_WARMUP):
+        state, m = step(state, ex, ey, i)
+    torch.cuda.synchronize()
+    _count_reset()
+    pending = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
+        state, m = step(state, ex, ey, i)
+        pending.append(m)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches = _counts()
+    if launches != _want(TRAIN_TIMED):
+        raise AssertionError('device-fed steps launched {}'.format(launches))
+    _check_bf16_counts(launches, job.model.cfg.compute_dtype == 'bfloat16',
+                       'device-fed steps')
+    got = pull_metrics(pending)
+    if not all(np.isfinite(list(r.values())).all() for r in got):
+        raise AssertionError('non-finite device-fed metrics')
+    i = TRAIN_WARMUP + TRAIN_TIMED
+    breakdown = profile_train_step(lambda st, a, b: step(st, a, b, i),
+                                   state, ex, ey)
+    return {'batch': batch, 'ms_per_step': s * 1e3 / TRAIN_TIMED,
+            'images_per_s': batch * TRAIN_TIMED / s,
+            'shuffle_ms': shuffle_ms, 'launches': launches,
+            'last_total': got[-1]['total'], 'profile': breakdown}
+
+
+def profile_device_epoch(cfg, trainset, batch: int) -> dict:
+    """One fused ``train_epochs_on_device`` epoch over 4 batches under
+    torch.profiler: the gathers of the set counted (one per epoch: x and
+    y; none per step)."""
+    from torch.profiler import ProfilerActivity, profile
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.device_data import train_epochs_on_device
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    n = 4 * batch
+    small = ArrayDataset(trainset.data[:n], trainset.targets[:n], 'small')
+    job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=2)
+    train_epochs_on_device(job, small, 1, batch)          # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_epochs_on_device(job, small, 1, batch)
+        torch.cuda.synchronize()
+    ops = {ev.key: ev.count for ev in prof.key_averages()}
+    gathers = ops.get('aten::index_select', 0)
+    if gathers != 2:
+        raise AssertionError('{} gathers in one device-fed epoch, want 2 '
+                             '(x and y)'.format(gathers))
+    return {'steps': 4, 'index_select': gathers}
+
+
+def bf16_train_gate(cfg16) -> dict:
+    """The full-width flagship at batch 8 from one init, with the same
+    batch and noise: the card in bfloat16 against the CPU in float32,
+    through the bfloat16 gate whose reference is the CPU's own bfloat16:
+    the first step's gradients per tensor, every metric of 3 steps."""
+    import dataclasses
+    from joint_vae_tpu_torch.models.evaluate import evaluate
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.steps import make_train_step, pull_metrics
+    cfg32 = dataclasses.replace(cfg16, compute_dtype='float32')
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0, 1, (GATE_BATCH,) + cfg16.input_shape).astype(np.float32)
+    y = rng.integers(0, cfg16.num_labels, GATE_BATCH).astype(np.int64)
+    eps = rng.standard_normal((cfg16.latent_sampling + 1, GATE_BATCH,
+                               cfg16.latent_dim)).astype(np.float32)
+    eps[0] = 0.0
+    runs = {}
+    for name, cfg, dev in (('card_bf16', cfg16, 'cuda'),
+                           ('cpu_f32', cfg32, 'cpu'),
+                           ('cpu_bf16', cfg16, 'cpu')):
+        job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=1, device=dev)
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        et = torch.from_numpy(eps).to(dev)
+        params = dict(job.model.named_parameters())
+        out = evaluate(job.model, xt, yt, sigma_state=job.sigma_state,
+                       train=True, with_beta=True, eps=et)
+        want = torch.bfloat16 if cfg is cfg16 else torch.float32
+        if out.x_reco.dtype != want:
+            raise AssertionError('{}: x_reco in {}, want {}'.format(
+                name, out.x_reco.dtype, want))
+        got = torch.autograd.grad(torch.mean(out.losses['total']),
+                                  list(params.values()), allow_unused=True)
+        grads = {k: (torch.zeros_like(p) if g is None else g).double().cpu()
+                 for (k, p), g in zip(params.items(), got)}
+        step = make_train_step(job.model, job.opt_cfg)
+        state, seq = job.state, []
+        for _ in range(GATE_STEPS):
+            state, m = step(state, xt, yt, eps=et)
+            seq.append(m)
+        runs[name] = (grads, pull_metrics(seq))
+    ratios = {}
+    for k, ref in runs['cpu_f32'][0].items():
+        ratios['grad ' + k] = bf16_gate(runs['card_bf16'][0][k],
+                                        runs['cpu_bf16'][0][k], ref, k)
+    for k in runs['cpu_f32'][1][0]:
+        vec = {n: [m[k] for m in r[1]] for n, r in runs.items()}
+        ratios['metric ' + k] = bf16_gate(vec['card_bf16'], vec['cpu_bf16'],
+                                          vec['cpu_f32'], k)
+    worst = max(ratios, key=ratios.get)
+    return {'batch': GATE_BATCH, 'steps': GATE_STEPS, 'checked': len(ratios),
+            'worst': worst, 'worst_share_of_gate': ratios[worst],
+            'total_card_bf16': [m['total'] for m in runs['card_bf16'][1]],
+            'total_cpu_f32': [m['total'] for m in runs['cpu_f32'][1]],
+            'total_cpu_bf16': [m['total'] for m in runs['cpu_bf16'][1]]}
+
+
+def bf16_serve(cfg16) -> dict:
+    """A bfloat16 Scorer batch of 512 at L=16 on the card (8 conv and 1
+    combine launches) against the card's float32 Scorer of the same
+    weights and noise, per method through the bfloat16 gate, whose
+    reference is the CPU's bfloat16 against its float32 on the first
+    SERVE_GATE_N inputs; then the batch timed."""
+    import dataclasses
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.serve import Scorer
+    cfg32 = dataclasses.replace(cfg16, compute_dtype='float32')
+    rng = np.random.default_rng(12)
+    x = rng.uniform(0, 1, (BATCH,) + cfg16.input_shape).astype(np.float32)
+    eps = rng.standard_normal((cfg16.test_latent_sampling + 1, BATCH,
+                               cfg16.latent_dim)).astype(np.float32)
+    eps[0] = 0.0
+    free = {m: float('-inf') for m in METHODS}
+    scores = {}
+    for name, cfg, dev, n in (('card_bf16', cfg16, 'cuda', BATCH),
+                              ('card_f32', cfg32, 'cuda', BATCH),
+                              ('cpu_bf16', cfg16, 'cpu', SERVE_GATE_N),
+                              ('cpu_f32', cfg32, 'cpu', SERVE_GATE_N)):
+        job = new_job(cfg, seed=0, device=dev)
+        scorer = Scorer(job, methods=METHODS, thresholds=free)
+        et = torch.from_numpy(eps[:, :n]).to(dev)
+        if name == 'card_bf16':
+            _count_reset()
+        out = scorer(x[:n], eps=et)
+        if name == 'card_bf16':
+            launches = _counts()
+            if launches != _want(0, 1):
+                raise AssertionError('bf16 Scorer launched {}'.format(launches))
+            _check_bf16_counts(launches, True, 'bf16 Scorer')
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scorer(x, eps=et)
+            batch_ms = (time.perf_counter() - t0) * 1e3
+        scores[name] = out['scores']
+    ratios = {}
+    for m in METHODS:
+        s = {k: np.asarray(v[m], np.float64) for k, v in scores.items()}
+        if not np.all(np.isfinite(s['card_bf16'])):
+            raise AssertionError('non-finite bf16 scores for ' + m)
+        want = GATE_A * rel_rms(s['cpu_bf16'], s['cpu_f32']) + GATE_B
+        got = rel_rms(s['card_bf16'], s['card_f32'])
+        if got > want:
+            raise AssertionError('bf16 Scorer {}: err(card bf16, card f32) '
+                                 '{:.3e} > gate {:.3e}'.format(m, got, want))
+        ratios[m] = {'err_card': got, 'err_cpu_ref': rel_rms(
+            s['cpu_bf16'], s['cpu_f32']), 'card_vs_cpu_bf16': rel_rms(
+                s['card_bf16'][:SERVE_GATE_N], s['cpu_bf16'])}
+    return {'batch': BATCH, 'L': cfg16.test_latent_sampling,
+            'launches': launches, 'batch_ms': batch_ms,
+            'images_per_s': BATCH / batch_ms * 1e3, 'reference_inputs':
+            SERVE_GATE_N, 'scores': ratios}
+
+
+def bf16_cli(card: str) -> dict:
+    """``cli.train --device-data --compute-dtype bfloat16`` in a
+    subprocess with the flagship's flags; its job dir loaded; then
+    ``cli.serve`` by the job's number, its records naming cifar100's
+    classes."""
+    from joint_vae_tpu_torch.cli.serve import main as serve_main
+    from joint_vae_tpu_torch.data.registry import get_classes_by_name
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    jobs = os.path.join(WORK, 'cli_jobs_bf16')
+    shutil.rmtree(jobs, ignore_errors=True)
+    argv = [sys.executable, '-m', 'joint_vae_tpu_torch.cli.train',
+            '--dataset', 'cifar100', '--type', 'cvae', '--features', 'conv32',
+            '--upsampler', 'deconv32', '-K', '128', '--encoder', '512',
+            '--decoder', '512', '--classifier', '--gamma', '500',
+            '--beta', '1e-4', '--sigma', '0.1', '--latent-sampling', '1',
+            '--test-latent-sampling', '16', '--prior', 'gaussian',
+            '--prior-means', '17', '--learned-prior-means', '--lr', '1e-4',
+            '--compute-dtype', 'bfloat16', '--device-data',
+            '--epochs', '1', '--batch-size', '1024', '--test-batch-size',
+            '512', '--dataset-size', str(BF16_CLI_SIZE), '--no-final-ood',
+            '--job-dir', jobs, '--job-number', '2']
+    where = subprocess.run(argv + ['--where'], cwd=ROOT, check=True,
+                           capture_output=True, text=True,
+                           timeout=120).stdout.strip()
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError('bf16 train CLI exited {}:\n{}'.format(
+            r.returncode, r.stderr[-4000:]))
+    job = load_job(where)
+    if job.model_cfg.compute_dtype != 'bfloat16' or job.trained != 1:
+        raise AssertionError('bf16 CLI job: dtype {}, epochs {}'.format(
+            job.model_cfg.compute_dtype, job.trained))
+    loss = job.train_history[1]['train_loss']['total']
+    if not np.isfinite(loss) or job.state.step != BF16_CLI_SIZE // 1024:
+        raise AssertionError('bf16 CLI job: loss {}, {} steps'.format(
+            loss, job.state.step))
+    npy = os.path.join(WORK, 'inputs_bf16.npy')
+    np.save(npy, np.random.default_rng(4).uniform(
+        0, 1, (16,) + job.model_cfg.input_shape).astype(np.float32))
+    out = os.path.join(WORK, 'serve_by_number.jsonl')
+    t0 = time.perf_counter()
+    if serve_main(['2', npy, '--job-dir', jobs, '--batch-size', '16',
+                   '--output', out]) != 0:
+        raise AssertionError('serve CLI by job number failed')
+    serve_s = time.perf_counter() - t0
+    with open(out) as f:
+        recs = [json.loads(s) for s in f][:-1]
+    classes = get_classes_by_name('cifar100')
+    if len(recs) != 16 or any(rec.get('class') != classes[rec['label']]
+                              for rec in recs):
+        raise AssertionError('serve CLI by number: records {}'.format(recs[:2]))
+    return {'train_seconds': seconds, 'size': BF16_CLI_SIZE,
+            'job_dir': os.path.relpath(where, ROOT), 'train_loss': loss,
+            'serve_seconds': serve_s, 'classes': [r['class'] for r in recs[:3]],
+            'card': card}
+
+
+def bench_train(card: str, host_fed: dict):
+    """Phase 7: the bench's train path.  The flagship in bfloat16 trained
+    from a 50,000-image uint8 set held on the card: ``train_model(
+    device_data=True)`` at batch 1024 and ``train_epochs_on_device`` at
+    512, one epoch each, with their launches and images/s, then 10 timed
+    steps of each; the float32 step fed from the card beside phase 5's
+    host-fed one; one device-fed epoch profiled (one gather per epoch);
+    the bfloat16 gates (training, Scorer); the bfloat16 CLI."""
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.device_data import (DeviceDataset,
+                                                       train_epochs_on_device)
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.trainer import train_model
+    from joint_vae_tpu_torch.utils.print_log import EpochOutput
+
+    cfg16 = flagship_config(compute_dtype='bfloat16')
+    rng = np.random.default_rng(9)
+    trainset = ArrayDataset(
+        rng.integers(0, 256, (BENCH_SET,) + cfg16.input_shape, dtype=np.uint8),
+        rng.integers(0, cfg16.num_labels, BENCH_SET).astype(np.int32),
+        'synthetic')
+    runs = {}
+    for mode, batch in BENCH_BATCHES.items():
+        job = new_job(cfg16, OptimizerConfig(lr=TRAIN_LR), seed=0)
+        steps = BENCH_SET // batch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _count_reset()
+        # --- the main path: one bf16 epoch fed from the card ---
+        t0 = time.perf_counter()
+        if mode == 'train':
+            train_model(job, trainset, None, epochs=1, batch_size=batch,
+                        final_test=False, final_ood=False, device_data=True,
+                        outputs=EpochOutput(stdout=False))
+            total = job.train_history[1]['train_loss']['total']
+        else:
+            total = train_epochs_on_device(job, trainset, 1, batch,
+                                           fused=True)['total']
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = _counts()
+        # --- end of the main path ---
+        if launches != _want(steps):
+            raise AssertionError('bf16 {} epoch launched {}, want {}'.format(
+                mode, launches, _want(steps)))
+        _check_bf16_counts(launches, True, 'bf16 {} epoch'.format(mode))
+        if job.state.step != steps or not np.isfinite(total):
+            raise AssertionError('bf16 {} epoch: {} steps, total {}'.format(
+                mode, job.state.step, total))
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        dd = DeviceDataset(trainset)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        if dd.x.dtype != torch.uint8:
+            raise AssertionError('the uint8 set is held as {}'.format(dd.x.dtype))
+        timed = time_device_steps(job, dd, batch)
+        runs[mode] = {'batch': batch, 'steps': steps, 'launches': launches,
+                      'epoch_seconds': epoch_s,
+                      'epoch_images_per_s': steps * batch / epoch_s,
+                      'epoch_total_loss': total,
+                      'peak_memory_gb': peak / 1e9,
+                      'upload_seconds': upload_s,
+                      'dataset_mb': dd.x.numel() / 1e6, 'timed': timed}
+        del job, dd
+        torch.cuda.empty_cache()
+        print('bench_train_bf16', json.dumps({mode: runs[mode]}), flush=True)
+
+    # --- the float32 step fed from the card, beside phase 5's host feed ---
+    job32 = new_job(flagship_config(), OptimizerConfig(lr=TRAIN_LR), seed=0)
+    dd = DeviceDataset(trainset)
+    f32 = time_device_steps(job32, dd, TRAIN_BATCH)
+    f32.update({'host_fed_ms_per_step': host_fed['ms_per_step'],
+                'host_fed_images_per_s': host_fed['train_images_per_s'],
+                'host_batches_on_card_ms_per_step':
+                    host_fed['ms_per_step_batches_on_card']})
+    del job32, dd
+    torch.cuda.empty_cache()
+    epoch_profile = profile_device_epoch(cfg16, trainset, TRAIN_BATCH)
+    gate = bf16_train_gate(cfg16)
+    serve16 = bf16_serve(cfg16)
+    cli = bf16_cli(card)
+    summary = {'bf16': runs, 'f32_device_fed': f32,
+               'device_epoch_profile': epoch_profile, 'bf16_gate': gate,
+               'bf16_serve': serve16, 'bf16_cli': cli,
+               'gate': {'a': GATE_A, 'b': GATE_B}, 'card': card}
+    print('bench_train', json.dumps(summary), flush=True)
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -1615,12 +2078,24 @@ def main():
     iws_rows, iws = check_iws()
     train_sites = same_grid_sites(CVNet(cfg), TRAIN_BATCH, cfg.latent_sampling)
     fwd_rows, dx_rows, dxt = check_train_conv(train_sites)
+    fwd16_rows, dx16_rows, dxt16 = check_train_conv(train_sites, torch.bfloat16)
     library_rows = check_library_convs(CVNet(cfg), TRAIN_BATCH)
     os.makedirs(WORK, exist_ok=True)
+    # the loader's native batcher, built before the timed phases
+    from joint_vae_tpu_torch.data import native
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError('native/libjvtbatcher.so did not build')
+    print('batcher build seconds', round(time.perf_counter() - t0, 3),
+          flush=True)
     launches, launches128, summary = serve(card)
     train_launches, train_summary = train(card)
     ood_launches, odin_launches, ood_summary = ood_eval(card)
     odin_conv_0 = ood_summary['odin']['conv_0_dx']
+    bench = bench_train(card, train_summary)
+    bench16 = {mode: r['launches'] for mode, r in bench['bf16'].items()}
+    f32_fed = bench['f32_device_fed']['launches']
+    serve16 = bench['bf16_serve']['launches']
 
     kernels = [
         {'name': 'same_grid_conv', 'route': 'cuda',
@@ -1642,12 +2117,30 @@ def main():
          'bound_by': 'bytes' if conv['t_bytes'] >= conv['t_ops'] else 'operations',
          'bound_ms_cuda_core': conv['bound_ms_cuda_core'],
          'library_ms': conv['library_ms'],
+         'launches_bench_bf16': {m: c['same_grid_conv']
+                                 for m, c in bench16.items()},
+         'launches_device_fed_f32': f32_fed['same_grid_conv'],
+         'launches_serve_bf16': serve16['same_grid_conv'],
+         'train_step_bf16_ms': dxt16['fwd_ms'],
+         'train_step_bf16_plain_ms': dxt16['fwd_plain_ms'],
+         'train_step_bf16_library_ms': dxt16['fwd_library_ms'],
+         'train_step_bf16_bound_ms': dxt16['fwd_bound_ms'],
+         'train_step_bf16_bound_by': (
+             'bytes' if dxt16['fwd_t_bytes'] >= dxt16['fwd_t_ops']
+             else 'operations'),
+         'train_step_bf16_max_abs_err': dxt16['fwd_max_abs_err'],
          'per': 'one serve batch: the eight float32 sites summed (bound at '
                 'the 3xTF32 rate; library: F.conv2d, or F.conv_transpose2d '
                 'of the true deconv at the sub-pixel sites); '
                 'train_step_ms: the eight sites at the train step\'s shapes '
-                '(batch 1024, L=1), with their bound (train_step_bound_ms)',
-         'sites': conv_rows, 'train_sites': fwd_rows},
+                '(batch 1024, L=1), with their bound (train_step_bound_ms); '
+                'train_step_bf16_*: the same in bfloat16 (bound at 989 '
+                'TFLOP/s; library: cuDNN F.conv2d in bfloat16); '
+                'launches_bench_bf16: one bfloat16 epoch of 50,000 images '
+                'fed from the card at batch 1024 (train_model) and 512 '
+                '(train_epochs_on_device)',
+         'sites': conv_rows, 'train_sites': fwd_rows,
+         'train_sites_bf16': fwd16_rows},
         {'name': 'same_grid_conv_dx', 'route': 'cuda',
          'source': 'joint_vae_tpu_torch/csrc/same_grid_conv.cu',
          'replaces': 'joint_vae_tpu/ops/pallas_conv.py:109',
@@ -1664,6 +2157,18 @@ def main():
          'dw_ms': dxt['dw_ms'], 'dw_cudnn_ms': dxt['dw_cudnn_ms'],
          'dw_max_rel_err': dxt['dw_max_rel_err'],
          'dw_cudnn_max_rel_err': dxt['dw_cudnn_max_rel_err'],
+         'launches_bench_bf16': {m: c['same_grid_conv_dx']
+                                 for m, c in bench16.items()},
+         'launches_device_fed_f32': f32_fed['same_grid_conv_dx'],
+         'bf16_ms': dxt16['ms'], 'bf16_plain_ms': dxt16['plain_ms'],
+         'bf16_library_ms': dxt16['library_ms'],
+         'bf16_bound_ms': dxt16['bound_ms'],
+         'bf16_bound_by': ('bytes' if dxt16['t_bytes'] >= dxt16['t_ops']
+                           else 'operations'),
+         'bf16_max_abs_err': dxt16['max_abs_err'],
+         'bf16_dw_ms': dxt16['dw_ms'], 'bf16_dw_cudnn_ms': dxt16['dw_cudnn_ms'],
+         'bf16_dw_max_rel_err': dxt16['dw_max_rel_err'],
+         'bf16_dw_cudnn_max_rel_err': dxt16['dw_cudnn_max_rel_err'],
          'per': 'one train step at batch 1024: the input gradient of the '
                 'seven same-grid sites whose input needs one, the same '
                 'kernel on the flipped, ci/co-swapped kernel (the TPU '
@@ -1671,14 +2176,18 @@ def main():
                 '164-170); bound at the 3xTF32 rate; dw: the weight '
                 'gradient of the same sites as a float32 im2col product '
                 '(not a port of a kernel), beside cuDNN\'s (dw_cudnn; '
-                'errors relative to the float64 product\'s rms)',
-         'sites': dx_rows},
+                'errors relative to the float64 product\'s rms); bf16_*: '
+                'the same in bfloat16 (dw summed in float32)',
+         'sites': dx_rows, 'sites_bf16': dx16_rows},
         {'name': 'iws_combine', 'route': 'cuda',
          'source': 'joint_vae_tpu_torch/csrc/iws_combine.cu',
          'replaces': 'joint_vae_tpu/ops/pallas_kernels.py:99',
          'launches': launches['iws_combine'],
          'launches_l128': launches128['iws_combine'],
          'launches_ood': ood_launches['iws_combine'],
+         'launches_serve_bf16': serve16['iws_combine'],
+         'launches_bench_bf16': {m: c['iws_combine']
+                                 for m, c in bench16.items()},
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -1692,6 +2201,7 @@ def main():
     ]
     print(json.dumps({'kernels': kernels, 'serve': summary,
                       'train': train_summary, 'ood': ood_summary,
+                      'bench_train': bench,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,16 +1,17 @@
 """Serving CLI: score inputs with a trained job's classify + OOD-gate
 Scorer (``serve.py``), on the CUDA card unless ``--device cpu``.
 
-    python -m joint_vae_tpu_torch.cli.serve path/to/jobdir x.npy [--methods elbo iws]
+    python -m joint_vae_tpu_torch.cli.serve <job#> --job-dir jobs x.npy [--methods elbo iws]
     python -m joint_vae_tpu_torch.cli.serve path/to/jobdir images_dir/ --device cpu
 
-Inputs: .npy/.npz arrays ((N, C, H, W) float [0, 1] or uint8), image files
-and directories of images (decoded with PIL, imported only then).  One
-JSON line per input on stdout (or --output FILE): input name, label,
-confidence, per-method scores and the accept bit; a final summary line
-reports the reject rate, and exit status 3 flags a reject rate above
---max-reject-rate.  The job is a job directory; lookup by job number
-comes with the job-store port.
+The job is a job directory, or a job number looked up under --job-dir
+(``save_load/fetch.py::find_by_job_number``).  Inputs: .npy/.npz arrays
+((N, C, H, W) float [0, 1] or uint8), image files and directories of
+images (decoded with PIL, imported only then).  One JSON line per input
+on stdout (or --output FILE): input name, label, the class name when the
+training set's registry entry names its classes, confidence, per-method
+scores and the accept bit; a final summary line reports the reject rate,
+and exit status 3 flags a reject rate above --max-reject-rate.
 """
 
 import argparse
@@ -22,7 +23,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from ..data.loaders import IMG_EXTS, decode_image
+from ..data.ingest import EXTS, decode_one
 from . import add_device_arg
 
 def _load_inputs(paths, shape) -> Tuple[np.ndarray, List[str]]:
@@ -44,7 +45,7 @@ def _load_inputs(paths, shape) -> Tuple[np.ndarray, List[str]]:
             names.append('{}[{}]'.format(name, i) if a.shape[0] > 1 else name)
 
     def add_image(p):
-        xs.append(decode_image(p, shape).astype(np.float32) / 255.0)
+        xs.append(decode_one(p, shape).astype(np.float32) / 255.0)
         names.append(p)
 
     for p in paths:
@@ -52,7 +53,7 @@ def _load_inputs(paths, shape) -> Tuple[np.ndarray, List[str]]:
             found = 0
             for dirpath, _, files in sorted(os.walk(p)):
                 for f in sorted(files):
-                    if f.lower().endswith(IMG_EXTS):
+                    if f.lower().endswith(EXTS):
                         add_image(os.path.join(dirpath, f))
                         found += 1
             if not found:
@@ -63,7 +64,7 @@ def _load_inputs(paths, shape) -> Tuple[np.ndarray, List[str]]:
             with np.load(p) as z:
                 for k in z.files:
                     add_array(z[k], '{}:{}'.format(p, k))
-        elif p.lower().endswith(IMG_EXTS):
+        elif p.lower().endswith(EXTS):
             add_image(p)
         else:
             raise SystemExit('unsupported input {}'.format(p))
@@ -72,13 +73,24 @@ def _load_inputs(paths, shape) -> Tuple[np.ndarray, List[str]]:
     return np.stack(xs), names
 
 
+def _class_names(job):
+    """The class names of the job's training set from the registry, or
+    None (a set the registry does not name)."""
+    from ..data.registry import dataset_properties
+    name = job.training_parameters.get('set')
+    if not name:
+        return None
+    props = dataset_properties().get(name.split('-')[0].split('+')[0])
+    return list(props['classes']) if props and props.get('classes') else None
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog='jvt-torch-serve')
-    p.add_argument('job', help='job directory path')
+    p.add_argument('job', help='job number (with --job-dir) or job dir path')
     p.add_argument('inputs', nargs='+',
                    help='image files, image directories, .npy/.npz arrays')
     p.add_argument('--job-dir', '-J', default='jobs',
-                   help='job store root (job-number lookup is not ported yet)')
+                   help='job store root for a job number')
     p.add_argument('--methods', nargs='*', default=None,
                    help='OOD gate methods (default: the first stored-result '
                         "method, else the type's first ood method)")
@@ -103,12 +115,21 @@ def main(argv=None):
     logging.basicConfig(level=logging.DEBUG if args.debug else
                         logging.INFO if args.verbose else logging.WARNING)
 
+    from ..save_load.fetch import find_by_job_number
     from ..save_load.jobs import load_job
     from ..serve import Scorer
-    if not os.path.isdir(args.job):
-        raise SystemExit('{} is not a job directory (job-number lookup under '
-                         '--job-dir is not ported yet)'.format(args.job))
-    job = load_job(args.job, device=args.device)
+    if os.path.isdir(args.job):
+        job = load_job(args.job, device=args.device)
+    else:
+        try:
+            number = int(args.job)
+        except ValueError:
+            raise SystemExit('{} is neither a job directory nor a job '
+                             'number'.format(args.job))
+        job = find_by_job_number(args.job_dir, number, device=args.device)
+        if job is None:
+            raise SystemExit('job {} not found under {}'.format(
+                args.job, args.job_dir))
 
     cfg = job.model_cfg
     methods = args.methods
@@ -129,6 +150,7 @@ def main(argv=None):
                             '%.2f: the gate accepts everything', m, args.tpr)
 
     x, names = _load_inputs(args.inputs, cfg.input_shape)
+    classes = _class_names(job)
     out_f = sys.stdout if args.output == '-' else open(args.output, 'w')
     n = len(x)
     bs = max(1, args.batch_size)
@@ -151,6 +173,8 @@ def main(argv=None):
                            'scores': {m: round(float(out['scores'][m][j]), 6)
                                       for m in methods},
                            'in_distribution': ind}
+                    if classes and 0 <= label < len(classes):
+                        rec['class'] = str(classes[label])
                     out_f.write(json.dumps(rec) + '\n')
         rate = rejected / n
         out_f.write(json.dumps({

@@ -171,7 +171,8 @@ def main(argv=None):
                     outputs=outputs, seed=args.seed,
                     fine_tuning=args.fine_tuning,
                     final_test=not args.no_final_test,
-                    final_ood=not args.no_final_ood)
+                    final_ood=not args.no_final_ood,
+                    device_data=args.device_data)
     finally:
         outputs.close()
     return 0

@@ -15,10 +15,14 @@ DTD, LSUN).  When the files are absent the loader falls back to a flagged
 (``synthetic=True``) deterministic class-structured substitute, so every
 pipeline stays runnable; ``require_real`` makes that an error instead.
 
-:class:`DataLoader` is the numpy path: the epoch permutation and the
-augmentation draws come from ``np.random.default_rng((seed, epoch))``, so
-both packages see the same batches.  The JAX package's native batcher and
-memmap ingest cache are not ported.
+Image folders go through the uint8 memmap ingest cache (``data/ingest.py``;
+``JVT_INGEST_CACHE=0`` decodes in this process instead, to the same
+bytes).  :class:`DataLoader` takes the native batcher (``data/native.py``)
+where the JAX package takes it: by default whenever it builds, for flip
+and crop augmentation only and never over a memmap; its batches equal
+the JAX package's native ones.  Otherwise it is the numpy path: the epoch
+permutation and the augmentation draws come from
+``np.random.default_rng((seed, epoch))``, as in the JAX package's.
 """
 
 import gzip
@@ -31,11 +35,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .ingest import (decode_one, ingest_image_folder, list_folder,
+                     open_cached_image_folder)
 from .registry import (dataset_properties, get_classes_by_name,
                        get_heldout_classes_by_name, get_same_size_by_name)
 
 DATA_DIR = os.environ.get('JVT_DATA_DIR', './data')
-IMG_EXTS = ('.jpg', '.jpeg', '.png', '.bmp')
 
 
 def to_float(x: np.ndarray) -> np.ndarray:
@@ -146,40 +151,14 @@ def _load_cifar(root: str, split: str, want: str = 'cifar10'):
     return None
 
 
-def _list_folder(base: str, allowed: Optional[Sequence[str]] = None):
-    """-> (sorted class names, [(path, label)]) for base/<class>/*.img."""
-    classes = sorted(d for d in os.listdir(base)
-                     if os.path.isdir(os.path.join(base, d))
-                     and not d.startswith('.'))
-    if allowed:
-        allowed = set(allowed)
-        classes = [c for c in classes if c in allowed]
-    files: List[Tuple[str, int]] = []
-    for yi, cname in enumerate(classes):
-        cdir = os.path.join(base, cname)
-        for fn in sorted(os.listdir(cdir)):
-            if fn.lower().endswith(IMG_EXTS):
-                files.append((os.path.join(cdir, fn), yi))
-    return classes, files
-
-
-def decode_image(path: str, shape) -> np.ndarray:
-    """Decode + resize one image file to (C, H, W) uint8 (PIL, imported
-    here only)."""
-    from PIL import Image
-    c, h, w = shape
-    img = Image.open(path).convert('RGB' if c == 3 else 'L').resize((w, h))
-    arr = np.asarray(img, np.uint8)
-    return arr[None] if arr.ndim == 2 else arr.transpose(2, 0, 1)
-
-
 def _load_image_folder(root: str, shape, split: str,
                        class_file: Optional[str] = None):
     """ImageFolder reader (ref ImageFolderWithClassesInFile,
     utils/torch_load.py:250-294): root/<split>/<class>/*.img, optionally
-    restricted to class ids listed in a txt file (imagenet1k/20/2), decoded
-    in this process to uint8 (the JAX package's memmap ingest cache is not
-    ported; its direct decode gives the same arrays)."""
+    restricted to class ids listed in a txt file (imagenet1k/20/2), as
+    uint8 through the ingest cache (``data/ingest.py``): a warm cache opens
+    without PIL, a cold one is decoded once.  ``JVT_INGEST_CACHE=0`` (or
+    off/false/no/none) decodes the tree in this process instead."""
     base = os.path.join(root, split)
     if not os.path.isdir(base) and split == 'test':
         # ImageNet-layout trees name the eval split 'val' (ref sets.ini
@@ -200,15 +179,24 @@ def _load_image_folder(root: str, shape, split: str,
         with open(class_file) as f:
             allowed = [l.split()[0] for l in f
                        if l.strip() and not l.startswith('#')]
+    cache_on = (os.environ.get('JVT_INGEST_CACHE', '1').strip().lower()
+                not in ('0', 'off', 'false', 'no', 'none'))
+    if cache_on:
+        got = open_cached_image_folder(base, shape, allowed)
+        if got is not None:
+            return got[0], got[1]
     try:
         import PIL  # noqa: F401 — the decoder
     except ImportError:
         return None
-    _, files = _list_folder(base, allowed)
-    if not files:
-        return None
-    x = np.stack([decode_image(p, shape) for p, _ in files])
-    return x, np.asarray([lb for _, lb in files], np.int32)
+    if not cache_on:
+        _, files = list_folder(base, allowed)
+        if not files:
+            return None
+        x = np.stack([decode_one(p, shape) for p, _ in files])
+        return x, np.asarray([lb for _, lb in files], np.int32)
+    got = ingest_image_folder(base, shape, allowed)
+    return None if got is None else (got[0], got[1])
 
 
 def _load_npz(root: str, name: str, split: str):
@@ -658,16 +646,20 @@ def get_batch(dataset: ArrayDataset, batch_size: int = 100, seed=None):
 
 class DataLoader:
     """Seeded, epoch-shuffled batch iterator over an ArrayDataset, yielding
-    host arrays (x float32, y int32).
+    host arrays (x float32, y int32), new arrays for every batch.
 
     Deterministic per (seed, epoch); optionally applies train-time
-    augmentation (hflip / random crop with edge padding of size // 8) on
-    the host in one vectorized shot per batch."""
+    augmentation (hflip / random crop of pad size // 8).  ``use_native``
+    ('auto', True or 'always': the native batcher where it builds and
+    the augmentation is flip/crop only, never over a memmap; False: numpy)
+    follows the JAX package's loader; the numpy path augments on the host
+    in one vectorized shot per batch, with edge padding."""
 
     def __init__(self, dataset: ArrayDataset, batch_size: int,
                  shuffle: bool = True, seed: int = 0,
                  data_augmentation: Sequence[str] = (),
-                 drop_last: bool = False):
+                 drop_last: bool = False,
+                 use_native='auto'):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -675,12 +667,35 @@ class DataLoader:
         self.epoch = 0
         self.augmentation = list(data_augmentation)
         self.drop_last = drop_last
+        self._native = None
+        if (use_native in ('auto', True, 'always') and len(dataset)
+                and all(a.startswith(('flip', 'hflip', 'crop'))
+                        for a in self.augmentation)
+                # the batcher holds a contiguous copy of the data, which
+                # would defeat a memmap's bounded memory
+                and not isinstance(dataset.data, np.memmap)):
+            from . import native
+            crop = (max(dataset.data.shape[-2] // 8, 1)
+                    if any(a.startswith('crop')
+                           for a in self.augmentation) else 0)
+            flip = any(a.startswith(('flip', 'hflip'))
+                       for a in self.augmentation)
+            try:
+                if native.available():
+                    self._native = native.NativeBatcher(
+                        dataset.data, dataset.targets, seed=seed,
+                        hflip=flip, crop_pad=crop)
+            except (OSError, RuntimeError) as e:
+                logging.debug('native batcher disabled: %s', e)
 
     def __len__(self):
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self):
+        if self._native is not None:
+            yield from self._iter_native()
+            return
         n = len(self.dataset)
         rng = np.random.default_rng((self.seed, self.epoch))
         order = rng.permutation(n) if self.shuffle else np.arange(n)
@@ -694,6 +709,15 @@ class DataLoader:
             if self.augmentation:
                 x = self._augment(x, rng)
             yield x, y
+
+    def _iter_native(self):
+        nb = self._native
+        nb.start_epoch(self.epoch, self.shuffle)
+        self.epoch += 1
+        # new output arrays for every batch: callers (the engines'
+        # recorders) keep a set's batches until its end
+        for i in range(len(self)):
+            yield nb.get_batch(i, self.batch_size)
 
     def _augment(self, x: np.ndarray, rng) -> np.ndarray:
         if 'flip' in self.augmentation or 'hflip' in self.augmentation:

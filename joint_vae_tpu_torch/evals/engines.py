@@ -25,8 +25,12 @@ score measures.  Scores and recorder tensors stay on the job's device and
 are pulled to the host once per set; the ROC runs on the device.  The
 latent noise comes from a generator seeded with the epoch (+1 for
 accuracy, +2 for misclassification), as the JAX package keys its draws.
-The JAX package's scan over stacked batches, its evaluation knobs and its
-mesh and multi-process branches are not ported.
+A bfloat16 model scores with the 'bf16' loss epilogue
+(``models/evaluate.py`` ``native_scores``), the JAX engine's default for
+bfloat16 models, so that its per-class scores follow the JAX engine's.
+The JAX package's scan over stacked batches, its evaluation knobs (its
+``JVT_EVAL_*`` environment) and its mesh and multi-process branches are
+not ported.
 """
 
 import logging
@@ -101,12 +105,16 @@ def _rev(t: torch.Tensor) -> torch.Tensor:
 def _fill_recorder(recorder: LossRecorder, batches):
     """Append the per-batch (losses, logits, y) of a set, each key's
     tensors concatenated on the device and pulled once; logits are stored
-    transposed (C, N) as the JAX package stores them."""
+    transposed (C, N) as the JAX package stores them.  A bfloat16 model's
+    logits are stored as float32, which holds them exactly (the JAX
+    package writes their raw 2-byte words, which read back as numpy's
+    void type)."""
     keys = list(batches[0][0])
     host = {k: torch.cat([b[0][k] for b in batches], dim=-1).cpu().numpy()
             for k in keys}
-    host['logits'] = torch.cat([_rev(b[1]) for b in batches],
-                               dim=-1).cpu().numpy()
+    logits = torch.cat([_rev(b[1]) for b in batches], dim=-1)
+    host['logits'] = (logits.float() if logits.dtype == torch.bfloat16
+                      else logits).cpu().numpy()
     start = 0
     for _, _, y in batches:
         n = len(y)
@@ -129,12 +137,15 @@ def _collect_scores(job: Job, dataset: ArrayDataset, methods: Sequence[str],
                         drop_last=False)
     per_method: Dict[str, List[torch.Tensor]] = {m: [] for m in methods}
     rec_batches = []
+    # the JAX engine's default epilogue (engines.py:123-126)
+    native = 'bf16' if cfg.compute_dtype == 'bfloat16' else False
     for i, (x, y) in enumerate(loader):
         if num_batch is not None and i >= num_batch:
             break
         xt = to_device(x, dev)
         out = evaluate(model, xt, None, sigma_state=job.sigma_state,
-                       train=False, decode_mean=False, generator=generator)
+                       train=False, decode_mean=False, native_scores=native,
+                       generator=generator)
         losses = dict(out.losses)
         if odin is not None:
             losses.update(odin(xt, generator))

@@ -286,11 +286,13 @@ class CVNetConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
-def flagship_config(tiny: bool = False) -> CVNetConfig:
+def flagship_config(tiny: bool = False,
+                    compute_dtype: str = 'float32') -> CVNetConfig:
     """The repo's flagship model: CIFAR-100 cvae with conv32 features, a
     deconv32 upsampler, widths 512, K=128, a learned 100-class gaussian
-    prior and test L=16 (same values as ``__graft_entry__._flagship_cfg``).
-    ``tiny`` gives its small test twin."""
+    prior and test L=16 (same values as ``__graft_entry__._flagship_cfg``),
+    computing in ``compute_dtype`` ('float32' or 'bfloat16', the bench's
+    default).  ``tiny`` gives its small test twin (float32, as JAX's)."""
     if tiny:
         return CVNetConfig(
             input_shape=(3, 8, 8), num_labels=4, type='cvae',
@@ -307,7 +309,8 @@ def flagship_config(tiny: bool = False) -> CVNetConfig:
         latent_dim=128, latent_sampling=1, test_latent_sampling=16,
         gamma=500.0, beta=1e-4, sigma=SigmaConfig(value=0.1),
         prior=PriorConfig(dim=128, num_priors=100, init_mean=17.0,
-                          learned_means=True))
+                          learned_means=True),
+        compute_dtype=compute_dtype)
 
 
 class _DenseImager(nn.Module):

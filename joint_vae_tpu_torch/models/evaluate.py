@@ -33,6 +33,7 @@ from ..ops.priors import prior_kl, prior_log_density
 from ..ops.sampling import reparameterize
 from ..ops.sigma import (SigmaState, sigma_value, update_sigma_coded,
                          update_sigma_rmse)
+from .conv import ConvStack
 from .cvnet import CVNet
 from .layers import capacity, dict_min_distance, onehot_encoding
 
@@ -76,9 +77,14 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
     callers; training never decodes it).  ``compute_iws`` defaults to
     ``not train``.  ``bn_eval`` keeps BatchNorm on its running statistics
     while the rest trains.  Gradients are enabled only in training.
-    ``native_scores`` is the JAX package's TPU layout choice for the
-    reconstruction losses (equal losses); it is accepted and the port
-    computes in NCHW."""
+    ``native_scores`` follows the JAX package's flag.  A string holding
+    'bf16' takes the difference and square of the (L, ...) gaussian
+    reconstructions in the compute dtype and their mean in float32 (with
+    one scalar sigma, as the unweighted mse over sigma^2), which moves a
+    bfloat16 model's losses by its rounding and leaves float32 models as
+    they are; 'barrier' is an XLA scheduling hint with no numeric effect,
+    accepted and ignored; True is JAX's native layout, which only
+    permutes the summed pixels: the port computes in NCHW in every case."""
     grad_ctx = contextlib.nullcontext() if train else torch.no_grad()
     with grad_ctx:
         return _evaluate(model, x, y, sigma_state=sigma_state, train=train,
@@ -87,13 +93,14 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                          gamma_weighting=gamma_weighting, L=L,
                          compute_iws=compute_iws,
                          return_bn_updates=return_bn_updates,
-                         decode_mean=decode_mean, bn_eval=bn_eval, eps=eps,
+                         decode_mean=decode_mean, bn_eval=bn_eval,
+                         native_scores=native_scores, eps=eps,
                          generator=generator)
 
 
 def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
               gamma_weighting, L, compute_iws, return_bn_updates, decode_mean,
-              bn_eval, eps, generator):
+              bn_eval, native_scores, eps, generator):
     cfg = model.cfg
     C = cfg.num_labels
     N = x.shape[0]
@@ -171,9 +178,21 @@ def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
                 sigma_div = sigma_div.reshape(cfg.input_shape)
 
         use_unit_sigma = scfg.is_rmse or cfg.output_distribution == 'categorical'
+        # the 'bf16' epilogue of JAX's native-layout scoring
+        # (models/evaluate.py:171-182, 233-247): the weighted form only
+        # where JAX's decoder has a native layout (a conv imager) and
+        # sigma is one scalar
+        low = (isinstance(native_scores, str) and 'bf16' in native_scores
+               and x_reco_s.dtype != torch.float32)
+        scalar_native = (not scfg.per_dim and not scfg.coded
+                         and isinstance(model.imager, ConvStack))
         if cfg.output_distribution == 'gaussian':
             if use_unit_sigma:
-                wmse_l = mse_loss(x_reco_s, x, ndim=nd, batch_mean=False)
+                wmse_l = mse_loss(x_reco_s, x, ndim=nd, batch_mean=False,
+                                  low_precision=low)
+            elif low and scalar_native:
+                wmse_l = mse_loss(x_reco_s, x, ndim=nd, batch_mean=False,
+                                  low_precision=True) / torch.square(sigma_div)
             else:
                 wmse_l = mse_loss(x_reco_s / sigma_div, x / sigma_div,
                                   ndim=nd, batch_mean=False)

@@ -23,9 +23,19 @@ def _image_dims(x: torch.Tensor, ndim: int):
 
 
 def mse_loss(x_output: torch.Tensor, x_target: torch.Tensor, ndim: int = 3,
-             batch_mean: bool = True) -> torch.Tensor:
+             batch_mean: bool = True,
+             low_precision: bool = False) -> torch.Tensor:
     """x_target (N.., D..); x_output (L, [C,] N.., D..) -> (L, [C,] N..)
-    per-sample MSE, or its scalar mean when ``batch_mean``."""
+    per-sample MSE, or its scalar mean when ``batch_mean``.
+
+    ``low_precision`` takes the difference and its square in x_output's
+    dtype when that is not float32 (bfloat16 models) and only the mean in
+    float32, as the JAX package's ``low_precision`` does."""
+    if low_precision and x_output.dtype != torch.float32:
+        diff = x_output - x_target.to(x_output.dtype)
+        per = torch.mean(torch.square(diff).float(),
+                         dim=_image_dims(diff, ndim))
+        return torch.mean(per) if batch_mean else per
     diff = (x_output - x_target).float()
     per = torch.mean(torch.square(diff), dim=_image_dims(diff, ndim))
     return torch.mean(per) if batch_mean else per

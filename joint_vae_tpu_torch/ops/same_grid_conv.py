@@ -20,8 +20,9 @@ Gradients (the JAX package's ``_bwd`` leaves both to XLA's conv vjp):
   ``(th-1-ph_lo, tw-1-pw_lo)``: :func:`same_grid_conv_dx` runs it on the
   same kernel (its own launch counter);
 - dw, a per-tap reduction ``dw[a, b] = sum x_shift(a, b)^T g``, is
-  :func:`same_grid_conv_dw`: float32 matrix products (cuBLAS) over an
-  im2col copy of x, a chunk of images at a time; no hand-written kernel.
+  :func:`same_grid_conv_dw`: matrix products (cuBLAS) over an im2col
+  copy of x, a chunk of images at a time, summed in float32 whatever x's
+  dtype; no hand-written kernel.
   cuDNN's float32 weight gradient (TF32 off) is not precise enough at the
   flagship's same-grid shapes on the H100: off by 3.3% of its rms at
   conv_2 and 1.3% at deconv_1 at batch 1024 (``chip_smoke.py`` prints
@@ -79,17 +80,28 @@ def same_grid_conv_dw(x: torch.Tensor, g: torch.Tensor, th: int, tw: int,
                       ph_lo: int, pw_lo: int) -> torch.Tensor:
     """dw (th, tw, ci, co) of the same-grid conv of x (n, h, w, ci) at pads
     (ph_lo, pw_lo) whose output gradient is g (n, h, w, co):
-    im2col(x)^T g, summed over chunks of images in x's dtype."""
+    im2col(x)^T g over chunks of images, the sum over all of them
+    accumulated in float32 (float64 for float64 x) and cast to x's dtype
+    once at the end, as XLA reduces the JAX package's dw.  A bfloat16
+    chunk's product comes out of the GEMM in float32 (``out_dtype`` on
+    the card; float32 operands on the CPU)."""
     n, h, w, ci = x.shape
     co = g.shape[3]
     xp = F.pad(x, (0, 0, pw_lo, tw - 1 - pw_lo, ph_lo, th - 1 - ph_lo))
     k = th * tw * ci
     chunk = max(1, IM2COL_BYTES // (h * w * k * x.element_size()))
-    dw = torch.zeros((k, co), dtype=x.dtype, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dw = torch.zeros((k, co), dtype=acc, device=x.device)
     for i in range(0, n, chunk):
         cols = _im2col(xp[i:i + chunk], th, tw, h, w)
-        dw.addmm_(cols.t(), g[i:i + chunk].reshape(-1, co))
-    return dw.reshape(th, tw, ci, co)
+        gi = g[i:i + chunk].reshape(-1, co)
+        if x.dtype == acc:
+            dw.addmm_(cols.t(), gi)
+        elif x.is_cuda:
+            dw += torch.mm(cols.t(), gi, out_dtype=acc)
+        else:
+            dw.addmm_(cols.t().to(acc), gi.to(acc))
+    return dw.reshape(th, tw, ci, co).to(x.dtype)
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, ph_lo: int, pw_lo: int):
@@ -143,9 +155,12 @@ def same_grid_conv(x: torch.Tensor, kernel: torch.Tensor,
                    ph_lo: int, pw_lo: int) -> torch.Tensor:
     """y (n, h, w, co) = same-grid conv of x (n, h, w, ci) with the HWIO
     ``kernel``.  CPU tensors run :func:`same_grid_conv_plain`; CUDA tensors
-    launch the kernel (float32 or bfloat16, contiguous) or raise."""
+    launch the kernel (float32 or bfloat16, contiguous) or raise.  Its
+    launches are counted in ``launches``, the bfloat16 ones also in
+    :data:`bf16_launches`."""
     y, launched = _run(x, kernel, ph_lo, pw_lo)
     same_grid_conv.launches += launched
+    bf16_launches['same_grid_conv'] += launched and x.dtype == torch.bfloat16
     return y
 
 
@@ -153,10 +168,13 @@ def same_grid_conv_dx(g: torch.Tensor, kernel: torch.Tensor,
                       ph_lo: int, pw_lo: int) -> torch.Tensor:
     """dx (n, h, w, ci) of the same-grid conv at pads (ph_lo, pw_lo) for
     the output gradient g (n, h, w, co): the same kernel (or plain version)
-    on :func:`dx_kernel`, counted in ``same_grid_conv_dx.launches``."""
+    on :func:`dx_kernel`, counted in ``same_grid_conv_dx.launches`` (and
+    :data:`bf16_launches`)."""
     th, tw = kernel.shape[:2]
     y, launched = _run(g, dx_kernel(kernel), th - 1 - ph_lo, tw - 1 - pw_lo)
     same_grid_conv_dx.launches += launched
+    bf16_launches['same_grid_conv_dx'] += (launched
+                                           and g.dtype == torch.bfloat16)
     return y
 
 
@@ -190,3 +208,5 @@ class SameGridConvFn(torch.autograd.Function):
 
 same_grid_conv.launches = 0
 same_grid_conv_dx.launches = 0
+# the launches of the bfloat16 build, by wrapper
+bf16_launches = {'same_grid_conv': 0, 'same_grid_conv_dx': 0}

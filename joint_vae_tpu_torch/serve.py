@@ -89,9 +89,12 @@ class Scorer:
             for m in self.methods:
                 lo, hi = self._bounds[m]
                 in_dist &= (scores[m] >= lo) & (scores[m] <= hi)
+        # a bfloat16 model's confidence and logit scores come out as
+        # float32, which holds them exactly (numpy has no bfloat16)
         return {'label': label.cpu().numpy(),
-                'confidence': conf.cpu().numpy(),
-                'scores': {m: v.cpu().numpy() for m, v in scores.items()},
+                'confidence': conf.float().cpu().numpy(),
+                'scores': {m: v.float().cpu().numpy()
+                           for m, v in scores.items()},
                 'in_distribution': in_dist.cpu().numpy()}
 
 

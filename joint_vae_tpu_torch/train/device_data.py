@@ -1,0 +1,195 @@
+"""Training from a dataset that lives on the card.
+
+Port of ``joint_vae_tpu/train/device_data.py``.  The whole training set is
+copied to the card once; each epoch shuffles it there once (one gather of
+the set into a new array, from a permutation drawn on the card), and each
+step reads its batch as a contiguous slice of the shuffled arrays (a
+view, no copy), so the loop moves no image from the host.
+
+8-bit data (uint8 sets, and float sets in [0, 1] that are exactly k/255,
+as MNIST, CIFAR and ImageNet files are) stays uint8 on the card: a
+quarter of float32's bytes in memory and in the epoch's gather.  The step
+turns its batch into float32 as ``x * float32(1/255)``, a multiplication
+as in the JAX package, which can differ by one ulp from the host loader's
+``k / 255``: a run fed from the card is compared with a run fed from the
+card.
+
+The train step is ``train/steps.py``'s.  ``fused=True`` runs each epoch as
+one loop whose metrics are summed on the card and pulled once at its end
+(the JAX package compiles the same loop into one program).  The
+permutation comes from a generator on the card seeded with (seed, epoch):
+``jax.random.permutation`` cannot be reproduced in torch, and the tests
+inject JAX's through :func:`epoch_permutation`.
+"""
+
+import zlib
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..data.loaders import ArrayDataset
+from ..device import DeviceLike, resolve_device
+from ..models.cvnet import CVNet
+from .optimizers import OptimizerConfig, set_learning_rate
+from .steps import make_train_step, pull_metrics
+
+_ROWS = 4096              # images per host-to-card copy while uploading
+
+
+def _is_eightbit(data: np.ndarray) -> bool:
+    """True when float data lies in [0, 1] and is k/255 to 1e-6 (the JAX
+    package's ``storage='auto'`` test), read a chunk of rows at a time."""
+    if not data.size:
+        return False
+    for i in range(0, len(data), _ROWS):
+        d = data[i:i + _ROWS]
+        q = np.round(d * 255.0)
+        if (float(d.min()) < 0.0 or float(d.max()) > 1.0
+                or float(np.abs(q / 255.0 - d).max()) >= 1e-6):
+            return False
+    return True
+
+
+def _upload(data: np.ndarray, dtype: torch.dtype, device: torch.device,
+            quantize: bool = False) -> torch.Tensor:
+    """``data`` on ``device`` as ``dtype``, copied a chunk of rows at a time
+    (a memmap is read once, and no whole-set host copy is made);
+    ``quantize`` stores round(data * 255) as uint8."""
+    out = torch.empty(data.shape, dtype=dtype, device=device)
+    for i in range(0, len(data), _ROWS):
+        d = np.asarray(data[i:i + _ROWS])
+        if quantize:
+            d = np.round(d * 255.0).astype(np.uint8)
+        out[i:i + len(d)].copy_(torch.from_numpy(np.array(d)))
+    return out
+
+
+class DeviceDataset:
+    """The whole dataset as tensors on the card: 8-bit data as uint8 (see
+    the module docstring; uint8 data, the ingest cache's, is uploaded as it
+    is), any other as float32.  Labels are int32."""
+
+    def __init__(self, dataset: ArrayDataset, device: DeviceLike = None):
+        dev = resolve_device(device)
+        data = dataset.data
+        if data.dtype == np.uint8:
+            x = _upload(data, torch.uint8, dev)
+        elif _is_eightbit(data):
+            x = _upload(data, torch.uint8, dev, quantize=True)
+        else:
+            x = _upload(data, torch.float32, dev)
+        self.x = x
+        self.y = torch.from_numpy(
+            np.asarray(dataset.targets, np.int32)).to(dev)
+        self.n = len(dataset)
+        self.name = dataset.name
+
+    def __len__(self):
+        return self.n
+
+    def shuffled(self, perm: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The arrays gathered in ``perm``'s order: one copy of the set per
+        epoch, after which every batch is a contiguous slice."""
+        return (torch.index_select(self.x, 0, perm),
+                torch.index_select(self.y, 0, perm))
+
+
+def epoch_permutation(n: int, seed: int, epoch: int,
+                      device: torch.device) -> torch.Tensor:
+    """The epoch's order of the set: ``randperm`` from a generator on
+    ``device`` seeded with a 32-bit hash of (seed, epoch) (the CPU
+    generator reads 32 bits of its seed)."""
+    gen = torch.Generator(device=device).manual_seed(
+        zlib.crc32('{}:{}'.format(int(seed), int(epoch)).encode()))
+    return torch.randperm(n, generator=gen, device=device)
+
+
+def batch_slice(data_x: torch.Tensor, data_y: torch.Tensor, i: int,
+                batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch ``i`` of the shuffled arrays, a view; uint8 images become
+    float32 as ``x * float32(1/255)`` (torch takes the Python scalar in
+    the tensor's float32, as JAX takes its weakly typed one)."""
+    x = data_x[i * batch_size:(i + 1) * batch_size]
+    y = data_y[i * batch_size:(i + 1) * batch_size]
+    if x.dtype == torch.uint8:
+        x = x.float() * (1.0 / 255.0)
+    return x, y
+
+
+def make_device_train_step(model: CVNet, opt_cfg: OptimizerConfig,
+                           batch_size: int,
+                           frozen_modules: Tuple[str, ...] = ()):
+    """``step(state, data_x, data_y, i, eps=None) -> (state, metrics)``:
+    ``train/steps.py``'s step on batch ``i`` of the shuffled arrays."""
+    step = make_train_step(model, opt_cfg, frozen_modules=frozen_modules)
+
+    def device_step(state, data_x, data_y, i: int,
+                    eps: Optional[torch.Tensor] = None):
+        x, y = batch_slice(data_x, data_y, i, batch_size)
+        return step(state, x, y, eps)
+
+    return device_step
+
+
+def make_device_epoch_fn(model: CVNet, opt_cfg: OptimizerConfig,
+                         batch_size: int, n_batches: int,
+                         frozen_modules: Tuple[str, ...] = ()):
+    """``epoch(state, x, y, perm) -> (state, mean metrics)``: shuffles the
+    arrays on the card, runs ``n_batches`` steps and returns the metrics'
+    means over the epoch as tensors on the card (summed there in step
+    order, as JAX's loop carry sums them; nothing waits for the card)."""
+    step = make_device_train_step(model, opt_cfg, batch_size, frozen_modules)
+
+    def epoch(state, data_x, data_y, perm):
+        ex = torch.index_select(data_x, 0, perm)
+        ey = torch.index_select(data_y, 0, perm)
+        state, sums = step(state, ex, ey, 0)
+        for i in range(1, n_batches):
+            state, m = step(state, ex, ey, i)
+            sums = {k: sums[k] + m[k] for k in sums}
+        return state, {k: v / n_batches for k, v in sums.items()}
+
+    return epoch
+
+
+def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
+                           batch_size: int, seed: int = 0,
+                           fused: bool = True) -> Dict[str, float]:
+    """Train ``job.state`` for ``epochs`` epochs after ``job.trained`` over
+    ``dataset`` held on the job's device; returns the last epoch's
+    metrics.  ``fused=True`` records epoch means; ``fused=False`` the last
+    batch's.  A set smaller than one batch trains nothing and returns {}."""
+    state = job.state
+    model = state.model
+    dev = state.device
+    frozen = tuple(job.training_parameters.get('frozen_modules') or ())
+    dd = DeviceDataset(dataset, device=dev)
+    steps_per_epoch = dd.n // batch_size
+    if steps_per_epoch == 0:
+        return {}
+    if fused:
+        epoch_fn = make_device_epoch_fn(model, job.opt_cfg, batch_size,
+                                        steps_per_epoch, frozen)
+    else:
+        step = make_device_train_step(model, job.opt_cfg, batch_size, frozen)
+    last: Dict[str, float] = {}
+    first_epoch = job.trained
+    for epoch in range(first_epoch, first_epoch + epochs):
+        state.epoch = epoch
+        set_learning_rate(state.opt_state, job.opt_cfg.lr_at_epoch(epoch))
+        perm = epoch_permutation(dd.n, seed, epoch, dev)
+        if fused:
+            state, metrics = epoch_fn(state, dd.x, dd.y, perm)
+        else:
+            ex, ey = dd.shuffled(perm)
+            for i in range(steps_per_epoch):
+                state, metrics = step(state, ex, ey, i)
+        last = pull_metrics([metrics])[0]
+        job.train_history[epoch + 1] = {
+            'train_loss': {k: v for k, v in last.items()
+                           if k in model.cfg.loss_components},
+            'lr': job.opt_cfg.lr_at_epoch(epoch)}
+        job.train_history['epochs'] = epoch + 1
+    return last

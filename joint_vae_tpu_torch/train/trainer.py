@@ -12,13 +12,17 @@ cvae.py:2081-2547):
 - the hot loop is one eager train step (train/steps.py); host batches go
   to the card through pinned memory, and the step metrics stay on the
   card until they are pulled together every ``metrics_every`` steps (8 on
-  the card, 1 on the CPU), so the host does not wait for each step.
+  the card, 1 on the CPU), so the host does not wait for each step;
+- ``device_data=True`` holds the training set on the card instead
+  (``train/device_data.py``): one shuffle there per epoch, each batch a
+  slice of it, no host batch in the loop.  Host augmentation needs the
+  host loader and turns it off, as in the JAX package.
 
 Per epoch, every ``ood_detection_every`` and ``full_test_every`` epochs,
 and once at the end, it runs the evaluation engines (``evals/engines.py``:
 ``ood_detection_rates``, ``accuracy``), the in-training ones capped at
-``test_sample_size`` samples.  Not ported here: the mesh, multi-process
-and device-resident dataset branches.
+``test_sample_size`` samples.  Not ported here: the mesh and
+multi-process branches.
 """
 
 import logging
@@ -36,6 +40,7 @@ from ..models.evaluate import evaluate
 from ..save_load.jobs import Job, mark, save_job
 from ..utils.print_log import EpochOutput
 from ..utils.signaling import SIGHandler
+from .device_data import DeviceDataset, batch_slice, epoch_permutation
 from .optimizers import set_learning_rate
 from .state import TrainState, make_generator
 from .steps import make_train_step, pull_metrics
@@ -71,10 +76,12 @@ def train_model(job: Job,
                 fine_tuning: bool = False,
                 final_test: bool = True,
                 final_ood: bool = True,
-                metrics_every: int = 0) -> Job:
+                metrics_every: int = 0,
+                device_data: bool = False) -> Job:
     """Train ``job.state`` in place on the job's device; returns the job.
     Without a trainset, the job's set comes from the registry
-    (``get_dataset``), its test split as the testset."""
+    (``get_dataset``), its test split as the testset.  ``device_data``
+    feeds the steps from a copy of the training set on the device."""
     if trainset is None:
         name = job.training_parameters.get('set') or 'cifar10'
         trainset, ts = get_dataset(name)
@@ -106,11 +113,17 @@ def train_model(job: Job,
                                                tp['validation_seed'])
 
     frozen = tuple(tp.get('frozen_modules') or ())
-    step = make_train_step(model, job.opt_cfg, tuple(warmup),
-                           tuple(warmup_gamma), frozen)
-    loader = DataLoader(trainset, batch_size, shuffle=True, seed=seed,
-                        data_augmentation=data_augmentation, drop_last=True)
-    per_epoch = len(loader)
+    ramps = (tuple(warmup), tuple(warmup_gamma), frozen)
+    step = make_train_step(model, job.opt_cfg, *ramps)
+    device_data = device_data and not data_augmentation
+    if device_data:
+        dd = DeviceDataset(trainset, device=dev)
+        per_epoch = dd.n // batch_size
+    else:
+        loader = DataLoader(trainset, batch_size, shuffle=True, seed=seed,
+                            data_augmentation=data_augmentation,
+                            drop_last=True)
+        per_epoch = len(loader)
 
     first_epoch = job.trained
     for epoch in range(first_epoch, epochs):
@@ -151,8 +164,16 @@ def train_model(job: Job,
         batches_run = 0
         me = metrics_every or (1 if dev.type == 'cpu' else 8)
         pending = []
-        for i, (x, y) in enumerate(loader):
-            state, m = step(state, to_device(x, dev), to_device(y, dev))
+        if device_data:
+            ex, ey = dd.shuffled(epoch_permutation(dd.n, seed or 1, epoch,
+                                                   dev))
+            batches = (batch_slice(ex, ey, i, batch_size)
+                       for i in range(per_epoch))
+        else:
+            batches = ((to_device(x, dev), to_device(y, dev))
+                       for x, y in loader)
+        for i, (x, y) in enumerate(batches):
+            state, m = step(state, x, y)
             batches_run += 1
             pending.append(m)
             if (len(pending) < me and i != per_epoch - 1

@@ -176,7 +176,7 @@ def add_training_args(parser: argparse.ArgumentParser):
     t.add_argument('--data-augmentation', nargs='*', default=[])
     t.add_argument('--device-data', action='store_true',
                    help='keep the whole trainset resident in device memory '
-                        '(not ported yet)')
+                        '(8-bit sets as uint8), shuffled there each epoch')
     t.add_argument('--epochs', type=int, default=2)
     t.add_argument('--batch-size', '-M', type=int, default=64)
     t.add_argument('--test-batch-size', '-m', type=int, default=512)
@@ -353,8 +353,6 @@ def optimizer_config_from_args(args) -> 'OptimizerConfig':
 UNPORTED = (('mesh', 'the device mesh (ROADMAP Queue 1 item 14, Multi-GPU)'),
             ('distributed', 'multi-process runs (ROADMAP Queue 1 item 14, '
                             'Multi-GPU)'),
-            ('device_data', 'the device-resident dataset (ROADMAP Queue 1 '
-                            'item 8, train/device_data.py)'),
             ('pretrained_features', 'pretrained trunks (ROADMAP Queue 1 '
                                     'item 15, save_load/transfer.py)'),
             ('pretrained_upsampler', 'pretrained trunks (ROADMAP Queue 1 '

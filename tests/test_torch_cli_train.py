@@ -2,7 +2,9 @@
 CPU: a tiny cvae job trains, tests and OOD-scores end to end, and the JAX
 package's ``load_job`` reads what it wrote; ``--where`` and ``--dry-run``
 print the JAX CLI's save dir and write nothing; ``--resume`` continues the
-job with its saved data settings; the unported flags are refused by name.
+job with its saved data settings; ``--device-data`` trains from the
+device-resident set (``train_model(device_data=True)``); the unported
+flags are refused by name, and ``--device-data`` is no longer one.
 The save dir is the one the JAX CLI's ``save_dir_for`` gives the job.
 """
 
@@ -66,9 +68,30 @@ def test_train_cli_job_loads_in_jax(tmp_path, capsys):
                 '--device', 'cpu') == where
 
 
-@pytest.mark.parametrize('flag', [['--mesh'], ['--device-data'],
+@pytest.mark.parametrize('flag', [['--mesh'], ['--distributed'],
                                   ['--pretrained-features', 'x'],
                                   ['--model-axis', '2']])
 def test_train_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(SystemExit, match='ROADMAP Queue 1 item'):
         main(TINY + ['--job-dir', str(tmp_path), '--device', 'cpu'] + flag)
+
+
+def test_train_cli_device_data_trains(tmp_path, capsys, monkeypatch):
+    """``--device-data`` reaches ``train_model(device_data=True)``, which
+    trains from a DeviceDataset; the job loads in JAX."""
+    from joint_vae_tpu_torch.train import trainer
+    from joint_vae_tpu_torch.utils.parameters import UNPORTED
+    assert 'device_data' not in dict(UNPORTED)
+    built = []
+    real = trainer.DeviceDataset
+    monkeypatch.setattr(trainer, 'DeviceDataset',
+                        lambda *a, **k: built.append(a[0].name) or real(*a, **k))
+    jobs = str(tmp_path / 'jobs')
+    args = TINY + ['--job-dir', jobs, '--epochs', '1', '--device', 'cpu',
+                   '--device-data', '--no-final-ood']
+    where = _run(capsys, *args, '--where')
+    _run(capsys, *args)
+    assert built == ['mnist']
+    jjob = jjobs.load_job(where)
+    assert jjob.trained == 1 and int(jjob.state.step) == 3
+    assert np.isfinite(jjob.train_history[1]['train_loss']['total'])

@@ -49,6 +49,7 @@ from joint_vae_tpu.train import optimizers as jopt
 from joint_vae_tpu.train import trainer as jtrainer
 from joint_vae_tpu.utils.print_log import EpochOutput as JEpochOutput
 
+import joint_vae_tpu_torch.data.native as tnative
 import joint_vae_tpu_torch.evals.odin as todin
 import joint_vae_tpu_torch.models.evaluate as tev
 from joint_vae_tpu_torch.data import loaders as tloaders
@@ -68,8 +69,10 @@ VIB_METHODS = ['odin-1-0.0000', 'odin-1-0.0020', 'odin-10-0.0020',
 
 @pytest.fixture(autouse=True)
 def numpy_batches(monkeypatch):
-    """The JAX package batches with numpy, as the port's loader does."""
+    """Both packages batch with numpy (their native batchers agree with
+    each other: ``tests/test_torch_native_batcher.py``)."""
     monkeypatch.setattr(jnative, 'available', lambda: False)
+    monkeypatch.setattr(tnative, 'available', lambda: False)
 
 
 def _noise(shape):

@@ -189,6 +189,41 @@ def test_conv_fn_grads_on_card(site, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('site', sorted(FLAGSHIP_DX_GEOMS))
+def test_conv_fn_grads_bf16_at_train_batch_on_card(site, cuda_device):
+    """SameGridConvFn in bfloat16 at the train step's batch (1024, L=1):
+    dx on the kernel against its plain version in the conv's bfloat16
+    form (two bfloat16 ulps), dw summed in float32 and rounded once,
+    within half a bfloat16 ulp of the float64 sum of the same inputs plus
+    the float32 form's absolute term."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import (
+        bf16_launches, same_grid_conv_dw, same_grid_conv_dx_plain)
+    n, h, w, ci, co, th, tw, ph, pw = (1024,) + FLAGSHIP_DX_GEOMS[site][1:]
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    x = torch.rand((n, h, w, ci), device=cuda_device, generator=gen)
+    k = torch.randn((th, tw, ci, co), device=cuda_device,
+                    generator=gen) / (th * tw * ci) ** 0.5
+    g = 0.05 * torch.randn((n, h, w, co), device=cuda_device, generator=gen)
+    x, k, g = x.bfloat16(), k.bfloat16(), g.bfloat16()
+    xk = [x.clone().requires_grad_(), k.clone().requires_grad_()]
+    before = (same_grid_conv.launches, same_grid_conv_dx.launches)
+    before16 = dict(bf16_launches)
+    y = SameGridConvFn.apply(xk[0], xk[1], ph, pw)
+    dx, dw = torch.autograd.grad(y, xk, g)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, same_grid_conv_dx.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert bf16_launches == {name: n + 1 for name, n in before16.items()}
+    assert y.dtype == dx.dtype == dw.dtype == torch.bfloat16
+    want_dx = same_grid_conv_dx_plain(g, k, ph, pw).float()
+    conv_gate(dx.float(), want_dx, tol=1.6e-2)
+    want_dw = same_grid_conv_dw(x.double(), g.double(), th, tw, ph, pw)
+    bound = (2.0 ** -8 * want_dw.abs()
+             + CONV_F32_TOL * want_dw.square().mean().sqrt())
+    assert bool(((dw.double() - want_dw).abs() <= bound).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('geom', [(8, 32, 32, 32, 32, 5, 2, 2),    # conv_1
                                   (8, 16, 16, 64, 64, 5, 2, 2),    # conv_3
                                   (8, 8, 8, 64, 200, 7, 1, 0)])    # conv_4

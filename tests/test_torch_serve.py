@@ -210,3 +210,39 @@ def test_entry_points_never_fall_back_to_cpu(tmp_path, monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
     assert os.path.exists(os.path.join(d, 'state.npz'))
+
+
+def test_cli_job_number_and_class_names_match_jax(tmp_path, capsys):
+    """Both CLIs find a job by its number under --job-dir and name each
+    label's class from the training set's registry entry; a number that
+    no job has exits with "job N not found"."""
+    cfg = JCVNetConfig(input_shape=(3, 6, 6), num_labels=3, type='cvae',
+                       encoder=(16,), decoder=(16,), classifier=(8,),
+                       latent_dim=4, latent_sampling=1, test_latent_sampling=2,
+                       gamma=10.0, beta=0.0, sigma=JSigmaConfig(value=0.3))
+    job = jjobs.new_job(cfg, key=jax.random.PRNGKey(2), job_number=42)
+    job.train_history = {'epochs': 1}
+    job.training_parameters['set'] = 'cifar10'
+    jobs = str(tmp_path / 'jobs')
+    jjobs.save_job(job, os.path.join(jobs, 'cifar10', 'arch', '000042'))
+    npy = str(tmp_path / 'x.npy')
+    np.save(npy, np.random.default_rng(1).uniform(
+        0, 1, (5, 3, 6, 6)).astype(np.float32))
+
+    from joint_vae_tpu.cli.serve import main as jmain
+    from joint_vae_tpu_torch.cli.serve import main as tmain
+    outs = {}
+    for name, main, extra in (('jax', jmain, ['--platform', 'cpu']),
+                              ('port', tmain, ['--device', 'cpu'])):
+        out = str(tmp_path / (name + '.jsonl'))
+        assert main(['42', npy, '--job-dir', jobs, '--output', out]
+                    + extra) == 0
+        with open(out) as f:
+            outs[name] = [json.loads(s) for s in f]
+    assert len(outs['port']) == len(outs['jax']) == 6
+    classes = ['airplane', 'automobile', 'bird']
+    for got, want in zip(outs['port'][:-1], outs['jax'][:-1]):
+        assert got['class'] == want['class'] == classes[got['label']]
+        assert got['label'] == want['label']
+    with pytest.raises(SystemExit, match='job 7 not found under'):
+        tmain(['7', npy, '--job-dir', jobs, '--device', 'cpu'])

@@ -34,6 +34,7 @@ from joint_vae_tpu.train import optimizers as jopt
 from joint_vae_tpu.train import trainer as jtrainer
 from joint_vae_tpu.utils.print_log import EpochOutput as JEpochOutput
 
+import joint_vae_tpu_torch.data.native as tnative
 import joint_vae_tpu_torch.models.evaluate as tev
 from joint_vae_tpu_torch.data import loaders as tloaders
 from joint_vae_tpu_torch.models.cvnet import flagship_config
@@ -51,9 +52,10 @@ TOL = 1e-4
 
 @pytest.fixture(autouse=True)
 def numpy_loader(monkeypatch):
-    """The JAX loader's numpy path (the one the port mirrors), not the
-    native batcher."""
+    """Both packages' numpy loader path, not the native batcher (which
+    ``tests/test_torch_native_batcher.py`` holds across the packages)."""
     monkeypatch.setattr(jnative, 'available', lambda: False)
+    monkeypatch.setattr(tnative, 'available', lambda: False)
 
 
 @pytest.fixture
@@ -186,7 +188,8 @@ def test_loader_batches_match_jax():
                              data_augmentation=aug, drop_last=True,
                              use_native=False)
     tl = tloaders.DataLoader(tloaders.ArrayDataset(x, y, 's'), 8, seed=4,
-                             data_augmentation=aug, drop_last=True)
+                             data_augmentation=aug, drop_last=True,
+                             use_native=False)
     assert len(tl) == len(jl) == 6
     for _ in range(2):                                  # two epochs
         for (jx, jy), (tx, ty) in zip(jl, tl):
