@@ -103,8 +103,35 @@ Phases, any failure raising (nonzero exit):
    weights and noise); ``cli.train --device-data --compute-dtype
    bfloat16`` in a subprocess, its job loaded, and ``cli.serve`` by the
    job's number naming cifar100's classes (``bench_train`` line);
-8. print one JSON line ``{"kernels": [...]}``;
-9. print ``{"ok": true, "device": {...}}`` as the last line.
+8. fleet evaluation from the job store: phase 6's flagship job (its
+   results saved back with ``save_job(save_state=False)``, its record
+   files) and 63 jobs made from its JSON files (sigma and beta varied,
+   1-3 epochs of history, results at the last two); the registry built
+   cold (64 ghost loads) and warm (``flash``), its entries equal, the
+   ghost loads leaving CUDA uninitialised in a fresh process; then
+   ``cli.test.main([... '--compute', 'rehard', '--sets', 'cifar100',
+   'cifar10', 'svhn', 'lsunc', '-M', '512'])`` in-process on the
+   flagship alone (``--job 0``): accuracy, OOD and misclassification
+   recomputed through the engines at L=16, its launches exactly 8 conv
+   and 1 combine per batch of the six set passes (accuracy 1, OOD 4,
+   misclassification 1; 20 batches each, the 272-image tail included:
+   960 and 120), its saved OOD results against phase 6's (rates and AUC
+   within 1e-6, thresholds as phase 6's replay holds them: the same
+   noise, since the engines seed it from the epoch), its accuracy and
+   misclassification results against the engines called directly with
+   the same seeds (within 1e-6); the cheap tiers over the whole fleet
+   (``--compute --early-stopping`` and ``--all-epochs``), which must
+   launch nothing; their ``.tab``/``.tex`` tables parsed (no ``.tex``
+   for ``--all-epochs``: its rows at two epochs of one job share an index
+   tuple, which the JAX package's renderer, ported as it is, merges);
+   ``python -m
+   joint_vae_tpu_torch.cli.results`` in a subprocess on a
+   comparison-mode INI over the fleet, one column pair per section
+   (``fleet`` line: registry ms per job, the recompute's images/s and
+   wall seconds, the cheap tiers' seconds);
+9. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+   phase 8's recompute);
+10. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -154,6 +181,7 @@ batch of 512 against the same right side from the CPU on its first 32
 inputs.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -1652,7 +1680,7 @@ def ood_eval(card: str):
                'profile': breakdown, 'odin': odin, 'train_cli': cli,
                'card': card}
     print('ood', json.dumps(summary), flush=True)
-    return launches, odin['launches'], summary
+    return launches, odin['launches'], summary, job
 
 
 def rel_rms(got, ref) -> float:
@@ -2042,6 +2070,320 @@ def bench_train(card: str, host_fed: dict):
     return summary
 
 
+# phase 8: fleet evaluation from the job store: phase 6's flagship job and
+# 63 more made from its JSON files (sigma and beta varied, epochs
+# shifted); the test CLI recomputes the flagship alone over the four sets
+FLEET_JOBS = 64
+FLEET_SIGMAS = (0.1, 0.2, 0.5, 1.0)
+FLEET_BETAS = (1e-4, 1e-3, 1e-2, 1e-1)
+TEST_CLI_SETS = ('cifar100',) + OOD_SETS
+RESULTS_INI = """[DEFAULT]
+dataset = cifar100
+ood = {ood}
+tpr = 95
+average = average {ood}
+kept_index = sigma
+
+[beta-1e-4]
+beta = 0.0001
+
+[beta-1e-2]
+beta = 0.01
+"""
+
+
+def _build_fleet(flagship_dir: str, root: str) -> list:
+    """The flagship job's directory copied under ``root``, and
+    FLEET_JOBS - 1 more made from its JSON files alone: job numbers
+    1..63, sigma and beta from FLEET_SIGMAS x FLEET_BETAS, trained for
+    1-3 epochs of a history whose test losses come from a numpy seed,
+    with the flagship's results at the last two of them (so that
+    ``--early-stopping`` and ``--all-epochs`` have epochs to pick)."""
+    from joint_vae_tpu_torch.save_load.checkpoint import load_json, save_json
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = [os.path.join(root, 'cifar100', 'flagship', '000000')]
+    shutil.copytree(flagship_dir, dirs[0])
+    names = ('params.json', 'train_params.json', 'test.json', 'ood.json',
+             'history.json')
+    js = {n: load_json(os.path.join(flagship_dir, n)) for n in names}
+    rng = np.random.default_rng(8)
+    for n in range(1, FLEET_JOBS):
+        sigma = FLEET_SIGMAS[n % len(FLEET_SIGMAS)]
+        beta = FLEET_BETAS[(n // len(FLEET_SIGMAS)) % len(FLEET_BETAS)]
+        d = os.path.join(root, 'cifar100', 'sigma={}--beta={}'.format(
+            sigma, beta), '{:06d}'.format(n))
+        e = 1 + n % 3
+        tp = json.loads(json.dumps(js['train_params.json']))
+        tp['sigma'].update(value=sigma, sigma0=sigma)
+        tp.update(beta=beta, epochs=3)
+        hist = {'epochs': e}
+        for k in range(1, e + 1):
+            hist[k] = {'test_loss': {'total': float(rng.uniform(100, 200))}}
+        out = {'params.json': dict(js['params.json'], job_number=n),
+               'train_params.json': tp, 'history.json': hist,
+               'test.json': {k: js['test.json'][0] for k in {e - 1, e}},
+               'ood.json': {k: js['ood.json'][0] for k in {e - 1, e}}}
+        for name, v in out.items():
+            save_json(v, os.path.join(d, name))
+        dirs.append(d)
+    return dirs
+
+
+def _check_tex(path: str) -> int:
+    """A tabular whose every row carries as many cells as its column
+    format (multicolumns counted by width); returns the row count."""
+    import re
+    lines = open(path).read().splitlines()
+    head = re.match(r'\\begin\{tabular\}\{(.*)\}$', lines[0])
+    if not head or r'\end{tabular}' not in lines:
+        raise AssertionError('{}: not a tabular'.format(path))
+    ncol = len(re.sub(r'@\{[^}]*\}', '', head.group(1)))
+    rows = [ln for ln in lines if ln.endswith(r' \\')]
+    for ln in rows:
+        cells = ln[:-3].split(' & ')
+        width = sum(int(m.group(1)) if m else 1 for m in (
+            re.match(r'\\multicolumn\{(\d+)\}', c) for c in cells))
+        if width != ncol:
+            raise AssertionError('{}: {} cells for {} columns in {!r}'
+                                 .format(path, width, ncol, ln))
+    return len(rows)
+
+
+def _check_tab(path: str) -> int:
+    """A whitespace table whose rows all have one length; returns the
+    row count."""
+    import csv
+    with open(path, newline='') as f:
+        rows = list(csv.reader(f, delimiter=' '))
+    if not rows or len({len(r) for r in rows}) != 1:
+        raise AssertionError('{}: ragged table'.format(path))
+    return len(rows)
+
+
+def fleet_eval(card: str, flagship):
+    """Phase 8: fleet evaluation from the job store.  Phase 6's flagship
+    job (its results saved back, its record files) and 63 jobs made from
+    its JSON files: the registry cold and warm; ``cli.test --compute
+    rehard`` on the flagship alone on the card, its launches against the
+    engines' count and its saved OOD results against phase 6's; the
+    cheap tiers over the whole fleet with no launch; tables written and
+    parsed; ``cli.results`` on a comparison INI in a subprocess."""
+    import copy
+    from joint_vae_tpu_torch.cli import test as test_cli
+    from joint_vae_tpu_torch.data.loaders import get_dataset
+    from joint_vae_tpu_torch.evals import engines
+    from joint_vae_tpu_torch.save_load import fetch
+    from joint_vae_tpu_torch.save_load.jobs import load_job, save_job
+    from joint_vae_tpu_torch.save_load.recorders import LossRecorder, find_record
+
+    flagship_dir = os.path.join(WORK, 'flagship_job')     # phases 4 and 6
+    flagship.training_parameters['set'] = 'cifar100'
+    save_job(flagship, flagship_dir, save_state=False)
+    stored_ood = copy.deepcopy(flagship.ood_results)
+    root = os.path.join(WORK, 'fleet')
+    dirs = _build_fleet(flagship_dir, root)
+    out_dir = os.path.join(WORK, 'fleet_tables')
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # --- the registry: cold (64 ghost loads), then warm (flash) ---
+    t0 = time.perf_counter()
+    cold = fetch.fetch_models(root, flash=False)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    warm = fetch.fetch_models(root)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    if (len(cold) != FLEET_JOBS
+            or json.loads(json.dumps(warm)) != json.loads(json.dumps(cold))):
+        raise AssertionError('registry: {} cold entries, warm ones differ: {}'
+                             .format(len(cold), warm != cold))
+    # CUDA is up in this process: the ghost loads' check runs in a fresh one
+    code = ('import sys, torch; sys.path.insert(0, {r!r}); '
+            'from joint_vae_tpu_torch.save_load import fetch; '
+            'n = len(fetch.fetch_models({j!r}, flash=False)); '
+            'print(n, torch.cuda.is_initialized())').format(r=ROOT, j=root)
+    r = subprocess.run([sys.executable, '-c', code], cwd=ROOT, timeout=300,
+                       capture_output=True, text=True)
+    if r.returncode != 0 or r.stdout.split() != [str(FLEET_JOBS), 'False']:
+        raise AssertionError('ghost registry build: {} {}'.format(
+            r.stdout, r.stderr[-2000:]))
+
+    # --- the recompute on the card: the flagship alone, every set ---
+    _, testset = get_dataset('cifar100', splits=['test'])
+    batches = -(-len(testset) // OOD_BATCH)
+    # the compute tier's passes: accuracy over the test set, the OOD
+    # engine over the test set and the three OOD sets, the
+    # misclassification engine over the test set; 8 conv launches and 1
+    # combine launch per batch of 512 (the 272-image tail included)
+    passes = 1 + len(TEST_CLI_SETS) + 1
+    want = _want(0, passes * batches)
+    engine_s = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            engine_s[name] = engine_s.get(name, 0.0) + time.perf_counter() - t0
+            return res
+        return call
+    names = ('accuracy', 'ood_detection_rates',
+             'misclassification_detection_rates')
+    real = {n: getattr(test_cli, n) for n in names}
+    for n in names:
+        setattr(test_cli, n, timed(n, real[n]))
+    # the OOD engine's scores per set (its pass comes before the
+    # misclassification engine's over the test set)
+    seen = {}
+    collect = engines._collect_scores
+
+    def keep_first(job_, dataset, *a, **k):
+        out = collect(job_, dataset, *a, **k)
+        seen.setdefault(dataset.name, {m: v.cpu() for m, v in out.items()})
+        return out
+    engines._collect_scores = keep_first
+    argv = ['--job-dir', root, '--job', '0', '--compute', 'rehard',
+            '--sets'] + list(TEST_CLI_SETS) + ['-M', str(OOD_BATCH)]
+    try:
+        _count_reset()
+        # --- the main path of phase 8 ---
+        t0 = time.perf_counter()
+        with open(os.path.join(WORK, 'fleet_rehard.out'), 'w') as f, \
+                contextlib.redirect_stdout(f):
+            rc = test_cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = _counts()
+        # --- end of the main path ---
+    finally:
+        for n in names:
+            setattr(test_cli, n, real[n])
+        engines._collect_scores = collect
+    if rc != 0:
+        raise AssertionError('cli.test --compute rehard exited {}'.format(rc))
+    if launches != want:
+        raise AssertionError('cli.test rehard launched {}, expected {} ({} '
+                             'passes of {} batches)'.format(
+                                 launches, want, passes, batches))
+    job = load_job(dirs[0])
+    got_ood = job.ood_results
+    if set(got_ood.get(0, {})) != set(OOD_SETS):
+        raise AssertionError('rehard ood sets {}'.format(sorted(got_ood)))
+    # phase 6's OOD call wrote its scores' record files; the gate of its
+    # replay holds the recompute's results to them (rates and AUC within
+    # 1e-6; thresholds equal where the scores are, else within the
+    # scores' difference)
+    old_sdir = os.path.join(flagship_dir, 'samples', '0000')
+    phase6_scores = {s: {m: v.cpu() for m, v in engines._scores_from_recorder(
+        job, LossRecorder.load(find_record(old_sdir, s)),
+        job.model_cfg.ood_methods).items()} for s in TEST_CLI_SETS}
+    ood_err = replay_gate(got_ood[0], stored_ood[0],
+                          {s: seen[s] for s in TEST_CLI_SETS}, phase6_scores)
+    ood_err['scores_max_abs_diff'] = ood_err.pop('scores_cpu_vs_card')
+    # accuracy and misclassification draw their own noise (seeds epoch + 1,
+    # epoch + 2): held against the engines called with the same seeds
+    direct = load_job(dirs[0])
+    direct.saved_dir = None
+    direct.testing.clear()
+    engines.accuracy(direct, testset, batch_size=OOD_BATCH,
+                     from_where=('compute',))
+    engines.misclassification_detection_rates(
+        direct, testset, batch_size=OOD_BATCH, from_where=('compute',))
+    test_err = 0.0
+    for pm, r_ in direct.testing[0].items():
+        saved = job.testing[0][pm]
+        for k, v in r_.items():
+            if isinstance(v, dict):
+                for kk in ('auc', 'fpr', 'precision', 'recall'):
+                    test_err = max(test_err, float(np.max(np.abs(
+                        np.subtract(v[kk], saved[k][kk])))))
+            elif k == 'accuracy':
+                test_err = max(test_err, abs(v - saved[k]))
+    if not test_err <= ROC_TOL or set(direct.testing[0]) != set(
+            job.testing[0]):
+        raise AssertionError('rehard test.json vs the engines: {}'.format(
+            test_err))
+    images = passes * len(testset)
+
+    # --- the cheap tiers over the whole fleet: no launch ---
+    cheap = {}
+    for name, extra in (
+            ('recorder_early_stopping',
+             ['--compute', '--early-stopping', '--sets']
+             + list(TEST_CLI_SETS) + ['--results-file', 'fleet', '--latex',
+                                      '--agg']),
+            # no .tex here: rows of one job at two epochs share an index
+            # tuple, and the .tex renderer (the JAX package's, ported as
+            # it is) merges rows that share one
+            ('json_all_epochs',
+             ['--all-epochs', '-x', '-x', '--results-file', 'fleet-all'])):
+        _count_reset()
+        t0 = time.perf_counter()
+        with open(os.path.join(WORK, 'fleet_{}.out'.format(name)), 'w') as f, \
+                contextlib.redirect_stdout(f):
+            rc = test_cli.main(['--job-dir', root, '--results-directory',
+                                out_dir, '-M', str(OOD_BATCH)] + extra)
+        cheap[name] = {'seconds': time.perf_counter() - t0,
+                       'launches': _counts()}
+        if rc != 0 or any(cheap[name]['launches'].values()):
+            raise AssertionError('cheap tier {}: rc {}, launches {}'.format(
+                name, rc, cheap[name]['launches']))
+    tables = {}
+    for f in sorted(os.listdir(out_dir)):
+        path = os.path.join(out_dir, f)
+        tables[f] = (_check_tex(path) if f.endswith('.tex')
+                     else _check_tab(path))
+    if sorted(tables) != ['fleet-agg.tab', 'fleet-agg.tex', 'fleet-all.tab',
+                          'fleet.tab', 'fleet.tex']:
+        raise AssertionError('tables {}'.format(sorted(tables)))
+    if tables['fleet.tex'] < FLEET_JOBS:
+        raise AssertionError('fleet.tex has {} rows'.format(
+            tables['fleet.tex']))
+
+    # --- the results CLI on a comparison INI, in a subprocess ---
+    ini = os.path.join(WORK, 'fleet_results.ini')
+    with open(ini, 'w') as f:
+        f.write(RESULTS_INI.format(ood=' '.join(OOD_SETS)))
+    res_dir = os.path.join(WORK, 'fleet_results')
+    shutil.rmtree(res_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, '-m', 'joint_vae_tpu_torch.cli.results',
+                        ini, '--job-dir', root, '--out-dir', res_dir],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    results_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError('cli.results exited {}:\n{}'.format(
+            r.returncode, r.stderr[-4000:]))
+    tab = os.path.join(res_dir, 'fleet_results-tab.tab')
+    tex = os.path.join(res_dir, 'fleet_results-tab.tex')
+    sections = ['beta-1e-4', 'beta-1e-2']
+    with open(tab) as f:
+        header = f.readline().split()
+    if header != (['set', 'sigma'] + ['{}-rate'.format(s) for s in sections]
+                  + ['{}-auc'.format(s) for s in sections]):
+        raise AssertionError('cli.results header {}'.format(header))
+    results_rows = _check_tex(tex)
+
+    summary = {
+        'jobs': FLEET_JOBS,
+        'registry_cold_ms_per_job': cold_ms / FLEET_JOBS,
+        'registry_warm_ms_per_job': warm_ms / FLEET_JOBS,
+        'ghost_cuda_initialized': False,
+        'rehard': {'argv': argv, 'cli_seconds': cli_s,
+                   'engine_seconds': engine_s, 'images': images,
+                   'images_per_s': images / sum(engine_s.values()),
+                   'images_per_s_cli': images / cli_s,
+                   'launches': launches, 'expected': want,
+                   'ood_vs_phase6_max_abs_err': ood_err,
+                   'test_vs_engines_max_abs_err': test_err},
+        'cheap': cheap, 'tables': tables,
+        'results_cli': {'seconds': results_s, 'tex_rows': results_rows,
+                        'header': header},
+        'card': card}
+    print('fleet', json.dumps(summary), flush=True)
+    return launches, summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -2090,12 +2432,13 @@ def main():
           flush=True)
     launches, launches128, summary = serve(card)
     train_launches, train_summary = train(card)
-    ood_launches, odin_launches, ood_summary = ood_eval(card)
+    ood_launches, odin_launches, ood_summary, ood_job = ood_eval(card)
     odin_conv_0 = ood_summary['odin']['conv_0_dx']
     bench = bench_train(card, train_summary)
     bench16 = {mode: r['launches'] for mode, r in bench['bf16'].items()}
     f32_fed = bench['f32_device_fed']['launches']
     serve16 = bench['bf16_serve']['launches']
+    test_cli_launches, fleet = fleet_eval(card, ood_job)
 
     kernels = [
         {'name': 'same_grid_conv', 'route': 'cuda',
@@ -2105,6 +2448,7 @@ def main():
          'launches_train': train_launches['same_grid_conv'],
          'launches_ood': ood_launches['same_grid_conv'],
          'launches_odin': odin_launches['same_grid_conv'],
+         'launches_test_cli': test_cli_launches['same_grid_conv'],
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -2146,6 +2490,7 @@ def main():
          'replaces': 'joint_vae_tpu/ops/pallas_conv.py:109',
          'launches': train_launches['same_grid_conv_dx'],
          'launches_odin': odin_launches['same_grid_conv_dx'],
+         'launches_test_cli': test_cli_launches['same_grid_conv_dx'],
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -2185,6 +2530,7 @@ def main():
          'launches': launches['iws_combine'],
          'launches_l128': launches128['iws_combine'],
          'launches_ood': ood_launches['iws_combine'],
+         'launches_test_cli': test_cli_launches['iws_combine'],
          'launches_serve_bf16': serve16['iws_combine'],
          'launches_bench_bf16': {m: c['iws_combine']
                                  for m, c in bench16.items()},
@@ -2201,7 +2547,7 @@ def main():
     ]
     print(json.dumps({'kernels': kernels, 'serve': summary,
                       'train': train_summary, 'ood': ood_summary,
-                      'bench_train': bench,
+                      'bench_train': bench, 'fleet': fleet,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Command-line entry points of the port: train and serve."""
+"""Command-line entry points of the port: train, serve, test and results."""
 
 
 def add_device_arg(parser):
@@ -7,4 +7,18 @@ def add_device_arg(parser):
     parser.add_argument('--device', default=None,
                         help="torch device: default the CUDA card; 'cpu' "
                              'on request')
+    return parser
+
+
+def add_mesh_args(parser):
+    """The JAX package's mesh flags, parsed to be refused
+    (``utils/parameters.py::refuse_unported``, ROADMAP Queue 1 item 14)."""
+    parser.add_argument('--mesh', nargs='?', const='all', default=None,
+                        metavar='N', help='(not ported yet)')
+    parser.add_argument('--model-axis', type=int, default=1,
+                        help='(not ported yet)')
+    parser.add_argument('--sample-axis', type=int, default=1,
+                        help='(not ported yet)')
+    parser.add_argument('--distributed', action='store_true',
+                        help='(not ported yet)')
     return parser

@@ -230,6 +230,17 @@ class CVNetConfig:
         return self.sigma
 
     @property
+    def depth(self) -> int:
+        return (len(self.encoder) + len(self.decoder)
+                + (len(self.classifier) if self.classifier_type == 'linear' else 0))
+
+    @property
+    def width(self) -> int:
+        clf = [d for d in self.classifier if isinstance(d, int)]
+        return (sum(self.encoder) + sum(self.decoder)
+                + (sum(clf) if self.classifier_type == 'linear' else 0))
+
+    @property
     def architecture(self) -> Dict[str, Any]:
         """params.json architecture dict (ref cvae.py:348-378)."""
         d = {'input_shape': list(self.input_shape),

@@ -144,17 +144,22 @@ def jax_to_opt_state(model: nn.Module, opt_cfg, arrays: Dict[str, np.ndarray],
     return opt_state
 
 
-def jax_to_state_dict(model: nn.Module, arrays: Dict[str, np.ndarray]
-                      ) -> Dict[str, torch.Tensor]:
+def jax_to_state_dict(model: nn.Module, arrays: Dict[str, np.ndarray],
+                      strict: bool = True) -> Dict[str, torch.Tensor]:
     """JAX checkpoint arrays -> the ``state_dict`` of a port module (a
-    ``CVNet`` or a single ``ConvStack``).  Raises on a missing key or a
-    shape that does not fit the module."""
+    ``CVNet`` or a single ``ConvStack``).  Raises on a shape that does not
+    fit the module, and (``strict``) on a missing parameter; a missing
+    entry otherwise keeps the module's current value, as the JAX
+    package's ``load_job`` does (BatchNorm statistics always, parameters
+    with ``strict=False``)."""
     template = model.state_dict()
     sd = {}
     missing = []
     for jkey, tkey, to_port, _ in _entries(model):
         if jkey not in arrays:
-            missing.append(jkey)
+            if strict and jkey.startswith('params/'):
+                missing.append(jkey)
+            sd[tkey] = template[tkey]
             continue
         t = torch.from_numpy(np.array(arrays[jkey], dtype=np.float32))
         if to_port is not None:

@@ -17,7 +17,9 @@ A job written by either package loads in the other and resumes training
 there: ``load_job`` converts the JAX arrays with ``from_jax.py`` and
 ``save_job`` writes the same keys back.  The JAX package's sampling key
 (``rng``) has no counterpart: a loaded job's generator is seeded from its
-step counter.  Sharded checkpoints are read by the JAX package only.
+step counter.  The JAX package's sharded checkpoints (``state.shards/``)
+are read (``sharded_checkpoint.py``); the port writes ``state.npz``.
+A ghost load reads the JSON files only, for fleet queries.
 """
 
 import dataclasses
@@ -35,6 +37,8 @@ from ..train.state import TrainState, create_train_state
 from .checkpoint import load_arrays, load_json, save_arrays, save_json
 from .from_jax import (jax_to_opt_state, jax_to_state_dict, opt_state_to_jax,
                        state_dict_to_jax)
+from .sharded_checkpoint import (MANIFEST, is_sharded_checkpoint,
+                                 load_checkpoint_sharded)
 
 SENTINELS = ('deleted', 'derailed')
 
@@ -42,7 +46,7 @@ SENTINELS = ('deleted', 'derailed')
 @dataclasses.dataclass
 class Job:
     model_cfg: CVNetConfig
-    state: TrainState
+    state: Optional[TrainState] = None
     opt_cfg: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     training_parameters: Dict[str, Any] = dataclasses.field(default_factory=dict)
     train_history: Dict[str, Any] = dataclasses.field(
@@ -62,6 +66,10 @@ class Job:
 
     @property
     def device(self) -> torch.device:
+        """The weights' device; the CPU for a ghost job, whose recorder
+        and json tiers replay on the host."""
+        if self.state is None:
+            return torch.device('cpu')
         return module_device(self.model)
 
     @property
@@ -99,8 +107,10 @@ def new_job(model_cfg: CVNetConfig, opt_cfg: Optional[OptimizerConfig] = None,
     return job
 
 
-def save_job(job: Job, job_dir: str):
-    """Write the job directory in the JAX package's schema."""
+def save_job(job: Job, job_dir: str, save_state: bool = True):
+    """Write the job directory in the JAX package's schema;
+    ``save_state=False`` writes the JSON files only (results saved back
+    by the test CLI)."""
     os.makedirs(job_dir, exist_ok=True)
     arch = dict(job.model_cfg.architecture)
     arch['job_number'] = job.job_number
@@ -109,22 +119,60 @@ def save_job(job: Job, job_dir: str):
     save_json(job.testing, os.path.join(job_dir, 'test.json'))
     save_json(job.ood_results, os.path.join(job_dir, 'ood.json'))
     save_json(job.train_history, os.path.join(job_dir, 'history.json'))
-    st = job.state
-    arrays = state_dict_to_jax(st.model)
-    arrays['sigma_state/data'] = st.sigma_state.data.detach().cpu().numpy()
-    arrays['sigma_state/rmse'] = st.sigma_state.rmse.detach().cpu().numpy()
-    arrays['counters/epoch'] = np.asarray(st.epoch, np.int32)
-    arrays['counters/step'] = np.asarray(st.step, np.int32)
-    save_arrays(os.path.join(job_dir, 'state.npz'), arrays)
-    save_arrays(os.path.join(job_dir, 'optimizer.npz'),
-                opt_state_to_jax(st.model, job.opt_cfg, st.opt_state))
+    if save_state and job.state is not None:
+        st = job.state
+        arrays = state_dict_to_jax(st.model)
+        arrays['sigma_state/data'] = st.sigma_state.data.detach().cpu().numpy()
+        arrays['sigma_state/rmse'] = st.sigma_state.rmse.detach().cpu().numpy()
+        arrays['counters/epoch'] = np.asarray(st.epoch, np.int32)
+        arrays['counters/step'] = np.asarray(st.step, np.int32)
+        save_arrays(os.path.join(job_dir, 'state.npz'), arrays)
+        save_arrays(os.path.join(job_dir, 'optimizer.npz'),
+                    opt_state_to_jax(st.model, job.opt_cfg, st.opt_state))
     job.saved_dir = job_dir
 
 
-def load_job(job_dir: str, device: DeviceLike = None) -> Job:
-    """Load a job directory (written by this package or by the JAX one)
-    onto ``device`` — the CUDA card unless the caller asks for the CPU."""
-    dev = resolve_device(device)
+def _load_arrays(job_dir: str, stem: str) -> Dict[str, np.ndarray]:
+    """Checkpoint arrays for ``stem``: ``<stem>.npz`` or the sharded
+    ``<stem>.shards/`` stitched back.  When both exist (a job that
+    switched formats mid-life), the newer one wins, as in the JAX
+    package."""
+    npz = os.path.join(job_dir, stem + '.npz')
+    shards = os.path.join(job_dir, stem + '.shards')
+    have_npz = os.path.exists(npz)
+    have_shards = is_sharded_checkpoint(shards)
+    if have_npz and have_shards:
+        if os.path.getmtime(npz) >= os.path.getmtime(
+                os.path.join(shards, MANIFEST)):
+            return load_arrays(npz)
+        return load_checkpoint_sharded(shards)
+    if have_npz:
+        return load_arrays(npz)
+    if not have_shards:
+        raise FileNotFoundError('{}: no {}.npz and no sharded {}.shards/'
+                                .format(job_dir, stem, stem))
+    return load_checkpoint_sharded(shards)
+
+
+def _has_checkpoint(job_dir: str, stem: str) -> bool:
+    return (os.path.exists(os.path.join(job_dir, stem + '.npz'))
+            or is_sharded_checkpoint(os.path.join(job_dir, stem + '.shards')))
+
+
+def load_job(job_dir: str, device: DeviceLike = None, load_state: bool = True,
+             ghost: bool = False, strict: bool = True) -> Job:
+    """Load a job directory (written by this package or by the JAX one).
+
+    - ``ghost=True``: the configs and the JSON files only, ``state=None``;
+      no module is built and no device is touched (fleet queries);
+    - ``load_state=False``: a fresh model (``init_weights`` seed 0) on
+      ``device``, as the JAX package builds a fresh state;
+    - ``strict=False``: parameters the checkpoint lacks keep their fresh
+      values (the WIM transfer path).
+
+    Otherwise the weights go onto ``device``: the CUDA card unless the
+    caller asks for the CPU.  ``state.npz`` or a sharded
+    ``state.shards/`` (the newer when both exist)."""
     arch = load_json(os.path.join(job_dir, 'params.json'))
     job_number = arch.pop('job_number', 0)
     tp_path = os.path.join(job_dir, 'train_params.json')
@@ -140,15 +188,24 @@ def load_job(job_dir: str, device: DeviceLike = None) -> Job:
         if training_parameters.get(k) is not None:
             merged[k] = training_parameters[k]
     cfg = CVNetConfig.from_dict(merged)
+    job = Job(model_cfg=cfg, opt_cfg=opt_cfg,
+              training_parameters=training_parameters, job_number=job_number,
+              saved_dir=job_dir)
+    for name, attr in (('test.json', 'testing'), ('ood.json', 'ood_results'),
+                       ('history.json', 'train_history')):
+        p = os.path.join(job_dir, name)
+        if os.path.exists(p):
+            setattr(job, attr, load_json(p))
+    if ghost:
+        return job
 
-    state_path = os.path.join(job_dir, 'state.npz')
-    if not os.path.exists(state_path):
-        raise FileNotFoundError(
-            '{}: no state.npz (sharded checkpoints are read by the JAX '
-            'package only)'.format(job_dir))
-    arrays = load_arrays(state_path)
+    dev = resolve_device(device)
     model = CVNet(cfg)
-    model.load_state_dict(jax_to_state_dict(model, arrays))
+    if not (load_state and strict):
+        init_weights(model, 0)
+    arrays = _load_arrays(job_dir, 'state') if load_state else {}
+    if load_state:
+        model.load_state_dict(jax_to_state_dict(model, arrays, strict=strict))
     model = model.to(dev).eval()
     step = int(arrays.get('counters/step', 0))
     state = create_train_state(model, opt_cfg, seed=step)
@@ -160,18 +217,10 @@ def load_job(job_dir: str, device: DeviceLike = None) -> Job:
                                  dtype=torch.float32, device=dev),
             rmse=torch.as_tensor(arrays.get('sigma_state/rmse', np.nan),
                                  dtype=torch.float32, device=dev))
-    opt_path = os.path.join(job_dir, 'optimizer.npz')
-    if os.path.exists(opt_path):
-        jax_to_opt_state(model, opt_cfg, load_arrays(opt_path),
+    if load_state and _has_checkpoint(job_dir, 'optimizer'):
+        jax_to_opt_state(model, opt_cfg, _load_arrays(job_dir, 'optimizer'),
                          state.opt_state)
-    job = Job(model_cfg=cfg, state=state, opt_cfg=opt_cfg,
-              training_parameters=training_parameters, job_number=job_number,
-              saved_dir=job_dir)
-    for name, attr in (('test.json', 'testing'), ('ood.json', 'ood_results'),
-                       ('history.json', 'train_history')):
-        p = os.path.join(job_dir, name)
-        if os.path.exists(p):
-            setattr(job, attr, load_json(p))
+    job.state = state
     return job
 
 

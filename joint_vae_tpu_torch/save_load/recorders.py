@@ -15,6 +15,7 @@ RNG state.
 """
 
 import os
+import re
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -40,6 +41,8 @@ def find_record(dir_path: str, set_name: str) -> Optional[str]:
 
 
 class LossRecorder:
+    FILE_PATTERN = re.compile(r'record-(?P<set>.+)\.(?:npz|jvr)\Z')
+
     def __init__(self, batch_size: int, num_batch: int = 0,
                  **tensors: np.ndarray):
         self.batch_size = batch_size
@@ -173,6 +176,53 @@ class LossRecorder:
         seed = int(meta['seed'])
         r._seed = None if seed < 0 else seed
         return r
+
+    @classmethod
+    def peek(cls, path: str) -> Dict[str, object]:
+        """Component names and sample count without reading the tensors
+        (the header of a .jvr; the member list of a .npz): what the
+        results planner needs."""
+        if path.endswith('.jvr'):
+            meta = native_store.peek_jvr(path)
+            components = meta['components']
+            nb, bs = meta['recorded_batches'], meta['batch_size']
+            last, seed_v = meta['last_batch_size'], meta['seed']
+        else:
+            with np.load(path, allow_pickle=True) as z:
+                meta = dict(z['__meta__'].tolist())
+                components = [k for k in z.files if k != '__meta__']
+            nb = int(meta['recorded_batches'])
+            bs = int(meta['batch_size'])
+            last = int(meta['last_batch_size'])
+            seed = int(meta['seed'])
+            seed_v = None if seed < 0 else seed
+        n = max(0, nb - 1) * bs + (last if nb else 0)
+        return {'components': components, 'recorded_samples': n,
+                'batch_size': bs, 'seed': seed_v}
+
+    @classmethod
+    def loadall(cls, dir_path: str, *sets: str,
+                output: str = 'recorders') -> Dict[str, object]:
+        """Every record file of a sample dir by set name, loaded, or its
+        path with ``output='paths'``; a set recorded in both formats
+        resolves to the newer file (ref recorders.py:176-216)."""
+        if not os.path.isdir(dir_path):
+            return {}
+        paths: Dict[str, str] = {}
+        for fn in os.listdir(dir_path):
+            m = cls.FILE_PATTERN.match(fn)
+            if not m:
+                continue
+            name = m.group('set')
+            if sets and name not in sets:
+                continue
+            p = os.path.join(dir_path, fn)
+            if name in paths and os.path.getmtime(paths[name]) >= \
+                    os.path.getmtime(p):
+                continue
+            paths[name] = p
+        return {name: p if output == 'paths' else cls.load(p)
+                for name, p in paths.items()}
 
     def merge(self, *others: 'LossRecorder') -> 'LossRecorder':
         """Concatenate recorders along the sample axis (array aggregation,

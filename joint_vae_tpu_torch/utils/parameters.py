@@ -18,7 +18,7 @@ import socket
 import time
 from typing import Any, Dict, List, Optional
 
-from ..cli import add_device_arg
+from ..cli import add_device_arg, add_mesh_args
 
 
 def _default_config_file() -> str:
@@ -220,15 +220,7 @@ def add_training_args(parser: argparse.ArgumentParser):
     t.add_argument('--no-final-test', action='store_true')
     t.add_argument('--no-final-ood', action='store_true')
 
-    # the JAX package's mesh flags, parsed to be refused (refuse_unported)
-    t.add_argument('--mesh', nargs='?', const='all', default=None,
-                   metavar='N', help='(not ported yet)')
-    t.add_argument('--model-axis', type=int, default=1,
-                   help='(not ported yet)')
-    t.add_argument('--sample-axis', type=int, default=1,
-                   help='(not ported yet)')
-    t.add_argument('--distributed', action='store_true',
-                   help='(not ported yet)')
+    add_mesh_args(t)
     add_device_arg(t)
 
     j = parser.add_argument_group('job')

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``joint_vae_tpu_torch``, nothing in
 ``chip_smoke.py`` and nothing in the card-only kernel tests imports jax,
-flax, optax or the JAX package, and importing them in a clean interpreter
-loads neither."""
+flax, optax, the JAX package or pandas (the card machine has no pandas:
+the port's result tables are its own), and importing them in a clean
+interpreter loads none of them."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ('jax', 'flax', 'optax', 'joint_vae_tpu')
+FORBIDDEN = ('jax', 'flax', 'optax', 'joint_vae_tpu', 'pandas')
 
 
 def _port_sources():
@@ -46,7 +47,10 @@ def test_clean_import_loads_no_jax():
     code = ('import sys; sys.path.insert(0, {root!r}); '
             'import chip_smoke, joint_vae_tpu_torch.serve, '
             'joint_vae_tpu_torch.cli.serve, joint_vae_tpu_torch.save_load.jobs, '
-            'joint_vae_tpu_torch.train.trainer; '
+            'joint_vae_tpu_torch.train.trainer, joint_vae_tpu_torch.cli.test, '
+            'joint_vae_tpu_torch.cli.results, '
+            'joint_vae_tpu_torch.save_load.fetch, '
+            'joint_vae_tpu_torch.results.tables; '
             'bad = [m for m in sys.modules if m.split(".")[0] in {bad!r}]; '
             'print(bad); sys.exit(1 if bad else 0)').format(
                 root=ROOT, bad=FORBIDDEN)

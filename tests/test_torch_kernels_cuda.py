@@ -355,3 +355,66 @@ def test_engine_launches_at_a_ragged_tail(tmp_path, cuda_device):
     assert set(acc) == set(cfg.predict_methods)
     for m, r in res['ood'].items():
         assert abs(again['ood'][m]['auc'] - r['auc']) <= 1e-6, m
+
+
+@pytest.mark.cuda
+def test_test_cli_rehard_on_card(tmp_path, cuda_device, monkeypatch):
+    """``cli.test --compute rehard`` on the full-width flagship over 32
+    images of cifar100 and of cifar10 at batch 16: 8 conv and 1 combine
+    launches per batch of its four set passes (accuracy, the OOD engine
+    over both sets, misclassification); then the same run on the CPU, the
+    latent noise injected alike from one numpy array per shape: the saved
+    accuracies, rates and AUCs within 1e-6."""
+    import json
+    import shutil
+    import zlib
+    import numpy as np
+    import joint_vae_tpu_torch.evals.odin as odin
+    import joint_vae_tpu_torch.models.evaluate as evaluate
+    from joint_vae_tpu_torch.cli import test as test_cli
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job, save_job
+
+    def noise(mu, log_var, L, dist='gaussian', sampled=True, *, eps=None,
+              generator=None):
+        shape = (L + 1,) + tuple(mu.shape)
+        rng = np.random.default_rng(zlib.crc32(repr(shape).encode()))
+        e = rng.standard_normal(shape).astype(np.float32)
+        e[0] = 0.0
+        e = torch.from_numpy(e).to(mu.device)
+        z = mu[None] + torch.exp(0.5 * log_var)[None] * e * float(sampled)
+        return z, e[1:]
+    monkeypatch.setattr(evaluate, 'reparameterize', noise)
+    monkeypatch.setattr(odin, 'reparameterize', noise)
+    job = new_job(flagship_config(), seed=0, device=cuda_device)
+    job.training_parameters['set'] = 'cifar100'
+    roots = {dev: str(tmp_path / dev) for dev in ('cuda', 'cpu')}
+    save_job(job, roots['cuda'] + '/job')
+    shutil.copytree(roots['cuda'], roots['cpu'])
+    argv = ['--compute', 'rehard', '--sets', 'cifar100', 'cifar10',
+            '-t', '32', '-M', '16']
+    same_grid_conv.launches = iws_combine.launches = 0
+    assert test_cli.main(['--job-dir', roots['cuda']] + argv) == 0
+    torch.cuda.synchronize()
+    batches = 4 * 2
+    assert (same_grid_conv.launches, iws_combine.launches) == (8 * batches,
+                                                               batches)
+    assert test_cli.main(['--job-dir', roots['cpu'], '--device', 'cpu']
+                         + argv) == 0
+    worst = 0.0
+    for name in ('test.json', 'ood.json'):
+        got, want = (json.load(open(roots[dev] + '/job/' + name))['0']
+                     for dev in ('cuda', 'cpu'))
+
+        def walk(g, w, key=None):
+            nonlocal worst
+            if isinstance(w, dict):
+                assert g.keys() == w.keys()
+                for k in w:
+                    walk(g[k], w[k], k)
+            elif key in ('accuracy', 'auc', 'fpr', 'precision', 'recall'):
+                err = float(np.max(np.abs(np.subtract(g, w))))
+                assert err <= 1e-6, (name, key, err)
+                worst = max(worst, err)
+        walk(got, want)
+    assert worst <= 1e-6
