@@ -20,7 +20,8 @@ Phases, any failure raising (nonzero exit):
    combine at L=16, N=512, C=100, K=128 in both modes, a ragged C=37,
    N=137 case, the OOD evaluation's ragged last batch N=272, the
    flagship's shape with prior means at the flagship's scale 17,
-   L=128 at N=64 and N=512, and C=1000, K=256 (``IWS_CASES``), each timed
+   L=128 at N=64 and N=512, C=1000, K=256, and C=1 at N=256 with means
+   at the WIM alternate prior's scale 8 (``IWS_CASES``), each timed
    as called back to back and replayed from a CUDA graph, beside the
    composite of PyTorch calls that the JAX package's default path
    computes (``library_ms``, its deviation from the plain version
@@ -129,9 +130,34 @@ Phases, any failure raising (nonzero exit):
    comparison-mode INI over the fleet, one column pair per section
    (``fleet`` line: registry ms per job, the recompute's images/s and
    wall seconds, the cheap tiers' seconds);
-9. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
-   phase 8's recompute);
-10. print ``{"ok": true, "device": {...}}`` as the last line.
+9. WIM fine-tuning (the fine-tuning slice) on phase 6's flagship job
+   with ``[wim-default]``'s alternate prior (an unconditional gaussian,
+   init_mean 8; moving set 512, alpha 0.1, one epoch): first the card
+   against the CPU on 8 inputs with injected noise (a both-prior
+   evaluation at L=16: every loss, '@' twin and WIM score at the serving
+   tolerance; the fine-tuning gradient of 8 in and 8 moving inputs per
+   tensor at the training gate; 3 steps' metrics to 1e-4 relative; the
+   prior and every buffer bit-equal after the steps); then
+   ``cli.ft.main([...])`` in-process from a scratch working directory
+   on a copy of the job, ``--oodsets cifar10 svhn --train-size 8192
+   --batch-size 64 --test-batch-size 256 --inspection``: its launches
+   exactly those worked out from the code (128 steps of 16 conv and 14
+   dx; 8 conv and 1 combine per batch of the pre-tuning engines and of
+   ``record_latents``, 16 conv and 1 combine per both-prior batch: 40
+   batches per set), the new job (number 1 under ``wim/``, its
+   ``wim_prior.npz``, ``init/ood.json``, record files with
+   ``y_est_already``, ``inspection.json`` and ``proj2d-pca.csv``) and the
+   source job byte-unchanged; a second run at ``--task 1 --train-size
+   1024``; ``cli.ft --array --register`` over both jobs (no launch; its
+   rates equal ``WIMArray.recompute_rates``); ``cli.test --compute re``
+   over both jobs with the WIM methods, which replays them from the
+   record files with no launch (rates, AUC and thresholds within 1e-6
+   of those ``finetune`` saved); ``cli.ft --poscod`` (8 conv per batch,
+   no combine; the head reloads); 10 fine-tuning steps timed after 3
+   warm-up ones, fed from the host, and one profiled (``wim`` line);
+10. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+   phase 8's recompute; ``launches_wim_ft``: phase 9's first run);
+11. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -447,15 +473,19 @@ def sass_counts(name: str) -> dict:
 # serve point in both modes, a ragged one, the ragged last batch of a
 # 10,000-image set at batch 512 (the OOD evaluation's, N=272), the
 # flagship's prior scale (init_mean=17), the reference's eval L=128 at a
-# scorer batch of 64 and of 512, and the imagenet64 geometry (C=1000,
-# K=256)
+# scorer batch of 64 and of 512, the imagenet64 geometry (C=1000,
+# K=256), and C=1 at the WIM evaluation's batch of 256 with the
+# alternate prior's scale (init_mean 8): a class-conditional one-mean
+# alternate prior (force_conditional, which load_wim_job restores)
+# reaches the kernel there
 IWS_CASES = ((16, 512, 100, 128, 0.1, (True, False)),
              (16, 137, 37, 128, 0.1, (True, False)),
              (16, 272, 100, 128, 0.1, (True, False)),
              (16, 512, 100, 128, 17.0, (True, False)),
              (128, 64, 100, 128, 0.1, (True,)),
              (128, 512, 100, 128, 0.1, (True,)),
-             (16, 512, 1000, 256, 0.1, (True,)))
+             (16, 512, 1000, 256, 0.1, (True,)),
+             (16, 256, 1, 128, 8.0, (True, False)))
 LANES_PER_SM, SM_CLOCK_HZ = 128, 1.98e9     # float32 lanes, H100 SXM boost
 
 
@@ -1031,6 +1061,29 @@ def profile_train_step(step, state, xb, yb) -> dict:
                          for ms, k, c in host[:16]]}
 
 
+def check_grads(grads: dict) -> tuple:
+    """Card against CPU gradients per tensor (the module docstring's
+    training gate); returns the worst ratio and the tensors with elements
+    beyond the strict tolerance."""
+    worst, loose = 0.0, {}
+    for k, want in grads['cpu'].items():
+        got = grads['cuda'][k]
+        rms = want.square().mean().sqrt().item()
+        ratio = (got - want).abs() / (want.abs() + rms + 1e-30)
+        worst = max(worst, ratio.max().item())
+        n_loose = int((ratio > GRAD_TOL).sum())
+        if n_loose:
+            loose[k] = {'elements': n_loose, 'of': ratio.numel(),
+                        'worst': ratio.max().item()}
+        if (n_loose > GRAD_FLIP_SHARE * ratio.numel()
+                or ratio.max().item() > GRAD_FLIP_TOL):
+            raise AssertionError('card vs CPU gradient {}: {} of {} elements '
+                                 'beyond {}, worst {}'.format(
+                                     k, n_loose, ratio.numel(), GRAD_TOL,
+                                     ratio.max().item()))
+    return worst, loose
+
+
 def train_gate(cfg) -> dict:
     """The full-width flagship at batch 8 from one init (a numpy seed),
     with the same batch and the same injected noise, on the card and on
@@ -1068,22 +1121,7 @@ def train_gate(cfg) -> dict:
             state, m = step(state, xt, yt, eps=et)
             seq.append(m['total'].item())
         losses[dev] = seq
-    worst, loose = 0.0, {}
-    for k, want in grads['cpu'].items():
-        got = grads['cuda'][k]
-        rms = want.square().mean().sqrt().item()
-        ratio = (got - want).abs() / (want.abs() + rms + 1e-30)
-        worst = max(worst, ratio.max().item())
-        n_loose = int((ratio > GRAD_TOL).sum())
-        if n_loose:
-            loose[k] = {'elements': n_loose, 'of': ratio.numel(),
-                        'worst': ratio.max().item()}
-        if (n_loose > GRAD_FLIP_SHARE * ratio.numel()
-                or ratio.max().item() > GRAD_FLIP_TOL):
-            raise AssertionError('card vs CPU gradient {}: {} of {} elements '
-                                 'beyond {}, worst {}'.format(
-                                     k, n_loose, ratio.numel(), GRAD_TOL,
-                                     ratio.max().item()))
+    worst, loose = check_grads(grads)
     np.testing.assert_allclose(losses['cuda'], losses['cpu'],
                                rtol=TRAIN_LOSS_RTOL, atol=0,
                                err_msg='card vs CPU train losses')
@@ -2384,6 +2422,450 @@ def fleet_eval(card: str, flagship):
     return launches, summary
 
 
+# phase 9: WIM fine-tuning (the fine-tuning slice) on phase 6's flagship
+# job, with [wim-default]'s alternate prior (configs/default.ini: an
+# unconditional gaussian, init_mean 8), its moving set of 512 (half of it
+# cifar10 and svhn), alpha 0.1 and one epoch: 8,192 training images at
+# batch 64 (128 steps), the test and OOD sets at batch 256
+WIM_SETS = ('cifar10', 'svhn')
+WIM_TRAIN_SIZE, WIM_TRAIN_SIZE_2 = 8192, 1024
+WIM_BATCH, WIM_TEST_BATCH = 64, 256
+WIM_LATENT_BATCHES = 8                     # ft/job.py::record_latents
+WIM_ALPHA = 0.1
+WIM_PRIOR = dict(distribution='gaussian', init_mean=8.0, num_priors=1)
+WIM_METHODS = ('zdist', 'zdist~', 'zdist@', 'zdist~@',
+               'elbo', 'elbo~', 'elbo@', 'elbo~@')
+WIM_MISCLASS = ('softzdist~', 'zdist~')
+WIM_TIMED_STEPS, WIM_WARMUP_STEPS = 10, 3
+WIM_REPLAY_TOL = 1e-6
+
+
+def _ft_want(steps: int, pre_batches: int, both_batches: int,
+             latent_batches: int = 0) -> dict:
+    """Launches of a fine-tuning run: per step the conv forward at both
+    halves' 8 sites and its dx at their 7, no combine; 8 conv and 1
+    combine per batch of the pre-tuning engines and of record_latents; 16
+    conv and 1 combine (the original prior's: the alternate one is
+    unconditional) per both-prior batch."""
+    return {'same_grid_conv': SITES_PER_BATCH * (
+                2 * steps + pre_batches + 2 * both_batches + latent_batches),
+            'same_grid_conv_dx': 2 * DX_PER_STEP * steps,
+            'iws_combine': pre_batches + both_batches + latent_batches}
+
+
+def _digest(d: str) -> dict:
+    import hashlib
+    out = {}
+    for p, _, fs in os.walk(d):
+        for f in fs:
+            with open(os.path.join(p, f), 'rb') as fh:
+                out[os.path.relpath(os.path.join(p, f), d)] = \
+                    hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def _job_dirs(root: str) -> list:
+    return sorted(p for p, _, fs in os.walk(root) if 'params.json' in fs)
+
+
+def _frozen(model) -> list:
+    """What fine-tuning must not move: the prior and every buffer (the
+    BatchNorm statistics where the model has them)."""
+    return ([('prior.' + k, v) for k, v in model.prior().items()]
+            + list(model.named_buffers()))
+
+
+def wim_gate(job_dir: str) -> dict:
+    """Card against CPU on phase 4's weights with the alternate prior
+    drawn from one numpy seed: a both-prior evaluation of 8 inputs at
+    L=16 (every loss and '@' twin, then every WIM score from them, at the
+    serving tolerance), the fine-tuning gradient of 8 in and 8 moving
+    inputs per tensor (the training gate), and 3 fine-tuning steps'
+    metrics to 1e-4 relative; the prior and every buffer bit-equal after
+    the steps on both devices."""
+    from joint_vae_tpu_torch.ft.job import wim_scores_for_set
+    from joint_vae_tpu_torch.ft.wim import WIMJob
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.train.optimizers import build_optimizer
+    from joint_vae_tpu_torch.train.state import named_params
+    cfg = flagship_config()
+    rng = np.random.default_rng(9)
+    n, K = GATE_BATCH, cfg.latent_dim
+    x_in, x_mix, x_eval = rng.uniform(
+        0, 1, (3, n) + cfg.input_shape).astype(np.float32)
+    y = rng.integers(0, cfg.num_labels, n).astype(np.int64)
+    eps = rng.standard_normal((cfg.latent_sampling + 1, n, K)
+                              ).astype(np.float32)
+    eps16 = rng.standard_normal((cfg.test_latent_sampling + 1, n, K)
+                                ).astype(np.float32)
+    eps[0] = eps16[0] = 0.0
+    grads, metrics, evals, frozen = {}, {}, {}, {}
+    for dev in ('cuda', 'cpu'):
+        job = load_job(job_dir, device=dev)
+        wim = WIMJob(job=job)
+        wim.set_alternate_prior(seed=7, **WIM_PRIOR)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        _, logits, losses, _ = wim.evaluate_on_both_priors(
+            t(x_eval), sigma_state=job.sigma_state, decode_mean=False,
+            eps=t(eps16))
+        host = {k: v.cpu().numpy() for k, v in losses.items()}
+        host['logits'] = logits.cpu().numpy()
+        host['y_true'] = np.zeros(n, np.int32)
+        evals[dev] = (host, wim_scores_for_set(wim, host,
+                                               WIM_METHODS + WIM_MISCLASS))
+        g, _, _ = wim.finetune_grads(job.state, t(x_in), t(y), t(x_mix),
+                                     WIM_ALPHA, train_L=cfg.latent_sampling,
+                                     eps=t(eps))
+        grads[dev] = {k: v.cpu() for k, v in g.items()}
+        keep = {k: v.detach().clone() for k, v in _frozen(job.model)}
+        tx = build_optimizer(job.opt_cfg)
+        job.state.opt_state = tx.init(named_params(job.model))
+        seq = []
+        for _ in range(GATE_STEPS):
+            _, m = wim.finetune_batch(job.state, t(x_in), t(y), t(x_mix),
+                                      WIM_ALPHA, tx=tx,
+                                      train_L=cfg.latent_sampling, eps=t(eps))
+            seq.append({k: v.item() for k, v in m.items()})
+        metrics[dev] = seq
+        now = dict(_frozen(job.model))
+        moved = [k for k in keep if not torch.equal(now[k], keep[k])]
+        if moved:
+            raise AssertionError('{}: fine-tuning moved {}'.format(dev, moved))
+        frozen[dev] = sorted(keep)
+    grad_worst, loose = check_grads(grads)
+    metric_worst = 0.0
+    for a, b in zip(metrics['cuda'], metrics['cpu']):
+        for k in b:
+            err = abs(a[k] - b[k]) / abs(b[k])
+            metric_worst = max(metric_worst, err)
+            if err > TRAIN_LOSS_RTOL:
+                raise AssertionError('card vs CPU fine-tune {}: {} vs {}'
+                                     .format(k, a[k], b[k]))
+    worst = {}
+    (l_gpu, s_gpu), (l_cpu, s_cpu) = evals['cuda'], evals['cpu']
+    checked = [('loss ' + k, l_gpu[k], v) for k, v in l_cpu.items()
+               if k != 'y_true']
+    checked += [('score ' + k, s_gpu[k], v) for k, v in s_cpu.items()]
+    for name, got, want in checked:
+        worst[name] = float(np.max(np.abs(got.astype(np.float64) - want)
+                                   / np.maximum(np.abs(want), 1e-30)))
+        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL,
+                                   err_msg='card vs CPU both priors, ' + name)
+    if not any(k.endswith('@') for k in l_cpu):
+        raise AssertionError('no alternate-prior twin in {}'.format(l_cpu))
+    return {'batch': n, 'steps': GATE_STEPS,
+            'grad_worst_err_over_abs_plus_rms': grad_worst,
+            'grad_beyond_strict_tol': loose,
+            'metrics_cuda': metrics['cuda'], 'metrics_cpu': metrics['cpu'],
+            'metric_worst_rel_err': metric_worst,
+            'frozen_bit_equal': frozen['cuda'],
+            'both_priors_worst_elementwise_rel_err': worst}
+
+
+def time_finetune_steps(job_dir: str) -> dict:
+    """10 fine-tuning steps after 3 warm-up ones, fed from the host as
+    ``finetune`` feeds them (64 in and 64 moving images a step), their
+    launches; then one step profiled by kernel group."""
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.ft.job import load_wim_job
+    from joint_vae_tpu_torch.train.optimizers import build_optimizer
+    from joint_vae_tpu_torch.train.state import named_params
+    from joint_vae_tpu_torch.train.steps import pull_metrics
+    wim = load_wim_job(job_dir, seed=7, **WIM_PRIOR)
+    job = wim.job
+    dev = job.device
+    tx = build_optimizer(job.opt_cfg)
+    state = job.state
+    state.opt_state = tx.init(named_params(job.model))
+    cfg = job.model_cfg
+    rng = np.random.default_rng(11)
+    n = WIM_WARMUP_STEPS + WIM_TIMED_STEPS + 1
+    xs = rng.uniform(0, 1, (n, 2, WIM_BATCH) + cfg.input_shape
+                     ).astype(np.float32)
+    ys = rng.integers(0, cfg.num_labels, (n, WIM_BATCH)).astype(np.int32)
+
+    def step(st, i):
+        return wim.finetune_batch(st, to_device(xs[i, 0], dev),
+                                  to_device(ys[i], dev),
+                                  to_device(xs[i, 1], dev), WIM_ALPHA, tx=tx,
+                                  train_L=cfg.latent_sampling)
+    for i in range(WIM_WARMUP_STEPS):
+        state, _ = step(state, i)
+    torch.cuda.synchronize()
+    _count_reset()
+    pending = []
+    t0 = time.perf_counter()
+    for i in range(WIM_WARMUP_STEPS, WIM_WARMUP_STEPS + WIM_TIMED_STEPS):
+        state, m = step(state, i)
+        pending.append(m)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = _counts()
+    if launches != _ft_want(WIM_TIMED_STEPS, 0, 0):
+        raise AssertionError('timed fine-tune steps launched {}'.format(
+            launches))
+    if not all(np.isfinite(list(r.values())).all()
+               for r in pull_metrics(pending)):
+        raise AssertionError('non-finite fine-tune metrics')
+    xm = to_device(xs[-1, 1], dev)
+    breakdown = profile_train_step(
+        lambda st, xb, yb: wim.finetune_batch(st, xb, yb, xm, WIM_ALPHA,
+                                              tx=tx,
+                                              train_L=cfg.latent_sampling),
+        state, to_device(xs[-1, 0], dev), to_device(ys[-1], dev))
+    return {'batch_in': WIM_BATCH, 'batch_mix': WIM_BATCH,
+            'timed_steps': WIM_TIMED_STEPS, 'launches': launches,
+            'ms_per_step': timed_s * 1e3 / WIM_TIMED_STEPS,
+            'images_per_s': 2 * WIM_BATCH * WIM_TIMED_STEPS / timed_s,
+            'profile': breakdown}
+
+
+def _wim_results_gate(saved: dict, got: dict, what: str) -> float:
+    """A replayed job's OOD results against the ones ``finetune`` saved:
+    rates and AUC within 1e-6, thresholds within 1e-6 relative."""
+    worst = 0.0
+    for s, ms in saved.items():
+        for m, r in ms.items():
+            g = got[s][m]
+            for k in ('auc', 'fpr', 'thresholds'):
+                w, v = np.asarray(r[k], np.float64), np.asarray(g[k], np.float64)
+                err = float(np.max(np.abs(v - w) / np.maximum(
+                    1.0 if k != 'thresholds' else np.abs(w), 1e-30)))
+                worst = max(worst, err)
+                if err > WIM_REPLAY_TOL:
+                    raise AssertionError('{} {} {} {}: replayed {} saved {}'
+                                         .format(what, s, m, k, g[k], r[k]))
+    return worst
+
+
+def wim_finetune(card: str) -> tuple:
+    """Phase 9: WIM fine-tuning through ``cli.ft`` on phase 6's flagship
+    job: the card against the CPU first, then the CLI in-process in a
+    scratch working directory (the scheduler writes ``grid/`` there) with
+    ``--inspection``, its launches counted; the saved job checked and the
+    source job byte-unchanged; a second run of another task; the array
+    pass and the test CLI's replay of both jobs from their record files,
+    neither launching anything; Poscod; the timed steps."""
+    from joint_vae_tpu_torch.cli import ft as ft_cli
+    from joint_vae_tpu_torch.cli import test as test_cli
+    from joint_vae_tpu_torch.ft import job as ft_job
+    from joint_vae_tpu_torch.ft.array import WIMArray
+    from joint_vae_tpu_torch.ft.poscod import POSCOD_HEAD_FILE, load_poscod_job
+    from joint_vae_tpu_torch.save_load.checkpoint import load_json
+    from joint_vae_tpu_torch.save_load.recorders import LossRecorder, find_record
+
+    flagship_dir = os.path.join(WORK, 'flagship_job')   # phases 4, 6 and 8
+    gate = wim_gate(flagship_dir)
+    root = os.path.join(WORK, 'ft_jobs')
+    cwd = os.path.join(WORK, 'ft_cwd')
+    arrays = [os.path.join(WORK, 'ft_array'), os.path.join(WORK, 'ft_array_direct')]
+    for d in [root, cwd] + arrays:
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(cwd)
+    src = os.path.join(root, 'cifar100', 'flagship', '000000')
+    shutil.copytree(flagship_dir, src, ignore=shutil.ignore_patterns('samples'))
+    if load_json(os.path.join(src, 'train_params.json'))['set'] != 'cifar100':
+        raise AssertionError('the flagship job names no cifar100 set')
+    before = _digest(src)
+    batches = -(-OOD_SET_SIZE // WIM_TEST_BATCH)
+    n_sets = 1 + len(WIM_SETS)
+    common = ['--job-dir', root, '--oodsets'] + list(WIM_SETS) + [
+        '--batch-size', str(WIM_BATCH), '--test-batch-size',
+        str(WIM_TEST_BATCH)]
+
+    # the engines' and the fine-tune's stages, timed around (synchronised)
+    spent = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return res
+        return call
+    patched = [(ft_job, '_both_prior_losses'), (ft_job, 'ood_detection_rates'),
+               (ft_cli, 'record_latents'), (ft_cli, 'finetune')]
+    real = {(m, n): getattr(m, n) for m, n in patched}
+    old_cwd = os.getcwd()
+    runs = {}
+    try:
+        os.chdir(cwd)
+        for m, n in patched:
+            setattr(m, n, timed(n, real[(m, n)]))
+        for name, argv, want in (
+                ('ft', ['0', '--train-size', str(WIM_TRAIN_SIZE),
+                        '--inspection'],
+                 _ft_want(WIM_TRAIN_SIZE // WIM_BATCH, n_sets * batches,
+                          n_sets * batches,
+                          2 * n_sets * WIM_LATENT_BATCHES)),
+                ('ft_task1', ['0', '--train-size', str(WIM_TRAIN_SIZE_2),
+                              '--task', '1'],
+                 _ft_want(WIM_TRAIN_SIZE_2 // WIM_BATCH, n_sets * batches,
+                          n_sets * batches))):
+            spent.clear()
+            seen = set(_job_dirs(os.path.join(root, 'wim')))
+            _count_reset()
+            t0 = time.perf_counter()
+            with open(os.path.join(WORK, name + '.out'), 'w') as f, \
+                    contextlib.redirect_stdout(f):
+                # --- the main path of phase 9 (the first run) ---
+                rc = ft_cli.main(argv + common)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            # --- end of the main path ---
+            if rc != 0 or launches != want:
+                raise AssertionError('{}: exit {}, launches {}, want {}'
+                                     .format(name, rc, launches, want))
+            (d,) = set(_job_dirs(os.path.join(root, 'wim'))) - seen
+            runs[name] = {'dir': d, 'wall_s': wall, 'launches': launches,
+                          'stages_s': dict(spent)}
+    finally:
+        os.chdir(old_cwd)
+        for (m, n), fn in real.items():
+            setattr(m, n, fn)
+    if _digest(src) != before:
+        raise AssertionError('the source job changed')
+    d1, d2 = runs['ft']['dir'], runs['ft_task1']['dir']
+    for d, number in ((d1, 1), (d2, 2)):
+        tp = load_json(os.path.join(d, 'train_params.json'))
+        if (load_json(os.path.join(d, 'params.json'))['job_number'] != number
+                or tp['from_job'] != 0 or tp['wim']['init_mean'] != 8.0):
+            raise AssertionError('{}: job {} from {}'.format(
+                d, number, tp.get('from_job')))
+        edir = os.path.join(d, 'samples', '0000')
+        for f in ('wim_prior.npz', 'state.npz', 'optimizer.npz'):
+            if not os.path.exists(os.path.join(d, f)):
+                raise AssertionError('{} has no {}'.format(d, f))
+        if not os.path.exists(os.path.join(edir, 'init', 'ood.json')):
+            raise AssertionError('no pre-tuning ood.json in ' + edir)
+        for s in ('cifar100',) + WIM_SETS:
+            rec = LossRecorder.load(find_record(edir, s))
+            if ('y_est_already' not in rec or 'total@' not in rec
+                    or rec.recorded_samples != OOD_SET_SIZE):
+                raise AssertionError('record of {} in {}'.format(s, edir))
+        ood = load_json(os.path.join(d, 'ood.json'))[0]
+        aucs = [r['auc'] for ms in ood.values() for r in ms.values()]
+        if len(aucs) != len(WIM_SETS) * len(WIM_METHODS) or not np.all(
+                np.isfinite(aucs)):
+            raise AssertionError('WIM results of {}: {}'.format(d, aucs))
+    edir = os.path.join(d1, 'samples', '0000')
+    for f in ('inspection.json', 'proj2d-pca.csv', 'sample-cifar100.npz',
+              os.path.join('init', 'sample-cifar100.npz')):
+        if not os.path.exists(os.path.join(edir, f)):
+            raise AssertionError('--inspection wrote no ' + f)
+    inspection = load_json(os.path.join(edir, 'inspection.json'))
+    both_s = runs['ft']['stages_s']['_both_prior_losses']
+    both_images = n_sets * OOD_SET_SIZE
+
+    # --- the array pass and the test CLI's replay: no launch ---
+    saved = {d: (load_json(os.path.join(d, 'ood.json'))[0],
+                 load_json(os.path.join(d, 'test.json'))[0]['already'])
+             for d in (d1, d2)}
+    _count_reset()
+    t0 = time.perf_counter()
+    with open(os.path.join(WORK, 'ft_array.out'), 'w') as f, \
+            contextlib.redirect_stdout(f):
+        rc = ft_cli.main(['--array', arrays[0], '--register', d1, d2,
+                          '--oodsets'] + list(WIM_SETS))
+    array_s = time.perf_counter() - t0
+    array_launches = _counts()
+    direct = WIMArray(arrays[1])
+    direct.register_jobs(d1, d2)
+    want = direct.recompute_rates(ft_job.load_wim_job(d1), 'cifar100',
+                                  list(WIM_SETS))
+    got = load_json(os.path.join(arrays[0], 'ood.json'))
+    if (rc != 0 or any(array_launches.values())
+            or got != json.loads(json.dumps(want))):
+        raise AssertionError('array pass: exit {}, launches {}, rates equal '
+                             '{}'.format(rc, array_launches,
+                                         got == json.loads(json.dumps(want))))
+    _count_reset()
+    t0 = time.perf_counter()
+    with open(os.path.join(WORK, 'ft_replay.out'), 'w') as f, \
+            contextlib.redirect_stdout(f):
+        rc = test_cli.main(['--job-dir', os.path.join(root, 'wim'),
+                            '--compute', 're', '--sets', 'cifar100']
+                           + list(WIM_SETS) + ['--ood-methods']
+                           + list(WIM_METHODS)
+                           + ['--predict-methods', 'already',
+                              '--misclass-methods'] + list(WIM_MISCLASS))
+    replay_s = time.perf_counter() - t0
+    replay_launches = _counts()
+    if rc != 0 or any(replay_launches.values()):
+        raise AssertionError('replay: exit {}, launches {}'.format(
+            rc, replay_launches))
+    replay_worst = 0.0
+    for d, (ood, mis) in saved.items():
+        replay_worst = max(replay_worst, _wim_results_gate(
+            ood, load_json(os.path.join(d, 'ood.json'))[0], d))
+        got_mis = load_json(os.path.join(d, 'test.json'))[0]['already']
+        for m in WIM_MISCLASS:
+            err = abs(got_mis[m]['auc'] - mis[m]['auc'])
+            replay_worst = max(replay_worst, err)
+            if err > WIM_REPLAY_TOL:
+                raise AssertionError('replayed misclassification {} {}: {} '
+                                     'vs {}'.format(d, m, got_mis[m]['auc'],
+                                                    mis[m]['auc']))
+
+    # --- Poscod: 8 conv per batch, no combine ---
+    seen = set(_job_dirs(os.path.join(root, 'wim')))
+    poscod_epochs = 1                         # [wim-default] epochs
+    train_steps = min(-(-OOD_SET_SIZE // WIM_BATCH), 512 // WIM_BATCH)
+    want = _ft_want(0, 0, 0)
+    want['same_grid_conv'] = SITES_PER_BATCH * (
+        2 * poscod_epochs * train_steps + n_sets * batches)
+    old_cwd = os.getcwd()
+    try:
+        os.chdir(cwd)
+        _count_reset()
+        t0 = time.perf_counter()
+        with open(os.path.join(WORK, 'ft_poscod.out'), 'w') as f, \
+                contextlib.redirect_stdout(f):
+            rc = ft_cli.main(['0', '--poscod'] + common)
+        torch.cuda.synchronize()
+        poscod_s = time.perf_counter() - t0
+        poscod_launches = _counts()
+    finally:
+        os.chdir(old_cwd)
+    (d3,) = set(_job_dirs(os.path.join(root, 'wim'))) - seen
+    if rc != 0 or poscod_launches != want:
+        raise AssertionError('poscod: exit {}, launches {}, want {}'.format(
+            rc, poscod_launches, want))
+    if _digest(src) != before:
+        raise AssertionError('the source job changed')
+    pc = load_poscod_job(d3)
+    with np.load(os.path.join(d3, POSCOD_HEAD_FILE)) as z:
+        if not all(np.array_equal(pc.head[k].cpu().numpy(), z[k])
+                   for k in ('w', 'b')) or pc.head['w'].shape != (128,):
+            raise AssertionError('the Poscod head does not reload')
+    poscod_auc = {s: load_json(os.path.join(d3, 'ood.json'))[0][s]['llr']['auc']
+                  for s in WIM_SETS}
+
+    steps = time_finetune_steps(src)
+    summary = {'card': card, 'gate': gate,
+               'cli': {k: {'wall_s': r['wall_s'], 'launches': r['launches'],
+                           'stages_s': r['stages_s']}
+                       for k, r in runs.items()},
+               'train_size': WIM_TRAIN_SIZE, 'steps': WIM_TRAIN_SIZE // WIM_BATCH,
+               'both_prior_images_per_s': both_images / both_s,
+               'both_prior_s': both_s, 'inspection': inspection,
+               'array_s': array_s, 'array_launches': array_launches,
+               'replay_s': replay_s, 'replay_launches': replay_launches,
+               'replay_worst_err': replay_worst,
+               'poscod_s': poscod_s, 'poscod_launches': poscod_launches,
+               'poscod_auc': poscod_auc,
+               'ood_auc': {s: {m: r['auc'] for m, r in ms.items()}
+                           for s, ms in saved[d1][0].items()},
+               'finetune_steps': steps}
+    print('wim', json.dumps(summary), flush=True)
+    return runs['ft']['launches'], poscod_launches, summary
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -2439,6 +2921,7 @@ def main():
     f32_fed = bench['f32_device_fed']['launches']
     serve16 = bench['bf16_serve']['launches']
     test_cli_launches, fleet = fleet_eval(card, ood_job)
+    wim_launches, poscod_launches, wim = wim_finetune(card)
 
     kernels = [
         {'name': 'same_grid_conv', 'route': 'cuda',
@@ -2449,6 +2932,8 @@ def main():
          'launches_ood': ood_launches['same_grid_conv'],
          'launches_odin': odin_launches['same_grid_conv'],
          'launches_test_cli': test_cli_launches['same_grid_conv'],
+         'launches_wim_ft': wim_launches['same_grid_conv'],
+         'launches_wim_poscod': poscod_launches['same_grid_conv'],
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -2491,6 +2976,7 @@ def main():
          'launches': train_launches['same_grid_conv_dx'],
          'launches_odin': odin_launches['same_grid_conv_dx'],
          'launches_test_cli': test_cli_launches['same_grid_conv_dx'],
+         'launches_wim_ft': wim_launches['same_grid_conv_dx'],
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -2531,6 +3017,7 @@ def main():
          'launches_l128': launches128['iws_combine'],
          'launches_ood': ood_launches['iws_combine'],
          'launches_test_cli': test_cli_launches['iws_combine'],
+         'launches_wim_ft': wim_launches['iws_combine'],
          'launches_serve_bf16': serve16['iws_combine'],
          'launches_bench_bf16': {m: c['iws_combine']
                                  for m, c in bench16.items()},
@@ -2547,7 +3034,7 @@ def main():
     ]
     print(json.dumps({'kernels': kernels, 'serve': summary,
                       'train': train_summary, 'ood': ood_summary,
-                      'bench_train': bench, 'fleet': fleet,
+                      'bench_train': bench, 'fleet': fleet, 'wim': wim,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -22,14 +22,14 @@ Loss shapes: per-class (C, N); per-input (N,); 'total' broadcasts.
 import dataclasses
 import math
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.iws import iws_combine
 from ..ops.losses import categorical_loss, mse_loss, x_loss
-from ..ops.priors import prior_kl, prior_log_density
+from ..ops.priors import Params, PriorConfig, prior_kl, prior_log_density
 from ..ops.sampling import reparameterize
 from ..ops.sigma import (SigmaState, sigma_value, update_sigma_coded,
                          update_sigma_rmse)
@@ -64,6 +64,7 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
              decode_mean: bool = True,
              bn_eval: bool = False,
              native_scores: bool = False,
+             prior_override: Optional[Tuple[PriorConfig, Params]] = None,
              eps: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None):
     """Evaluate a batch; returns EvalOutput, and with ``return_bn_updates``
@@ -77,6 +78,10 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
     callers; training never decodes it).  ``compute_iws`` defaults to
     ``not train``.  ``bn_eval`` keeps BatchNorm on its running statistics
     while the rest trains.  Gradients are enabled only in training.
+    ``prior_override`` ``(prior_cfg, prior_params)`` replaces the model's
+    prior in the KL, the class-dictionary diagnostics and the IWAE term
+    (the WIM alternate prior, ``ft/wim.py``); the latent noise keeps the
+    model's prior's distribution.
     ``native_scores`` follows the JAX package's flag.  A string holding
     'bf16' takes the difference and square of the (L, ...) gaussian
     reconstructions in the compute dtype and their mean in float32 (with
@@ -94,13 +99,14 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                          compute_iws=compute_iws,
                          return_bn_updates=return_bn_updates,
                          decode_mean=decode_mean, bn_eval=bn_eval,
-                         native_scores=native_scores, eps=eps,
+                         native_scores=native_scores,
+                         prior_override=prior_override, eps=eps,
                          generator=generator)
 
 
 def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
               gamma_weighting, L, compute_iws, return_bn_updates, decode_mean,
-              bn_eval, native_scores, eps, generator):
+              bn_eval, native_scores, prior_override, eps, generator):
     cfg = model.cfg
     C = cfg.num_labels
     N = x.shape[0]
@@ -120,8 +126,10 @@ def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
     mtrain = train and not bn_eval          # BatchNorm's mode
     bn_updates = {} if (mtrain and return_bn_updates) else None
 
-    prior_cfg = cfg.prior
-    prior_params = model.prior()
+    if prior_override is not None:
+        prior_cfg, prior_params = prior_override
+    else:
+        prior_cfg, prior_params = cfg.prior, model.prior()
 
     y_fwd = y
     if x_rep:
@@ -133,7 +141,7 @@ def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
         t = t[None].expand((C,) + t.shape)
     y_onehot = onehot_encoding(y_fwd, C, cfg.dtype) if cfg.y_is_coded else None
     mu, log_var, sigma_coded = model.encode(t, y_onehot, train, generator)
-    dist = 'uniform' if prior_cfg.distribution == 'uniform' else 'gaussian'
+    dist = 'uniform' if cfg.prior.distribution == 'uniform' else 'gaussian'
     z, eps_used = reparameterize(mu, log_var, L, dist, sampled, eps=eps,
                                  generator=generator)
     if cfg.x_is_generated:

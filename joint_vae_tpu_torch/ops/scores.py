@@ -5,7 +5,8 @@ per-item losses of :func:`models.evaluate.evaluate` (per-class (C, N),
 per-input (N,)) and the sample-averaged logits, one score per input and
 method; higher means more in-distribution.  The ROC suffixes '-2s' and
 '-a-p-q' are stripped here (they change the test, not the measure).
-The WIM variants ('k~', 'k@') come with the fine-tuning slice.
+The WIM variants ('k~', 'k@', 'k~@', 'softk~') score from the recorded
+alternate-prior loss twins and estimated labels (``ft/wim.py``).
 """
 
 import math
@@ -71,8 +72,15 @@ def batch_dist_measures(cfg: CVNetConfig, logits: torch.Tensor,
     for m_full in methods:
         m = strip_roc_suffix(m_full)
         if m and m[-1] in '~@':
-            raise NotImplementedError(
-                'WIM score {!r} comes with the fine-tuning port'.format(m_full))
+            # WIM variants score from the recorded loss twins and estimated
+            # labels; reachable when replaying a WIM job's record files
+            from ..ft.wim import wim_measures
+            y_est = losses.get('y_est_already')
+            if y_est is not None:
+                y_est = y_est.long()
+            out[m_full] = wim_measures(cfg, losses, [m],
+                                       y_est=y_est)[m].float()
+            continue
         if m == 'elbo':
             v = logp_max if per_class else logp
         elif m == 'iws':

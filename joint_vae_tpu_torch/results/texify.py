@@ -223,7 +223,12 @@ def texify_test_results_df(df: Frame, dataset: Optional[str] = None,
                              else max(vals))
 
     for idx, values in df.iterrows():
-        key = ('row', idx if len(idx) > 1 else idx[0])
+        # Rows whose keys are equal share a line, as in pandas, where a
+        # missing cell of a float level is a fresh NaN equal to nothing
+        # and one of any other level is the shared ``np.nan``.
+        ref = tuple(object() if v is None and kind == 'float' else v
+                    for v, kind in zip(idx, df.index_kinds))
+        key = ('row', ref if len(ref) > 1 else ref[0])
         for v in idx:
             tab.append_cell(v, key)
         for col, v in zip(df.columns, values):

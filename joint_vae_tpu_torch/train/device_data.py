@@ -120,10 +120,14 @@ def batch_slice(data_x: torch.Tensor, data_y: torch.Tensor, i: int,
 
 def make_device_train_step(model: CVNet, opt_cfg: OptimizerConfig,
                            batch_size: int,
+                           warmup: Tuple[int, int] = (0, 0),
+                           warmup_gamma: Tuple[int, int] = (0, 0),
                            frozen_modules: Tuple[str, ...] = ()):
     """``step(state, data_x, data_y, i, eps=None) -> (state, metrics)``:
-    ``train/steps.py``'s step on batch ``i`` of the shuffled arrays."""
-    step = make_train_step(model, opt_cfg, frozen_modules=frozen_modules)
+    ``train/steps.py``'s step (with its warmup ramps) on batch ``i`` of
+    the shuffled arrays."""
+    step = make_train_step(model, opt_cfg, tuple(warmup), tuple(warmup_gamma),
+                           frozen_modules=frozen_modules)
 
     def device_step(state, data_x, data_y, i: int,
                     eps: Optional[torch.Tensor] = None):
@@ -135,12 +139,15 @@ def make_device_train_step(model: CVNet, opt_cfg: OptimizerConfig,
 
 def make_device_epoch_fn(model: CVNet, opt_cfg: OptimizerConfig,
                          batch_size: int, n_batches: int,
+                         warmup: Tuple[int, int] = (0, 0),
+                         warmup_gamma: Tuple[int, int] = (0, 0),
                          frozen_modules: Tuple[str, ...] = ()):
     """``epoch(state, x, y, perm) -> (state, mean metrics)``: shuffles the
     arrays on the card, runs ``n_batches`` steps and returns the metrics'
     means over the epoch as tensors on the card (summed there in step
     order, as JAX's loop carry sums them; nothing waits for the card)."""
-    step = make_device_train_step(model, opt_cfg, batch_size, frozen_modules)
+    step = make_device_train_step(model, opt_cfg, batch_size, warmup,
+                                  warmup_gamma, frozen_modules)
 
     def epoch(state, data_x, data_y, perm):
         ex = torch.index_select(data_x, 0, perm)
@@ -155,12 +162,18 @@ def make_device_epoch_fn(model: CVNet, opt_cfg: OptimizerConfig,
 
 
 def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
-                           batch_size: int, seed: int = 0,
+                           batch_size: int,
+                           warmup=(0, 0), warmup_gamma=(0, 0),
+                           seed: int = 0,
+                           log_every: Optional[int] = None,
                            fused: bool = True) -> Dict[str, float]:
     """Train ``job.state`` for ``epochs`` epochs after ``job.trained`` over
     ``dataset`` held on the job's device; returns the last epoch's
-    metrics.  ``fused=True`` records epoch means; ``fused=False`` the last
-    batch's.  A set smaller than one batch trains nothing and returns {}."""
+    metrics.  ``warmup`` / ``warmup_gamma`` are the KL and cross-entropy
+    ramps ``(start, length)`` in epochs (``train/steps.py``); every
+    ``log_every`` epochs the epoch's total is printed.  ``fused=True``
+    records epoch means; ``fused=False`` the last batch's.  A set smaller
+    than one batch trains nothing and returns {}."""
     state = job.state
     model = state.model
     dev = state.device
@@ -171,9 +184,11 @@ def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
         return {}
     if fused:
         epoch_fn = make_device_epoch_fn(model, job.opt_cfg, batch_size,
-                                        steps_per_epoch, frozen)
+                                        steps_per_epoch, warmup, warmup_gamma,
+                                        frozen)
     else:
-        step = make_device_train_step(model, job.opt_cfg, batch_size, frozen)
+        step = make_device_train_step(model, job.opt_cfg, batch_size, warmup,
+                                      warmup_gamma, frozen)
     last: Dict[str, float] = {}
     first_epoch = job.trained
     for epoch in range(first_epoch, first_epoch + epochs):
@@ -192,4 +207,7 @@ def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
                            if k in model.cfg.loss_components},
             'lr': job.opt_cfg.lr_at_epoch(epoch)}
         job.train_history['epochs'] = epoch + 1
+        if log_every and (epoch + 1) % log_every == 0:
+            print('epoch {:4d}: total {:.4f}'.format(
+                epoch + 1, float(last.get('total', float('nan')))))
     return last

@@ -12,6 +12,7 @@ JAX package's, on the CPU and the tiny flagship.
 - ``train_epochs_on_device``, fused and per step: the history's keys and
   numbers within 1e-4 of JAX's run with the same ``fused``, a second call
   resuming from ``job.trained``, and a set smaller than a batch a no-op;
+  the warmup ramps and ``log_every`` as JAX's, in both modes;
 - ``train_model(device_data=True)`` against JAX's: history and weights
   within 1e-4; augmentation turns the device path off in both.
 A run fed from the card is compared with a run fed from the card: 8-bit
@@ -238,6 +239,45 @@ def test_train_epochs_on_device_matches_jax(tmp_path, monkeypatch, jax_perm,
     assert tdd.train_epochs_on_device(
         tjob, tloaders.ArrayDataset(x[:5], y[:5], 's'), 1, BATCH) == {}
     assert tjob.trained == 2 and tjob.state.step == 8
+
+
+@pytest.mark.parametrize('fused', [True, False])
+def test_train_epochs_on_device_warmup_matches_jax(tmp_path, monkeypatch,
+                                                  jax_perm, capsys, fused):
+    """The KL and cross-entropy warmup ramps over 3 epochs of 3 batches
+    (weights 1/3, 2/3, 1 and 0, 1/2, 1), with JAX's meaning of
+    (start, length); ``log_every=2`` prints epoch 2's total as JAX's
+    does."""
+    jjob = _jjob(jopt.OptimizerConfig(lr=2e-3))
+    d = str(tmp_path / 'job')
+    jjobs.save_job(jjob, d)
+    tjob = tjobs.load_job(d, device='cpu')
+    jcfg = jjob.model_cfg
+    eps = make_eps((jcfg.latent_sampling + 1, BATCH, jcfg.latent_dim))
+    inject_jax_eps(monkeypatch, eps)
+    _inject_port_eps(monkeypatch, eps)
+    x, y = _data(3 * BATCH, 8)
+    kw = dict(warmup=(0, 2), warmup_gamma=(1, 1), seed=3, log_every=2,
+              fused=fused)
+    capsys.readouterr()
+    want = jdd.train_epochs_on_device(
+        jjob, jloaders.ArrayDataset(x, y, 's'), 3, BATCH, **kw)
+    jout = capsys.readouterr().out.split()
+    got = tdd.train_epochs_on_device(
+        tjob, tloaders.ArrayDataset(x, y, 's'), 3, BATCH, **kw)
+    tout = capsys.readouterr().out.split()
+    assert tout[:3] == jout[:3] == ['epoch', '2:', 'total']
+    assert len(tout) == len(jout) == 4
+    np.testing.assert_allclose(float(tout[3]), float(jout[3]), atol=1e-4)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        close(got[k], v, TOL, k)
+    for e in (1, 2, 3):
+        _close_history(tjob.train_history[e], jjob.train_history[e],
+                       'history[{}]'.format(e))
+    got_w = state_dict_to_jax(tjob.model)
+    for k, v in jax_arrays(jjob.state).items():
+        close(got_w[k], v, TOL, k)
 
 
 def test_train_model_device_data_matches_jax(tmp_path, monkeypatch,

@@ -50,7 +50,12 @@ def test_clean_import_loads_no_jax():
             'joint_vae_tpu_torch.train.trainer, joint_vae_tpu_torch.cli.test, '
             'joint_vae_tpu_torch.cli.results, '
             'joint_vae_tpu_torch.save_load.fetch, '
-            'joint_vae_tpu_torch.results.tables; '
+            'joint_vae_tpu_torch.results.tables, '
+            'joint_vae_tpu_torch.ft, joint_vae_tpu_torch.ft.wim, '
+            'joint_vae_tpu_torch.ft.job, joint_vae_tpu_torch.ft.array, '
+            'joint_vae_tpu_torch.ft.poscod, joint_vae_tpu_torch.ft.datasets, '
+            'joint_vae_tpu_torch.ft.scheduler, joint_vae_tpu_torch.cli.ft, '
+            'joint_vae_tpu_torch.utils.inspection; '
             'bad = [m for m in sys.modules if m.split(".")[0] in {bad!r}]; '
             'print(bad); sys.exit(1 if bad else 0)').format(
                 root=ROOT, bad=FORBIDDEN)

@@ -418,3 +418,67 @@ def test_test_cli_rehard_on_card(tmp_path, cuda_device, monkeypatch):
                 worst = max(worst, err)
         walk(got, want)
     assert worst <= 1e-6
+
+
+@pytest.mark.cuda
+def test_wim_finetune_on_card(cuda_device):
+    """WIM fine-tuning on the full-width flagship: one both-prior
+    evaluation of 8 inputs at L=16 launches 16 convs and 1 combine (the
+    original prior only) and its losses and twins equal the CPU's within
+    1e-4 + 2e-6 |cpu|; then one fine-tune step on 8 in-distribution and 8
+    moving-set inputs launches the conv forward at 16 sites and its dx at
+    14 (both halves) and no combine, leaves the prior alone, and its
+    metrics equal the CPU's with the same noise (1e-4 relative).  The
+    evaluation comes first: after a step the weights differ by Adam's
+    rounding between the devices (chip_smoke.py's docstring)."""
+    import numpy as np
+    from joint_vae_tpu_torch.ft.wim import WIMJob
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.optimizers import build_optimizer
+    from joint_vae_tpu_torch.train.state import named_params
+    set_float32_math()
+    cfg = flagship_config()
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 1, (3, 8) + cfg.input_shape).astype(np.float32)
+    y = rng.integers(0, cfg.num_labels, 8)
+    eps = rng.standard_normal((cfg.latent_sampling + 1, 8, cfg.latent_dim)
+                              ).astype(np.float32)
+    eps_eval = rng.standard_normal((cfg.test_latent_sampling + 1, 8,
+                                    cfg.latent_dim)).astype(np.float32)
+    eps[0] = eps_eval[0] = 0.0
+    got = {}
+    for dev in (cuda_device, torch.device('cpu')):
+        job = new_job(cfg, seed=0, device=dev)
+        wim = WIMJob(job=job)
+        wim.set_alternate_prior(init_mean=8.0, num_priors=1, seed=7)
+        prior = {k: v.detach().clone() for k, v in job.model.prior().items()}
+        tx = build_optimizer(job.opt_cfg)
+        job.state.opt_state = tx.init(named_params(job.model))
+        t = lambda a: torch.from_numpy(a).to(dev)
+        same_grid_conv.launches = same_grid_conv_dx.launches = 0
+        iws_combine.launches = 0
+        _, _, losses, _ = wim.evaluate_on_both_priors(
+            t(x[2]), sigma_state=job.sigma_state, decode_mean=False,
+            eps=t(eps_eval))
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+            assert (same_grid_conv.launches, iws_combine.launches) == (16, 1)
+        same_grid_conv.launches = iws_combine.launches = 0
+        _, m = wim.finetune_batch(job.state, t(x[0]), t(y), t(x[1]), 0.1,
+                                  tx=tx, train_L=cfg.latent_sampling,
+                                  eps=t(eps))
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+            assert (same_grid_conv.launches, same_grid_conv_dx.launches,
+                    iws_combine.launches) == (16, 14, 0)
+        for k, v in job.model.prior().items():
+            assert torch.equal(v, prior[k]), k
+        got[dev.type] = ({k: v.item() for k, v in m.items()},
+                         {k: v.cpu() for k, v in losses.items()})
+    (m_gpu, l_gpu), (m_cpu, l_cpu) = got['cuda'], got['cpu']
+    for k in m_cpu:
+        assert abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * abs(m_cpu[k]), k
+    assert set(l_gpu) == set(l_cpu) and 'total@' in l_cpu
+    for k in l_cpu:
+        torch.testing.assert_close(l_gpu[k], l_cpu[k], rtol=2e-6, atol=1e-4)

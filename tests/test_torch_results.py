@@ -250,3 +250,25 @@ def test_textab_render_equal():
 def test_empty_fleet():
     assert ttables.results_dataframe([]).empty
     assert ttexify.texify_test_results_df(ttables.results_dataframe([])) == ''
+
+
+@pytest.mark.parametrize('missing', ['beta', 'set'])
+def test_duplicate_rows_with_missing_index_cells(tmp_path, missing):
+    """A row listed twice (``--all-epochs``) with a missing index cell:
+    pandas gives a missing float-level cell (beta) a fresh NaN, so the two
+    rows get lines of their own, and a missing string-level cell (set) the
+    shared ``np.nan``, so they share one; the port's files must match."""
+    base = {'job': 1, 'type': 'cvae', 'set': 'mnist', 'arch_code': 'a1',
+            'sigma_train': 'constant', 'beta': 1.0, 'gamma': 100.0,
+            'latent_dim': 16, 'features': 'none', 'encoder': '512',
+            'decoder': '512', 'upsampler': 'none', 'classifier': 'none',
+            'prior': 'gaussian', 'depth': 2, 'width': 1024, 'sigma': 0.1,
+            'latent_sampling': 1, 'optim': 'adam', 'lr': 1e-4,
+            'batch_size': 128, 'done': 0, 'epochs': 10, 'finished': False}
+    first = dict(base, **{missing: None})
+    models = [first] + [dict(base, job=j) for j in (2, 3)] + [dict(first)]
+    for sort in (False, True):
+        df = jtables.results_dataframe(models, sort_index=sort)
+        f = ttables.results_dataframe(models, sort_index=sort)
+        assert_frame_equal(f, df)
+        _write_both(f, df, str(tmp_path), 'dup', False)
