@@ -155,9 +155,41 @@ Phases, any failure raising (nonzero exit):
    of those ``finetune`` saved); ``cli.ft --poscod`` (8 conv per batch,
    no combine; the head reloads); 10 fine-tuning steps timed after 3
    warm-up ones, fed from the host, and one profiled (``wim`` line);
-10. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
-   phase 8's recompute; ``launches_wim_ft``: phase 9's first run);
-11. print ``{"ok": true, "device": {...}}`` as the last line.
+10. trunks and drivers: the ResNet flagship (the flagship with
+   ``features='resnet18'``: full width 64, 11,176,512 trunk parameters on
+   cuDNN, the decoder's 6 same-grid sites) trained as phase 5 trains the
+   flagship (``train_model`` for 16 batches of 1024, ``save_job`` /
+   ``load_job`` with the BatchNorm statistics compared exactly, 6 forward
+   and 6 dx launches per step and 6 forward per eval batch, 10 timed
+   steps and one profiled, the trunk's cuDNN time apart from the conv
+   kernel's; card against CPU at batch 64: 3 steps' losses, the first
+   step's gradients and the running statistics after the steps
+   reported),
+   card against CPU on 8 inputs (every loss and score at
+   the serving tolerance), ``Scorer`` on 4 batches of 512 at L=16 (6 conv
+   and 1 combine launches per batch); ``resnet50`` and ``densenet121`` at
+   full width, one forward of 8 images card against CPU in the conv's
+   form; then the drivers over
+   phase 6's flagship (job 1) and the ResNet flagship (job 2), cifar100's
+   10,000-image test split: ``cli.sample`` (``--grids reco gen zsample
+   --compare 2``; its launches those of its evaluate calls, counted, plus
+   the generation grid's decode), ``cli.aggregate`` (``--combos 1 2
+   --record``, the record and OOD sets cut to phase 6's cifar10, svhn and
+   lsunc: 8 conv and 1 combine per batch of the flagship, 6 and 1 of the
+   ResNet flagship, 160 batches each), ``cli.cascade`` flagship -> ResNet
+   with ``--record`` (512 images: 28 conv, 4 combine),
+   ``results.mutual_info`` on both record dirs (no launch) and
+   ``cli.grid --run`` on a two-combination section of the ResNet
+   flagship's flags with ``--pretrained-features`` on its job (beta 1e-4
+   and 1e-3, one epoch on 2,048 images each: two ``cli.train``
+   subprocesses; both jobs loaded, each with the trunk bit-equal to the
+   donor's after training, every other trainable tensor moved and the
+   untrainable ones kept) (``resnet`` and ``drivers`` lines);
+11. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+   phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
+   ``launches_resnet_step``, ``launches_resnet_serve`` and
+   ``launches_drivers``: phase 10's);
+12. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -192,6 +224,22 @@ weight by about lr whatever the size of its gradient, so a gradient that
 is zero to rounding may move one way on the card and the other on the
 CPU.
 
+Phase 10's ResNet flagship: the serving tolerance on every loss and
+score; in training, at batch 64 (batch statistics over 8 values at the
+trunk's 1x1 maps make a step chaotic, tests/test_torch_resnet.py), the
+3 steps' losses to 1e-4 relative.  Its first-step gradients (by their
+rms-relative error) and its BatchNorm running statistics after the
+steps (in the form |card - cpu| / (|cpu| + rms(cpu))) are reported and
+not gated: in training mode cuDNN's float32 backward through the trunk
+lies up to 4.96e-3 (rms-relative) from float64 on resnet18's full width
+where the CPU's float32 lies within 7.1e-6 (in inference mode within
+4.6e-6: training-mode BatchNorm amplifies it; scripts/
+time_torch_trunk_grads.py on the H100, ROADMAP Queue 3), a ReLU flip in the
+dense encoder moves 1/64 of a weight gradient's column, and the
+statistics after the steps follow the weights those gradients moved.
+The trunks alone (resnet50, densenet121) in inference: the conv form at
+1e-4.
+
 bfloat16 (phase 7).  The conv and its dx in the conv's form at 1.6e-2;
 the weight gradient, summed in float32 and rounded once, within
 2^-8 |want| + 1e-4 rms(want) of the float64 sum of the same inputs.  A
@@ -208,6 +256,7 @@ inputs.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -243,6 +292,7 @@ TRAIN_LR = 1e-4                           # bench.py:100
 GATE_BATCH, GATE_STEPS = 8, 3
 GRAD_TOL, TRAIN_LOSS_RTOL = 1e-4, 1e-4
 GRAD_FLIP_TOL, GRAD_FLIP_SHARE = 5e-2, 1.0 / 16
+BN_STATS_RTOL = 1e-5
 # the backward spans of SameGridConvFn (record_function)
 SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw')
 METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
@@ -1084,22 +1134,32 @@ def check_grads(grads: dict) -> tuple:
     return worst, loose
 
 
-def train_gate(cfg) -> dict:
-    """The full-width flagship at batch 8 from one init (a numpy seed),
-    with the same batch and the same injected noise, on the card and on
-    the CPU: the first step's gradients per tensor, then the losses of 3
-    steps."""
+def _rms_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False) -> dict:
+    """The full-width model of ``cfg`` at ``batch`` from one init (a
+    numpy seed), with the same batch and the same injected noise, on the
+    card and on the CPU: the first step's gradients per tensor, then the
+    losses of 3 steps and, for a model with BatchNorm, its running
+    statistics after them.  ``trunk`` (a model with a cuDNN trunk): the
+    gradients are reported by their rms-relative error, the trunk's and
+    the rest's apart, and so are the statistics after the steps, which
+    the gradients move; neither is gated (TRUNK_GRAD_NOTE); the losses
+    are."""
     from joint_vae_tpu_torch.models.evaluate import evaluate
     from joint_vae_tpu_torch.save_load.jobs import new_job
     from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
     from joint_vae_tpu_torch.train.steps import make_train_step
     rng = np.random.default_rng(5)
-    x = rng.uniform(0, 1, (GATE_BATCH,) + cfg.input_shape).astype(np.float32)
-    y = rng.integers(0, cfg.num_labels, GATE_BATCH).astype(np.int64)
-    eps = rng.standard_normal((cfg.latent_sampling + 1, GATE_BATCH,
+    x = rng.uniform(0, 1, (batch,) + cfg.input_shape).astype(np.float32)
+    y = rng.integers(0, cfg.num_labels, batch).astype(np.int64)
+    eps = rng.standard_normal((cfg.latent_sampling + 1, batch,
                                cfg.latent_dim)).astype(np.float32)
     eps[0] = 0.0
-    grads, losses = {}, {}
+    grads, losses, stats = {}, {}, {}
+    relu0_min = None
     for dev in ('cuda', 'cpu'):
         job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=1, device=dev)
         xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
@@ -1111,7 +1171,8 @@ def train_gate(cfg) -> dict:
                                   list(params.values()), allow_unused=True)
         grads[dev] = {k: (torch.zeros_like(p) if g is None else g).cpu()
                       for (k, p), g in zip(params.items(), got)}
-        if dev == 'cpu':         # the features' first ReLU input nearest 0
+        if dev == 'cpu' and hasattr(job.model.features_stack, 'conv_0'):
+            # the conv features' first ReLU input nearest 0
             with torch.no_grad():
                 relu0_min = job.model.features_stack.conv_0(
                     xt.permute(0, 2, 3, 1).contiguous()).abs().min().item()
@@ -1121,23 +1182,53 @@ def train_gate(cfg) -> dict:
             state, m = step(state, xt, yt, eps=et)
             seq.append(m['total'].item())
         losses[dev] = seq
-    worst, loose = check_grads(grads)
+        stats[dev] = {k: v.cpu() for k, v in job.model.named_buffers()
+                      if k.endswith(('running_mean', 'running_var'))}
+    res = {'batch': batch, 'steps': GATE_STEPS}
+    if trunk:
+        errs = {k: _rms_rel(grads['cuda'][k], want)
+                for k, want in grads['cpu'].items()}
+        for part, keep in (('trunk', True), ('rest', False)):
+            e = {k: v for k, v in errs.items()
+                 if k.startswith('features_stack.') == keep}
+            res['grad_rms_rel_err_' + part] = {
+                'max': max(e.values()), 'median': float(np.median(
+                    list(e.values()))),
+                'top': sorted(e.items(), key=lambda kv: -kv[1])[:4]}
+        res['grads_not_gated'] = TRUNK_GRAD_NOTE
+    else:
+        (res['grad_worst_err_over_abs_plus_rms'],
+         res['grad_beyond_strict_tol']) = check_grads(grads)
     np.testing.assert_allclose(losses['cuda'], losses['cpu'],
                                rtol=TRAIN_LOSS_RTOL, atol=0,
                                err_msg='card vs CPU train losses')
-    return {'batch': GATE_BATCH, 'steps': GATE_STEPS,
-            'grad_worst_err_over_abs_plus_rms': worst,
-            'grad_beyond_strict_tol': loose,
-            'conv_0_relu_input_nearest_zero': relu0_min,
-            'losses_cuda': losses['cuda'], 'losses_cpu': losses['cpu'],
-            'loss_worst_rel_err': max(abs(a - b) / abs(b) for a, b in
-                                      zip(losses['cuda'], losses['cpu']))}
+    bn_worst = 0.0
+    for k, want in stats['cpu'].items():
+        rms = want.square().mean().sqrt().item()
+        bn_worst = max(bn_worst, ((stats['cuda'][k] - want).abs()
+                                  / (want.abs() + rms + 1e-30)).max().item())
+    if bn_worst > BN_STATS_RTOL and not trunk:
+        raise AssertionError('card vs CPU BatchNorm statistics: {} relative'
+                             .format(bn_worst))
+    res.update({'conv_0_relu_input_nearest_zero': relu0_min,
+                'bn_stats': len(stats['cpu']),
+                'bn_stats_worst_rel_err': bn_worst,
+                'losses_cuda': losses['cuda'], 'losses_cpu': losses['cpu'],
+                'loss_worst_rel_err': max(abs(a - b) / abs(b) for a, b in
+                                          zip(losses['cuda'], losses['cpu']))})
+    return res
 
 
-def train(card: str):
-    """Phase 5: the full-width flagship trained through new_job,
-    train_model, save_job and load_job; then timed steps, a profile and
-    the card vs CPU gate."""
+def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
+          dx: int = DX_PER_STEP, name: str = 'train',
+          gate_batch: int = GATE_BATCH, gate_trunk: bool = False):
+    """Phase 5: the full-width flagship (or ``cfg``, whose forward
+    launches the conv ``sites`` times and its input gradient ``dx`` times
+    per step) trained through new_job, train_model, save_job and
+    load_job, weights, BatchNorm statistics and optimizer state compared;
+    then timed steps, a profile and the card vs CPU gate at
+    ``gate_batch``.  Returns the main path's launches, the summary and
+    the job."""
     from joint_vae_tpu_torch.data.loaders import ArrayDataset, DataLoader
     from joint_vae_tpu_torch.models.cvnet import flagship_config
     from joint_vae_tpu_torch.ops.iws import iws_combine
@@ -1150,7 +1241,7 @@ def train(card: str):
     from joint_vae_tpu_torch.train.trainer import train_model
     from joint_vae_tpu_torch.utils.print_log import EpochOutput
 
-    cfg = flagship_config()
+    cfg = cfg or flagship_config()
     rng = np.random.default_rng(7)
     n = TRAIN_BATCH * TRAIN_BATCHES + TRAIN_VALIDATION
     trainset = ArrayDataset(
@@ -1159,7 +1250,7 @@ def train(card: str):
     testset = ArrayDataset(
         rng.uniform(0, 1, (TRAIN_TEST,) + cfg.input_shape).astype(np.float32),
         rng.integers(0, cfg.num_labels, TRAIN_TEST), 'synthetic')
-    job_dir = os.path.join(WORK, 'train_job')
+    job_dir = os.path.join(WORK, name + '_job')
     job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=0)   # on the card
 
     same_grid_conv.launches = 0
@@ -1178,8 +1269,8 @@ def train(card: str):
                 'iws_combine': iws_combine.launches}
     # --- end of the main path ---
     eval_batches = 2 * (TRAIN_TEST // TRAIN_TEST_BATCH)   # validation + test
-    want = {'same_grid_conv': SITES_PER_BATCH * (TRAIN_BATCHES + eval_batches),
-            'same_grid_conv_dx': DX_PER_STEP * TRAIN_BATCHES,
+    want = {'same_grid_conv': sites * (TRAIN_BATCHES + eval_batches),
+            'same_grid_conv_dx': dx * TRAIN_BATCHES,
             'iws_combine': 0}
     if launches != want:
         raise AssertionError('train launch counts {}, expected {}'.format(
@@ -1242,8 +1333,8 @@ def train(card: str):
     timed_s = time.perf_counter() - t0
     timed_launches = {'same_grid_conv': same_grid_conv.launches,
                       'same_grid_conv_dx': same_grid_conv_dx.launches}
-    if timed_launches != {'same_grid_conv': SITES_PER_BATCH * TRAIN_TIMED,
-                          'same_grid_conv_dx': DX_PER_STEP * TRAIN_TIMED}:
+    if timed_launches != {'same_grid_conv': sites * TRAIN_TIMED,
+                          'same_grid_conv_dx': dx * TRAIN_TIMED}:
         raise AssertionError('timed steps launched {}'.format(timed_launches))
     got = pull_metrics(pending)
     if not all(np.isfinite(list(r.values())).all() for r in got):
@@ -1256,7 +1347,7 @@ def train(card: str):
     xb, yb = next(batches)
     breakdown = profile_train_step(step, state, to_device(xb, dev),
                                    to_device(yb, dev))
-    gate = train_gate(cfg)
+    gate = train_gate(cfg, gate_batch, gate_trunk)
     summary = {'batch': TRAIN_BATCH, 'epoch_batches': TRAIN_BATCHES,
                'epoch_seconds': epoch_s,
                'epoch_images_per_s': TRAIN_BATCH * TRAIN_BATCHES / epoch_s,
@@ -1270,8 +1361,8 @@ def train(card: str):
                'history': {k: hist[k] for k in ('train_loss', 'lr')},
                'last_metrics': got[-1], 'profile': breakdown,
                'card_vs_cpu': gate, 'card': card}
-    print('train', json.dumps(summary), flush=True)
-    return launches, summary
+    print(name, json.dumps(summary), flush=True)
+    return launches, summary, job
 
 
 def _eval_bucket(name: str) -> str:
@@ -2866,6 +2957,397 @@ def wim_finetune(card: str) -> tuple:
     return runs['ft']['launches'], poscod_launches, summary
 
 
+# phase 10: trunks and drivers.  The ResNet flagship is the flagship with
+# features='resnet18' (full width 64): its trunk's convs are cuDNN, so
+# the same-grid conv runs at the decoder's six sites (deconv32: two
+# stride-1 deconvs, two sub-pixel deconvs, the head; its 1x1 expansion
+# is a matmul) and its input gradient at the same six per train step.
+RESNET_SITES, RESNET_DX = 6, 6
+# batch statistics over 8 values at the trunk's 1x1 maps make a training
+# step chaotic in float32 (tests/test_torch_resnet.py); the gate takes 64
+RESNET_GATE_BATCH = 64
+TRUNK_GRAD_NOTE = ('cuDNN float32 backward through the trunk, amplified '
+                   'by training-mode BatchNorm (ROADMAP Queue 3; scripts/'
+                   'time_torch_trunk_grads.py), and ReLU flips of the '
+                   'dense encoder at batch 64')
+TRUNK_ARCHS = ('resnet50', 'densenet121')
+DRIVER_SETS = ('cifar10', 'svhn', 'lsunc')     # phase 6's OOD sets
+
+
+def resnet_config():
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    return dataclasses.replace(flagship_config(), features='resnet18')
+
+
+def _sites(cfg) -> int:
+    """Same-grid launches of one evaluate of a flagship-shaped model."""
+    return RESNET_SITES if cfg.features.startswith('resnet') else SITES_PER_BATCH
+
+
+def resnet_serve_gate(job_dir: str) -> dict:
+    """Card against CPU on 8 inputs with injected noise: every per-class
+    loss and every Scorer score at the serving tolerance."""
+    from joint_vae_tpu_torch.models.evaluate import evaluate
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.serve import Scorer
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        j = load_job(job_dir, device=dev)
+        cfg = j.model_cfg
+        rng = np.random.default_rng(11)
+        x8 = rng.uniform(0, 1, (8,) + cfg.input_shape).astype(np.float32)
+        eps = rng.standard_normal((cfg.test_latent_sampling + 1, 8,
+                                   cfg.latent_dim)).astype(np.float32)
+        eps[0] = 0.0
+        out = evaluate(j.model, torch.as_tensor(x8, device=j.device), None,
+                       sigma_state=j.sigma_state, eps=torch.as_tensor(eps),
+                       decode_mean=False)
+        sc = Scorer(j, methods=METHODS,
+                    thresholds={m: float('-inf') for m in METHODS})(
+                        x8, eps=torch.as_tensor(eps))
+        res[dev] = dict({'loss ' + k: v.cpu().numpy()
+                         for k, v in out.losses.items()},
+                        **{'score ' + m: sc['scores'][m] for m in METHODS})
+    worst = {}
+    for k, want in res['cpu'].items():
+        got = res['cuda'][k]
+        worst[k] = float(np.max(np.abs(got.astype(np.float64) - want)
+                                / np.maximum(np.abs(want), 1e-30)))
+        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL,
+                                   atol=SERVE_ATOL,
+                                   err_msg='ResNet card vs CPU, ' + k)
+    return worst
+
+
+def resnet_scorer(job) -> dict:
+    """The ResNet flagship through ``Scorer`` on BATCHES batches of 512 at
+    L=16: 6 conv and 1 combine launches per batch."""
+    from joint_vae_tpu_torch.serve import Scorer
+    cfg = job.model_cfg
+    xs = np.random.default_rng(12).uniform(
+        0, 1, (BATCHES + 1, BATCH) + cfg.input_shape).astype(np.float32)
+    scorer = Scorer(job, methods=METHODS,
+                    thresholds={m: float('-inf') for m in METHODS})
+    scorer(xs[0])                                 # meets its shapes first
+    torch.cuda.synchronize()
+    _count_reset()
+    # --- the main path: Scorer batches ---
+    t0 = time.perf_counter()
+    outs = [scorer(xs[1 + b]) for b in range(BATCHES)]
+    serve_s = time.perf_counter() - t0
+    launches = _counts()
+    # --- end of the main path ---
+    if launches != {'same_grid_conv': RESNET_SITES * BATCHES,
+                    'same_grid_conv_dx': 0, 'iws_combine': BATCHES}:
+        raise AssertionError('ResNet Scorer launches {}'.format(launches))
+    for o in outs:
+        for m in METHODS:
+            if not np.all(np.isfinite(o['scores'][m])):
+                raise AssertionError('ResNet Scorer: non-finite {}'.format(m))
+    return {'launches': launches, 'serve_seconds': serve_s,
+            'serve_images_per_s': BATCH * BATCHES / serve_s}
+
+
+def trunk_card_vs_cpu(arch: str) -> dict:
+    """One inference forward of a full-width trunk (random weights and
+    BatchNorm statistics from a numpy seed) on 8 images, card against
+    CPU in the conv's form: |card - cpu| <= 1e-4 (|cpu| + rms(cpu))."""
+    from joint_vae_tpu_torch.models.resnet import build_trunk
+    trunk = build_trunk(arch, (3, 32, 32))
+    rng = np.random.default_rng(13)
+    with torch.no_grad():
+        for name, t in trunk.state_dict().items():
+            if name.endswith('running_var'):
+                v = rng.uniform(0.5, 1.5, t.shape)
+            elif name.endswith('running_mean') or name.endswith('bias'):
+                v = 0.1 * rng.standard_normal(t.shape)
+            elif t.ndim == 4:
+                v = rng.standard_normal(t.shape) / np.sqrt(np.prod(t.shape[1:]))
+            else:
+                v = 1.0 + 0.1 * rng.standard_normal(t.shape)
+            t.copy_(torch.from_numpy(v))
+    x = torch.from_numpy(rng.uniform(0, 1, (8, 3, 32, 32)).astype(np.float32))
+    with torch.no_grad():
+        want = trunk(x)
+        got = trunk.to('cuda')(x.to('cuda')).cpu()
+    rms = want.square().mean().sqrt().item()
+    worst = ((got - want).abs() / (want.abs() + rms)).max().item()
+    if worst > CONV_TOL[torch.float32]:
+        raise AssertionError('{} card vs CPU: {}'.format(arch, worst))
+    return {'output': list(want.shape[1:]),
+            'params': sum(p.numel() for p in trunk.parameters()),
+            'worst_err_over_abs_plus_rms': worst}
+
+
+def transfer_checks(job, donor_dir: str) -> dict:
+    """A job trained with ``--pretrained-features <ResNet job>``: it
+    records the trunk frozen, its trunk parameters equal the donor's bit
+    for bit after training, every other trainable tensor moved from its
+    initial value (the seed-0 init) and the untrainable ones did not."""
+    from joint_vae_tpu_torch.save_load.checkpoint import load_arrays
+    from joint_vae_tpu_torch.save_load.from_jax import (param_paths,
+                                                        state_dict_to_jax)
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.state import grad_mask
+    tp = job.training_parameters
+    if (tp.get('frozen_modules') != ['features_stack'] or job.trained != 1
+            or tp.get('pretrained_features') != donor_dir):
+        raise AssertionError('transfer job: {}'.format(
+            {k: tp.get(k) for k in ('frozen_modules', 'pretrained_features')}))
+    got = state_dict_to_jax(job.model)
+    donor = load_arrays(os.path.join(donor_dir, 'state.npz'))
+    init = state_dict_to_jax(new_job(job.model_cfg, seed=0, device='cpu').model)
+    mask = grad_mask(job.model)
+    trunk, trainable, fixed = [], [], []
+    for name, path in param_paths(job.model).items():
+        k = 'params/' + path
+        (trunk if path.startswith('features_stack/') else
+         trainable if mask[name] else fixed).append(k)
+    if not trunk or not all(np.array_equal(got[k], donor[k]) for k in trunk):
+        raise AssertionError('the transferred trunk moved')
+    if (not all(not np.array_equal(got[k], init[k]) for k in trainable)
+            or not all(np.array_equal(got[k], init[k]) for k in fixed)):
+        raise AssertionError('transfer job: a trainable tensor did not move '
+                             'or an untrainable one did')
+    return {'trunk_tensors_equal': len(trunk),
+            'trainable_tensors_moved': len(trainable),
+            'untrainable_tensors_kept': len(fixed)}
+
+
+def _driver_store(flagship_dir: str, resnet_dir: str) -> str:
+    """A job store holding phase 6's flagship (job 1) and the ResNet
+    flagship (job 2), both naming cifar100."""
+    from joint_vae_tpu_torch.save_load.jobs import load_job, save_job
+    store = os.path.join(WORK, 'driver_jobs')
+    shutil.rmtree(store, ignore_errors=True)
+    for n, src, name in ((1, flagship_dir, 'flagship'),
+                         (2, resnet_dir, 'resnet')):
+        d = os.path.join(store, 'cifar100', name, '{:06d}'.format(n))
+        shutil.copytree(src, d, ignore=shutil.ignore_patterns('samples'))
+        j = load_job(d, ghost=True)
+        j.job_number = n
+        j.training_parameters['set'] = 'cifar100'
+        save_job(j, d, save_state=False)
+    return store
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output captured; (result, text)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def drivers(store: str, resnet_dir: str) -> tuple:
+    """The analysis drivers on the card over phase 6's flagship (job 1)
+    and the ResNet flagship (job 2, trained in ``resnet_dir``), launches
+    counted per tool; the grid's trainings transfer the ResNet flagship's
+    trunk (``--pretrained-features``)."""
+    from joint_vae_tpu_torch.cli import aggregate as agg_cli
+    from joint_vae_tpu_torch.cli import cascade as cascade_cli
+    from joint_vae_tpu_torch.cli import grid as grid_cli
+    from joint_vae_tpu_torch.cli import sample as sample_cli
+    from joint_vae_tpu_torch.data.registry import get_same_size_by_name
+    from joint_vae_tpu_torch.evals import sample as sample_mod
+    from joint_vae_tpu_torch.results import mutual_info
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.save_load.recorders import LossRecorder, find_record
+    out, launches = {}, {}
+    n_test = OOD_SET_SIZE
+    batches = -(-n_test // OOD_BATCH)
+
+    # sample: its evaluate calls counted by model, each launching the
+    # model's sites and one combine; the generation grid decodes once
+    calls = []
+    real = sample_mod.evaluate
+    sample_mod.evaluate = lambda model, *a, **k: (
+        calls.append(_sites(model.cfg)) or real(model, *a, **k))
+    try:
+        _count_reset()
+        t0 = time.perf_counter()
+        rc, text = _quiet(sample_cli.main, ['1', '--job-dir', store, '--grids',
+                                            'reco', 'gen', 'zsample',
+                                            '--compare', '2'])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches['sample'] = _counts()
+    finally:
+        sample_mod.evaluate = real
+    want = {'same_grid_conv': sum(calls) + RESNET_SITES,
+            'same_grid_conv_dx': 0, 'iws_combine': len(calls)}
+    if rc != 0 or launches['sample'] != want:
+        raise AssertionError('sample: rc {}, launches {}, want {}'.format(
+            rc, launches['sample'], want))
+    grids = os.path.join(_job_dirs(store)[0], 'samples', 'grids')
+    with np.load(os.path.join(grids, 'generation.npz')) as z:
+        gen = z['x']
+    with np.load(os.path.join(grids, 'comparison.npz')) as z:
+        recos, mse = z['recos'], z['mse']
+    with np.load(os.path.join(grids, 'reco-cifar100.npz')) as z:
+        reco = {k: z[k] for k in z.files}
+    if (gen.shape != (100, 8, 3, 32, 32) or recos.shape != (2, 8, 3, 32, 32)
+            or mse.shape != (2, 2) or reco['samples'].shape != (8, 8, 3, 32, 32)
+            or not all(np.all(np.isfinite(a)) for a in
+                       (gen, recos, mse, reco['mean'], reco['average']))):
+        raise AssertionError('sample: bad grids')
+    images = 8 * len(calls)
+    out['sample'] = {'seconds': seconds, 'evaluate_calls': len(calls),
+                     'launches': launches['sample'],
+                     'comparison_mse': mse.tolist()}
+
+    # aggregate: both jobs over the test set, its record sets and its OOD
+    # sets, batch 512; 6 or 8 conv and 1 combine per batch per job
+    exclude = [s for s in get_same_size_by_name('cifar100')
+               if s not in DRIVER_SETS]
+    _count_reset()
+    t0 = time.perf_counter()
+    rc, text = _quiet(agg_cli.main, ['1', '2', '--job-dir', store, '--combos',
+                                     '1', '2', '--record', '--batch-size',
+                                     str(OOD_BATCH), '--sets-to-exclude']
+                      + exclude)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches['aggregate'] = _counts()
+    per_job = batches * (1 + (1 + len(DRIVER_SETS)) + len(DRIVER_SETS))
+    want = {'same_grid_conv': per_job * (SITES_PER_BATCH + RESNET_SITES),
+            'same_grid_conv_dx': 0, 'iws_combine': 2 * per_job}
+    rows = [ln for ln in text.splitlines()
+            if ln.startswith(('job ', 'ensemble ', 'combo ', 'ood '))]
+    pcts = [float(ln.rsplit(' ', 1)[1].rstrip('%')) for ln in rows]
+    if (rc != 0 or launches['aggregate'] != want
+            or len(rows) != 2 + 4 + 2 + 4 + 4 * len(DRIVER_SETS)
+            or not all(0 <= p <= 100 for p in pcts)):
+        raise AssertionError('aggregate: rc {}, launches {}, want {}, rows '
+                             '{}'.format(rc, launches['aggregate'], want, rows))
+    rec_dir = os.path.join(store, 'cifar100', '1|2')
+    for s in ('cifar100',) + DRIVER_SETS:
+        r = LossRecorder.load(find_record(rec_dir, s))
+        if (r.recorded_samples != n_test
+                or not np.all(np.isfinite(r.get('Im-1')))):
+            raise AssertionError('aggregate record {}'.format(s))
+    out['aggregate'] = {'seconds': seconds, 'launches': launches['aggregate'],
+                        'image_evaluations': 2 * per_job * n_test // batches,
+                        'rows': rows[:8]}
+    out['aggregate']['images_per_s'] = (2 * n_test * (per_job // batches)
+                                        / seconds)
+
+    # cascade flagship -> ResNet on 512 test images, with --record
+    _count_reset()
+    t0 = time.perf_counter()
+    rc, text = _quiet(cascade_cli.main, ['1', '2', '--job-dir', store,
+                                         '--record'])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches['cascade'] = _counts()
+    want = {'same_grid_conv': 2 * (SITES_PER_BATCH + RESNET_SITES),
+            'same_grid_conv_dx': 0, 'iws_combine': 4}
+    if rc != 0 or launches['cascade'] != want or 'bayes-iterated' not in text:
+        raise AssertionError('cascade: rc {}, launches {}, want {}'.format(
+            rc, launches['cascade'], want))
+    with open(os.path.join(_job_dirs(store)[0], 'samples', 'cascade',
+                           'cascade.json')) as f:
+        report = json.load(f)
+    if report['n'] != OOD_BATCH or not np.all(np.isfinite(report['im_t'])):
+        raise AssertionError('cascade report {}'.format(report))
+    out['cascade'] = {'seconds': seconds, 'launches': launches['cascade'],
+                      'images_per_s': 4 * OOD_BATCH / seconds,
+                      'stages': report['stages']}
+
+    # the Im(T) tables from both record dirs: host only
+    _count_reset()
+    t0 = time.perf_counter()
+    rc, text = _quiet(mutual_info.main, [rec_dir, os.path.join(
+        store, 'cifar100', '1-2')])
+    seconds = time.perf_counter() - t0
+    launches['mutual_info'] = _counts()
+    if (rc != 0 or text.count('Im[ok]') != 2
+            or any(launches['mutual_info'].values())):
+        raise AssertionError('mutual_info: rc {}, launches {}'.format(
+            rc, launches['mutual_info']))
+    out['mutual_info'] = {'seconds': seconds, 'launches': launches['mutual_info']}
+
+    # grid --run: two one-epoch trainings of the ResNet flagship with its
+    # trunk transferred from job 2 (cli.train --pretrained-features), in
+    # subprocesses
+    grid_jobs = os.path.join(WORK, 'grid_jobs')
+    shutil.rmtree(grid_jobs, ignore_errors=True)
+    ini = os.path.join(WORK, 'grid.ini')
+    with open(ini, 'w') as f:
+        f.write('[resnet-beta]\n' + ''.join('{} = {}\n'.format(k, v) for k, v in (
+            ('dataset', 'cifar100'), ('type', 'cvae'), ('features', 'resnet18'),
+            ('upsampler', 'deconv32'), ('latent-dim', 128),
+            ('encoder', 512), ('decoder', 512), ('classifier', ''),
+            ('gamma', 500), ('beta', '1e-4 1e-3'), ('sigma', 0.1),
+            ('latent-sampling', 1), ('test-latent-sampling', 16),
+            ('prior', 'gaussian'), ('prior-means', 17),
+            ('learned-prior-means', 'true'), ('lr', '1e-4'), ('epochs', 1),
+            ('batch-size', 256), ('test-batch-size', 512),
+            ('dataset-size', CLI_SIZE), ('oodsets', ''),
+            ('no-final-ood', 'true'), ('pretrained-features', resnet_dir),
+            ('job-dir', grid_jobs))))
+    t0 = time.perf_counter()
+    with contextlib.chdir(ROOT):
+        rc, text = _quiet(grid_cli.main, [ini, '--run'])
+    seconds = time.perf_counter() - t0
+    done = [load_job(d) for d in _job_dirs(grid_jobs)]
+    betas = sorted(j.model_cfg.beta for j in done)
+    if (rc != 0 or betas != [1e-4, 1e-3] or any(j.trained != 1 for j in done)
+            or 'joint_vae_tpu_torch.cli.train' not in text):
+        raise AssertionError('grid --run: rc {}, betas {}'.format(rc, betas))
+    out['grid'] = {'seconds': seconds, 'jobs': len(done),
+                   'images_per_s': 2 * CLI_SIZE / seconds,
+                   'transfer': [transfer_checks(j, resnet_dir) for j in done],
+                   'note': 'two train CLIs in subprocesses; their launches '
+                           'are not counted here'}
+    out['sample']['images_per_s'] = images / out['sample']['seconds']
+    return launches, out
+
+
+def trunks_and_drivers(card: str) -> tuple:
+    """Phase 10: the ResNet flagship trained, served and checked against
+    the CPU; resnet50 and densenet121 on the card; pretrained transfer
+    through the train CLI; the analysis drivers over phase 6's flagship
+    and the ResNet flagship."""
+    t_phase = time.perf_counter()
+    cfg = resnet_config()
+    train_launches, summary, job = train(
+        card, cfg=cfg, sites=RESNET_SITES, dx=RESNET_DX, name='resnet_train',
+        gate_batch=RESNET_GATE_BATCH, gate_trunk=True)
+    resnet_dir = os.path.join(WORK, 'resnet_train_job')
+    serve_gate = resnet_serve_gate(resnet_dir)
+    serve = resnet_scorer(job)
+    trunks = {arch: trunk_card_vs_cpu(arch) for arch in TRUNK_ARCHS}
+    store = _driver_store(os.path.join(WORK, 'flagship_job'), resnet_dir)
+    driver_launches, tools = drivers(store, resnet_dir)
+    prof = summary['profile']
+    resnet = {'trunk_params': sum(p.numel() for p in
+                                  job.model.features_stack.parameters()),
+              'ms_per_step': summary['ms_per_step'],
+              'train_images_per_s': summary['train_images_per_s'],
+              'serve_images_per_s': serve['serve_images_per_s'],
+              'device_busy_share': prof['device_busy_share'],
+              'step_device_ms': prof['device_ms'],
+              'trunk_cudnn_ms': prof['by_name_ms'].get('cudnn'),
+              'same_grid_kernel_ms': prof['by_name_ms'].get('same_grid_kernel'),
+              'by_span_ms': prof['by_span_ms'],
+              'launches_step': train_launches,
+              'launches_serve': serve['launches'],
+              'serve_card_vs_cpu_worst_rel': max(serve_gate.values()),
+              'train_card_vs_cpu': summary['card_vs_cpu'],
+              'trunks': trunks, 'card': card}
+    print('resnet', json.dumps(resnet), flush=True)
+    phase_s = time.perf_counter() - t_phase
+    line = {'phase_seconds': phase_s, 'test_set': OOD_SET_SIZE,
+            'aggregate_sets': ['cifar100'] + list(DRIVER_SETS),
+            'cut': 'aggregate records and scores cifar100 and phase 6\'s '
+                   'three OOD sets, not all 14 companions', 'card': card}
+    line.update(tools)
+    print('drivers', json.dumps(line), flush=True)
+    return train_launches, serve['launches'], driver_launches, resnet, line
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -2874,6 +3356,8 @@ def main():
     from joint_vae_tpu_torch.ops import cuda_lib
 
     set_float32_math()
+    t_start = time.perf_counter()
+    phase_s = {}
     card = card_line()
     print(card, flush=True)
     print('torch', torch.__version__, 'cuda', torch.version.cuda,
@@ -2892,6 +3376,8 @@ def main():
             raise AssertionError('no {} tensor-core instruction in the '
                                  'same-grid kernel library'.format(kind))
 
+    phase_s['1-2 build'] = time.perf_counter() - t_start
+    t0 = time.perf_counter()
     cfg = flagship_config()
     sites = same_grid_sites(CVNet(cfg), BATCH, cfg.test_latent_sampling)
     if len(sites) != SITES_PER_BATCH:
@@ -2904,6 +3390,7 @@ def main():
     fwd_rows, dx_rows, dxt = check_train_conv(train_sites)
     fwd16_rows, dx16_rows, dxt16 = check_train_conv(train_sites, torch.bfloat16)
     library_rows = check_library_convs(CVNet(cfg), TRAIN_BATCH)
+    phase_s['3 kernels'] = time.perf_counter() - t0
     os.makedirs(WORK, exist_ok=True)
     # the loader's native batcher, built before the timed phases
     from joint_vae_tpu_torch.data import native
@@ -2912,16 +3399,28 @@ def main():
         raise AssertionError('native/libjvtbatcher.so did not build')
     print('batcher build seconds', round(time.perf_counter() - t0, 3),
           flush=True)
-    launches, launches128, summary = serve(card)
-    train_launches, train_summary = train(card)
-    ood_launches, odin_launches, ood_summary, ood_job = ood_eval(card)
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+    launches, launches128, summary = timed('4 serve', serve, card)
+    train_launches, train_summary, _ = timed('5 train', train, card)
+    ood_launches, odin_launches, ood_summary, ood_job = timed(
+        '6 ood', ood_eval, card)
     odin_conv_0 = ood_summary['odin']['conv_0_dx']
-    bench = bench_train(card, train_summary)
+    bench = timed('7 bench_train', bench_train, card, train_summary)
     bench16 = {mode: r['launches'] for mode, r in bench['bf16'].items()}
     f32_fed = bench['f32_device_fed']['launches']
     serve16 = bench['bf16_serve']['launches']
-    test_cli_launches, fleet = fleet_eval(card, ood_job)
-    wim_launches, poscod_launches, wim = wim_finetune(card)
+    test_cli_launches, fleet = timed('8 fleet', fleet_eval, card, ood_job)
+    wim_launches, poscod_launches, wim = timed('9 wim', wim_finetune, card)
+    (resnet_step, resnet_serve, driver_launches, resnet,
+     driver_line) = timed('10 trunks_and_drivers', trunks_and_drivers, card)
+    phase_s['total'] = time.perf_counter() - t_start
+    print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
+          flush=True)
 
     kernels = [
         {'name': 'same_grid_conv', 'route': 'cuda',
@@ -2934,6 +3433,10 @@ def main():
          'launches_test_cli': test_cli_launches['same_grid_conv'],
          'launches_wim_ft': wim_launches['same_grid_conv'],
          'launches_wim_poscod': poscod_launches['same_grid_conv'],
+         'launches_resnet_step': resnet_step['same_grid_conv'],
+         'launches_resnet_serve': resnet_serve['same_grid_conv'],
+         'launches_drivers': {t: c['same_grid_conv']
+                              for t, c in driver_launches.items()},
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -2977,6 +3480,10 @@ def main():
          'launches_odin': odin_launches['same_grid_conv_dx'],
          'launches_test_cli': test_cli_launches['same_grid_conv_dx'],
          'launches_wim_ft': wim_launches['same_grid_conv_dx'],
+         'launches_resnet_step': resnet_step['same_grid_conv_dx'],
+         'launches_resnet_serve': resnet_serve['same_grid_conv_dx'],
+         'launches_drivers': {t: c['same_grid_conv_dx']
+                              for t, c in driver_launches.items()},
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -3019,6 +3526,10 @@ def main():
          'launches_test_cli': test_cli_launches['iws_combine'],
          'launches_wim_ft': wim_launches['iws_combine'],
          'launches_serve_bf16': serve16['iws_combine'],
+         'launches_resnet_step': resnet_step['iws_combine'],
+         'launches_resnet_serve': resnet_serve['iws_combine'],
+         'launches_drivers': {t: c['iws_combine']
+                              for t, c in driver_launches.items()},
          'launches_bench_bf16': {m: c['iws_combine']
                                  for m, c in bench16.items()},
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
@@ -3035,6 +3546,7 @@ def main():
     print(json.dumps({'kernels': kernels, 'serve': summary,
                       'train': train_summary, 'ood': ood_summary,
                       'bench_train': bench, 'fleet': fleet, 'wim': wim,
+                      'resnet': resnet, 'drivers': driver_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

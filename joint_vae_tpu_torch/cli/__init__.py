@@ -1,4 +1,7 @@
-"""Command-line entry points of the port: train, serve, test and results."""
+"""Command-line entry points of the port: train, serve, test, results and
+ft, and the analysis drivers sample (reconstruction and generation grids,
+latent exports), aggregate (ensembles), cascade (chained reconstructions)
+and grid (sweeps of the train CLI)."""
 
 
 def add_device_arg(parser):

@@ -28,6 +28,7 @@ from ..models.evaluate import evaluate
 from ..save_load.dictify import _arch_string
 from ..save_load.fetch import find_by_job_number
 from ..save_load.jobs import mark, new_job
+from ..save_load.transfer import transfer_pretrained
 from ..train.optimizers import format_optimizer
 from ..train.state import make_generator
 from ..train.trainer import train_model
@@ -107,6 +108,10 @@ def main(argv=None):
             'validation': args.validation})
         if args.freeze:
             job.training_parameters['frozen_modules'] = list(args.freeze)
+        if args.pretrained_features or args.pretrained_upsampler:
+            # donor checkpoints copied in and frozen (ref conv.py:237-243)
+            transfer_pretrained(job, features_from=args.pretrained_features,
+                                upsampler_from=args.pretrained_upsampler)
         dataset = args.dataset
         save_dir = save_dir_for(job, args.job_dir, args.latent_sampling,
                                 args.data_augmentation)

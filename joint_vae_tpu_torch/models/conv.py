@@ -486,7 +486,8 @@ class BatchNorm(nn.Module):
                 updates: Optional[dict] = None) -> torch.Tensor:
         if train:
             axes = tuple(range(x.ndim - 1))
-            xf = x.float()
+            # at least float32, as flax promotes (float64 stays float64)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = torch.mean(xf, dim=axes)
             var = torch.clamp(torch.mean(torch.square(xf), dim=axes)
                               - torch.square(mean), min=0.0)
@@ -498,8 +499,10 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean.to(x.dtype)) * mul.to(x.dtype)
-                + self.bias.to(x.dtype))
+        # normalised in at least float32 and rounded once, as flax does
+        ct = torch.promote_types(x.dtype, torch.float32)
+        return ((x.to(ct) - mean.to(ct)) * mul.to(ct)
+                + self.bias.to(ct)).to(x.dtype)
 
 
 def apply_bn_updates(updates: dict) -> None:

@@ -27,6 +27,7 @@ from ..ops.sigma import SigmaConfig
 from .conv import (ACTIVATIONS, BatchNorm, ConvLayer, ConvStack,
                    conv_stack_plan, find_input_shape)
 from .layers import Classifier, Dense, Encoder, MLP, PriorParams
+from .resnet import TrunkConv, build_trunk
 
 VERSION = '1.0'
 DEFAULT_ACTIVATION = 'relu'
@@ -354,9 +355,10 @@ class CVNet(nn.Module):
         bn_decoder = cfg.batch_norm == 'both' and bool(cfg.features)
 
         if cfg.features and cfg.features.startswith(('resnet', 'densenet')):
-            raise NotImplementedError(
-                'ResNet/DenseNet features are not ported yet')
-        if cfg.features:
+            self.features_stack = build_trunk(cfg.features, cfg.input_shape,
+                                              dtype)
+            encoder_input_shape = self.features_stack.output_shape
+        elif cfg.features:
             _, plans, out_shape = conv_stack_plan(
                 cfg.input_shape, cfg.features, where='input',
                 batch_norm=bn_encoder, activation=cfg.activation)
@@ -474,11 +476,12 @@ def init_weights(model: CVNet, seed: int) -> CVNet:
                 w = rng.standard_normal((mod.out_features, fan_in)) / math.sqrt(fan_in)
                 mod.weight.copy_(torch.from_numpy(w.astype(np.float32)))
                 mod.bias.zero_()
-            elif isinstance(mod, ConvLayer):
+            elif isinstance(mod, (ConvLayer, TrunkConv)):
                 kh, kw, cin, cout = mod.to_hwio(mod.weight).shape
                 k = rng.standard_normal((kh, kw, cin, cout)) / math.sqrt(kh * kw * cin)
                 mod.weight.copy_(mod.from_hwio(torch.from_numpy(k.astype(np.float32))))
-                mod.bias.zero_()
+                if isinstance(mod, ConvLayer):
+                    mod.bias.zero_()
             elif isinstance(mod, BatchNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()

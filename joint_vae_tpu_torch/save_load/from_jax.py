@@ -10,7 +10,8 @@ The port's modules carry the same names, so a path maps to a
   kernel included) -> the layout of the layer's route (``ConvLayer``):
   as is for the same-grid, sub-pixel and matmul routes, OIHW for
   ``F.conv2d``, and ``k[::-1, ::-1].transpose(2, 3, 0, 1)`` for
-  ``F.conv_transpose2d``;
+  ``F.conv_transpose2d``; a ResNet/DenseNet trunk's bias-free kernels
+  (``models/resnet.py::TrunkConv``) -> OIHW;
 - BatchNorm ``scale``/``bias`` and ``mean``/``var`` statistics;
 - prior ``mean``/``var_param`` and ``sigma_param`` as they are.
 
@@ -41,6 +42,7 @@ import torch.nn as nn
 
 from ..models.conv import BatchNorm, ConvLayer
 from ..models.layers import Dense, PriorParams
+from ..models.resnet import TrunkConv
 
 
 def _entries(model: nn.Module):
@@ -52,10 +54,12 @@ def _entries(model: nn.Module):
             t = lambda a: a.T
             out += [('params/{}/kernel'.format(jp), name + '.weight', t, t),
                     ('params/{}/bias'.format(jp), name + '.bias', None, None)]
-        elif isinstance(mod, ConvLayer):
-            out += [('params/{}/kernel'.format(jp), name + '.weight',
-                     mod.from_hwio, mod.to_hwio),
-                    ('params/{}/bias'.format(jp), name + '.bias', None, None)]
+        elif isinstance(mod, (ConvLayer, TrunkConv)):
+            out.append(('params/{}/kernel'.format(jp), name + '.weight',
+                        mod.from_hwio, mod.to_hwio))
+            if isinstance(mod, ConvLayer):
+                out.append(('params/{}/bias'.format(jp), name + '.bias',
+                            None, None))
         elif isinstance(mod, BatchNorm):
             out += [('params/{}/scale'.format(jp), name + '.weight', None, None),
                     ('params/{}/bias'.format(jp), name + '.bias', None, None),

@@ -12,6 +12,7 @@ is applied on top (ref requires_grad flags and thaw_means).
 import dataclasses
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..device import module_device
@@ -41,6 +42,12 @@ def named_params(model: CVNet) -> Dict[str, torch.Tensor]:
 
 def make_generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def fold_in(seed: int, i: int) -> int:
+    """A seed derived from ``(seed, i)``, the counterpart of JAX's
+    ``fold_in(PRNGKey(seed), i)``: one stream per stage or batch."""
+    return int(np.random.SeedSequence([int(seed), int(i)]).generate_state(1)[0])
 
 
 def create_train_state(model: CVNet, opt_cfg: OptimizerConfig,

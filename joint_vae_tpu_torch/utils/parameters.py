@@ -7,9 +7,8 @@ section whose values become argparse defaults, the full CLI overrides them,
 and everything is persisted to the job directory (ref :179-389).  Job
 numbers are hostname-scoped counters in a ``number-<host>`` file (ref
 :33-59).  ``--device`` picks the torch device (the CUDA card by default).
-The flags of what the port does not run yet (the mesh, the
-device-resident dataset, pretrained trunks) are parsed and refused by
-:func:`refuse_unported`."""
+The flags of what the port does not run yet (the mesh and
+multi-process runs) are parsed and refused by :func:`refuse_unported`."""
 
 import argparse
 import configparser
@@ -203,8 +202,7 @@ def add_training_args(parser: argparse.ArgumentParser):
     t.add_argument('--fine-tuning', action='store_true')
     t.add_argument('--pretrained-features', metavar='JOB_DIR', default=None,
                    help='copy (and freeze) the features stack from another '
-                        "job's checkpoint (ref --pretrained-features; not "
-                        'ported yet)')
+                        "job's checkpoint (ref --pretrained-features)")
     t.add_argument('--pretrained-upsampler', metavar='JOB_DIR', default=None)
     t.add_argument('--dry-run', action='store_true',
                    help='build the model and datasets, print the setup, '
@@ -344,11 +342,7 @@ def optimizer_config_from_args(args) -> 'OptimizerConfig':
 # item (Queue 1) that ports them
 UNPORTED = (('mesh', 'the device mesh (ROADMAP Queue 1 item 14, Multi-GPU)'),
             ('distributed', 'multi-process runs (ROADMAP Queue 1 item 14, '
-                            'Multi-GPU)'),
-            ('pretrained_features', 'pretrained trunks (ROADMAP Queue 1 '
-                                    'item 15, save_load/transfer.py)'),
-            ('pretrained_upsampler', 'pretrained trunks (ROADMAP Queue 1 '
-                                     'item 15, save_load/transfer.py)'))
+                            'Multi-GPU)'))
 
 
 def refuse_unported(args) -> None:

@@ -69,7 +69,7 @@ def test_train_cli_job_loads_in_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize('flag', [['--mesh'], ['--distributed'],
-                                  ['--pretrained-features', 'x'],
+                                  ['--sample-axis', '2'],
                                   ['--model-axis', '2']])
 def test_train_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(SystemExit, match='ROADMAP Queue 1 item'):

@@ -55,7 +55,20 @@ def test_clean_import_loads_no_jax():
             'joint_vae_tpu_torch.ft.job, joint_vae_tpu_torch.ft.array, '
             'joint_vae_tpu_torch.ft.poscod, joint_vae_tpu_torch.ft.datasets, '
             'joint_vae_tpu_torch.ft.scheduler, joint_vae_tpu_torch.cli.ft, '
-            'joint_vae_tpu_torch.utils.inspection; '
+            'joint_vae_tpu_torch.utils.inspection, '
+            'joint_vae_tpu_torch.models.resnet, '
+            'joint_vae_tpu_torch.models.cvnet, '
+            'joint_vae_tpu_torch.save_load.from_jax, '
+            'joint_vae_tpu_torch.save_load.transfer, '
+            'joint_vae_tpu_torch.utils.mutual_information, '
+            'joint_vae_tpu_torch.evals.aggregation, '
+            'joint_vae_tpu_torch.evals.cascad, '
+            'joint_vae_tpu_torch.evals.sample, '
+            'joint_vae_tpu_torch.results.mutual_info, '
+            'joint_vae_tpu_torch.cli.sample, '
+            'joint_vae_tpu_torch.cli.aggregate, '
+            'joint_vae_tpu_torch.cli.cascade, '
+            'joint_vae_tpu_torch.cli.grid; '
             'bad = [m for m in sys.modules if m.split(".")[0] in {bad!r}]; '
             'print(bad); sys.exit(1 if bad else 0)').format(
                 root=ROOT, bad=FORBIDDEN)

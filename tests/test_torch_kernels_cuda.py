@@ -482,3 +482,47 @@ def test_wim_finetune_on_card(cuda_device):
     assert set(l_gpu) == set(l_cpu) and 'total@' in l_cpu
     for k in l_cpu:
         torch.testing.assert_close(l_gpu[k], l_cpu[k], rtol=2e-6, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_resnet_flagship_on_card(cuda_device):
+    """The flagship with a full-width resnet18 trunk (cuDNN): an evaluate
+    per class launches the conv at the decoder's 6 sites and the combine
+    once, card against CPU within the serving tolerance (|card - cpu| <=
+    1e-4 + 2e-6 |cpu|); a train step launches 6 forward and 6 dx."""
+    import dataclasses
+    import numpy as np
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.models.evaluate import evaluate
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    cfg = dataclasses.replace(flagship_config(), features='resnet18')
+    rng = np.random.default_rng(1)
+    x = rng.uniform(0, 1, (16,) + cfg.input_shape).astype(np.float32)
+    eps = rng.standard_normal((cfg.test_latent_sampling + 1, 16,
+                               cfg.latent_dim)).astype(np.float32)
+    eps[0] = 0.0
+    losses = {}
+    for dev in (cuda_device, torch.device('cpu')):
+        job = new_job(cfg, seed=0, device=dev)
+        out = evaluate(job.model, torch.from_numpy(x).to(dev), None,
+                       sigma_state=job.sigma_state,
+                       eps=torch.from_numpy(eps).to(dev))
+        losses[dev.type] = {k: v.cpu() for k, v in out.losses.items()}
+    for k, want in losses['cpu'].items():
+        torch.testing.assert_close(losses['cuda'][k], want, rtol=2e-6,
+                                   atol=1e-4, msg=k)
+    job = new_job(cfg, seed=0, device=cuda_device)
+    step = make_train_step(job.model, job.opt_cfg)
+    y = torch.from_numpy(rng.integers(0, 100, 32)).to(cuda_device)
+    xb = torch.from_numpy(rng.uniform(0, 1, (32,) + cfg.input_shape)
+                          .astype(np.float32)).to(cuda_device)
+    same_grid_conv.launches = iws_combine.launches = 0
+    evaluate(job.model, xb, None, sigma_state=job.sigma_state)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, iws_combine.launches) == (6, 1)
+    same_grid_conv.launches = same_grid_conv_dx.launches = 0
+    _, m = step(job.state, xb, y)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, same_grid_conv_dx.launches) == (6, 6)
+    assert torch.isfinite(m['total'])
