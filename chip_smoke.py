@@ -185,11 +185,44 @@ Phases, any failure raising (nonzero exit):
    subprocesses; both jobs loaded, each with the trunk bit-equal to the
    donor's after training, every other trainable tensor moved and the
    untrainable ones kept) (``resnet`` and ``drivers`` lines);
-11. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+11. reference-trained jobs imported and run (the interop slice): two
+   job directories in moxime/joint-vae's PyTorch layout written by
+   ``tests/torch_reference_layout.py`` (phase 6's job trained 3 steps at
+   1024 with bench.py's Adam, saved at epoch 2 with ``state.pth``, its
+   sigma as the reference's Sigma subclass, ``optimizer.pth`` and phase
+   6's records as ``record-<set>.pth`` saved from the card; the ResNet
+   flagship with a torchvision-layout resnet18 trunk from
+   ``save_load/tv_resnet.py``) and a corrupt third; ``python -m
+   joint_vae_tpu_torch.cli.import_ref --scan`` in a subprocess on the
+   card and with ``--device cpu`` (``2 imported, 1 failed``, exit 1, the
+   two trees byte-equal, ``.npz`` files member by member), each job
+   imported in process and timed; the imported flagship's weights, Adam
+   moments and count bit-equal to the source after ``load_job`` on the
+   card, its records' ``.jvr`` bytes phase 6's; a ``Scorer`` batch (512,
+   L=16) on the import against the source's on the same noise (the
+   serving tolerance), traced by ``utils/profiling.py::trace``: 8 conv
+   and 1 combine launches counted, and as the wrappers' launch spans in
+   the Chrome trace, both kernels named among its kernel records (the
+   trace of a long-lived process misses the first kernel records of a
+   session: PERF.md §7); the imported ResNet trunk against tv_resnet's eval-mode
+   forward (the conv form at 1e-4), its other weights bit-equal, a
+   ``Scorer`` batch (6 conv, 1 combine); ``cli.test --compute re`` on the
+   import (phase 6's OOD results cleared first: rebuilt from the imported
+   records with no launch, AUCs within 1e-6 of phase 6's), then
+   ``--compute rehard`` over cifar100 and cifar10 (4 passes of 20
+   batches: 640 conv and 80 combine launches); 4 train steps at 1024
+   resumed from the imported state (8 forward and 7 dx launches each),
+   the first against the source's first on the same batch and noise
+   (losses to 1e-4 relative); ``utils/device.py::compute_max_batch_size``
+   on the Scorer at L=16 and on the train step from 512 until the card
+   runs out of memory, with ``device_memory_stats`` before and after;
+   then ``dump_crash`` of the imported job with a batch on the card, read
+   back and reloaded (``interop`` line);
+12. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
-   ``launches_drivers``: phase 10's);
-12. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's);
+13. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -3348,6 +3381,492 @@ def trunks_and_drivers(card: str) -> tuple:
     return train_launches, serve['launches'], driver_launches, resnet, line
 
 
+# phase 11: reference-trained jobs (moxime/joint-vae's PyTorch layout)
+# imported and run on the card.  The flagship's reference job: phase 6's
+# job trained 3 more steps at batch 1024 with bench.py's Adam (lr 1e-4),
+# saved at epoch 2 with phase 6's results and record files; the ResNet
+# flagship's: a torchvision-layout resnet18 trunk (save_load/tv_resnet.py)
+# beside a port model's other weights; a third job whose params.json is
+# corrupt
+INTEROP_SOURCE_STEPS = 3
+INTEROP_EPOCH = 2
+INTEROP_RESUME_STEPS = 4
+INTEROP_SETS = ('cifar100', 'cifar10')   # cli.test: the test set, one OOD set
+INTEROP_JOBS = {'flagship': ('cifar100', 'flagship', 'adam', 21),
+                'resnet': ('cifar100', 'resnet18', 'adam', 22),
+                'corrupt': ('cifar100', 'flagship', 'adam', 23)}
+PROBE_START, PROBE_CEILING = 512, 1 << 18
+KERNEL_NAMES = {'same_grid_conv': ('tc_conv_kernel', 'simt_conv_kernel'),
+                'iws_combine': ('iws_combine_kernel',)}
+
+
+def _npz_members(path: str) -> dict:
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def _tree_differences(a: str, b: str) -> list:
+    """Relative paths whose contents differ between two job trees: byte
+    for byte, except that an ``.npz`` is compared member by member
+    (``np.savez`` stamps each member with the time it was written)."""
+    def files(root):
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, fs in os.walk(root) for f in fs}
+    fa, fb = files(a), files(b)
+    diff = sorted(fa ^ fb)
+    for rel in sorted(fa & fb):
+        pa, pb = os.path.join(a, rel), os.path.join(b, rel)
+        if rel.endswith('.npz'):
+            same = _npz_members(pa) == _npz_members(pb)
+        else:
+            with open(pa, 'rb') as f, open(pb, 'rb') as g:
+                same = f.read() == g.read()
+        if not same:
+            diff.append(rel)
+    return diff
+
+
+def _trace_kernels(log_dir: str) -> dict:
+    """What the Chrome trace that ``trace`` wrote holds of the two
+    kernels: the wrappers' launch spans (``<kernel>.launch``, recorded on
+    the host) and the kernel records by name; beside them the trace's
+    kernel records and launch calls of any kind."""
+    files = [f for f in os.listdir(log_dir) if f.endswith('.json')]
+    if len(files) != 1:
+        raise AssertionError('trace files {}'.format(files))
+    with open(os.path.join(log_dir, files[0])) as f:
+        events = json.load(f)['traceEvents']
+    names = [e.get('name', '') for e in events if e.get('cat') == 'kernel']
+    spans = [e.get('name', '') for e in events
+             if e.get('cat') == 'user_annotation']
+    return {'launch_spans': {k: spans.count(k + '.launch')
+                             for k in KERNEL_NAMES},
+            'kernel_records': {k: sum(any(s in n for s in subs)
+                                      for n in names)
+                               for k, subs in KERNEL_NAMES.items()},
+            'all_kernel_records': len(names),
+            'all_launch_calls': sum(
+                e.get('cat') == 'cuda_runtime' and 'Launch' in
+                e.get('name', '') for e in events)}
+
+
+def _write_interop_sources(ref: str, src, phase6_dir: str) -> dict:
+    """The three reference-layout job directories under ``ref``."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from torch_reference_layout import loss_record_dump, write_reference_job
+    from joint_vae_tpu_torch.models.cvnet import CVNet, init_weights
+    from joint_vae_tpu_torch.save_load import tv_resnet
+    from joint_vae_tpu_torch.save_load.checkpoint import load_json
+    from joint_vae_tpu_torch.save_load.from_jax import (opt_state_to_jax,
+                                                        state_dict_to_jax)
+    from joint_vae_tpu_torch.save_load.jobs import default_training_parameters
+    from joint_vae_tpu_torch.save_load.recorders import LossRecorder, find_record
+    dirs = {k: os.path.join(ref, *map(str, v)) for k, v in INTEROP_JOBS.items()}
+    cfg = src.model_cfg
+    tp = dict(default_training_parameters(cfg, src.opt_cfg), set='cifar100',
+              epochs=INTEROP_EPOCH, batch_size=TRAIN_BATCH)
+    results = {n: load_json(os.path.join(phase6_dir, n + '.json'))
+               for n in ('test', 'ood')}
+    sdir = os.path.join(phase6_dir, 'samples', '0000')
+    sets = ('cifar100',) + OOD_SETS
+    records = {str(INTEROP_EPOCH): {
+        'record-{}.pth'.format(s): loss_record_dump(
+            LossRecorder.load(find_record(sdir, s)), device='cuda')
+        for s in sets}}
+    arrays = state_dict_to_jax(src.model)
+    arrays['sigma_state/data'] = src.sigma_state.data.cpu().numpy()
+    t0 = time.perf_counter()
+    write_reference_job(
+        dirs['flagship'], dict(cfg.architecture,
+                               job_number=INTEROP_JOBS['flagship'][-1]),
+        arrays, training_parameters=tp,
+        history={'epochs': INTEROP_EPOCH},
+        test={INTEROP_EPOCH: results['test'].get(0, {})},
+        ood={INTEROP_EPOCH: results['ood'].get(0, {})},
+        opt_arrays=opt_state_to_jax(src.model, src.opt_cfg,
+                                    src.state.opt_state),
+        param_group={'lr': src.opt_cfg.lr}, records=records,
+        sigma_subclass=True, device='cuda')
+    write_s = {'flagship': time.perf_counter() - t0}
+    # the ResNet flagship: a torchvision resnet18 trunk with random
+    # running statistics, the rest from a port model of that config
+    rcfg = resnet_config()
+    torch.manual_seed(22)
+    trunk = tv_resnet.resnet18().eval()
+    g = torch.Generator().manual_seed(22)
+    with torch.no_grad():
+        for m in trunk.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape,
+                                                       generator=g))
+                m.running_var.copy_(1 + 0.3 * torch.rand(
+                    m.running_var.shape, generator=g))
+    rest = init_weights(CVNet(rcfg), 22)
+    rarrays = state_dict_to_jax(rest)
+    t0 = time.perf_counter()
+    write_reference_job(
+        dirs['resnet'], dict(rcfg.architecture,
+                             job_number=INTEROP_JOBS['resnet'][-1]),
+        rarrays, training_parameters=dict(tp),
+        history={'epochs': INTEROP_EPOCH}, trunk=trunk)
+    write_s['resnet'] = time.perf_counter() - t0
+    os.makedirs(dirs['corrupt'])
+    with open(os.path.join(dirs['corrupt'], 'params.json'), 'w') as f:
+        f.write('{ this is not json')
+    return {'dirs': dirs, 'trunk': trunk, 'rest': rarrays,
+            'write_seconds': write_s, 'sets': sets}
+
+
+def _probe(name: str, step_fn) -> dict:
+    """``compute_max_batch_size`` from PROBE_START up to PROBE_CEILING,
+    with the batch that ran out, the seconds and the memory counters."""
+    from joint_vae_tpu_torch.utils.device import compute_max_batch_size
+    from joint_vae_tpu_torch.utils.profiling import device_memory_stats
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = device_memory_stats()
+    ran_out, sizes = [], []
+
+    def fn(n):
+        sizes.append(n)
+        try:
+            step_fn(n)
+            torch.cuda.synchronize()
+        except torch.OutOfMemoryError:
+            ran_out.append(n)
+            raise
+    t0 = time.perf_counter()
+    best = compute_max_batch_size(fn, start=PROBE_START,
+                                  ceiling=PROBE_CEILING, key=('interop', name))
+    seconds = time.perf_counter() - t0
+    after = device_memory_stats()
+    if not ran_out or best < 1:
+        raise AssertionError('{} probe: best {}, ran out at {}'.format(
+            name, best, ran_out))
+    return {'largest_batch': best, 'ran_out_at': ran_out, 'sizes': sizes,
+            'seconds': seconds, 'memory_before': before,
+            'memory_after': after}
+
+
+def interop(card: str) -> tuple:
+    """Phase 11: reference-trained jobs imported through the import CLI
+    (on the card and on the CPU, the trees byte-compared), the imported
+    state held against its source, ``cli.test`` on the imported flagship
+    (the recorder tier, then a recompute), training resumed from the
+    imported optimizer state, the OOM batch probe, a trace and a crash
+    dump."""
+    from joint_vae_tpu_torch.cli import test as test_cli
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.checkpoint import load_json, save_json
+    from joint_vae_tpu_torch.save_load.from_jax import state_dict_to_jax
+    from joint_vae_tpu_torch.save_load.import_reference import \
+        import_reference_job
+    from joint_vae_tpu_torch.save_load.jobs import load_job, new_job
+    from joint_vae_tpu_torch.save_load.recorders import find_record
+    from joint_vae_tpu_torch.serve import Scorer
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.state import create_train_state
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    from joint_vae_tpu_torch.utils.device import dump_crash
+    from joint_vae_tpu_torch.utils.profiling import trace
+
+    root = os.path.join(WORK, 'interop')
+    shutil.rmtree(root, ignore_errors=True)
+    phase6_dir = os.path.join(WORK, 'flagship_job')
+    cfg = flagship_config()
+    rng = np.random.default_rng(21)
+
+    # --- the source: phase 6's job, 3 steps of bench.py's Adam ---
+    src = load_job(phase6_dir)
+    src.opt_cfg = OptimizerConfig(lr=TRAIN_LR)
+    src.state = create_train_state(src.model, src.opt_cfg, seed=21)
+    step = make_train_step(src.model, src.opt_cfg)
+    xb = torch.as_tensor(rng.uniform(0, 1, (TRAIN_BATCH,) + cfg.input_shape)
+                         .astype(np.float32), device='cuda')
+    yb = torch.as_tensor(rng.integers(0, cfg.num_labels, TRAIN_BATCH),
+                         device='cuda')
+    for _ in range(INTEROP_SOURCE_STEPS):
+        src.state, _ = step(src.state, xb, yb)
+    torch.cuda.synchronize()
+    made = _write_interop_sources(os.path.join(root, 'ref'), src, phase6_dir)
+    dirs = made['dirs']
+    rel = {k: os.path.join(*map(str, v)) for k, v in INTEROP_JOBS.items()}
+
+    # --- the import CLI, on the card and on the CPU ---
+    cli_s, trees = {}, {}
+    for dev in ('cuda', 'cpu'):
+        trees[dev] = os.path.join(root, 'jobs_' + dev)
+        argv = [sys.executable, '-m', 'joint_vae_tpu_torch.cli.import_ref',
+                '--scan', os.path.join(root, 'ref'), '-J', trees[dev]]
+        if dev == 'cpu':
+            argv += ['--device', 'cpu']
+        t0 = time.perf_counter()
+        r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+        cli_s[dev] = time.perf_counter() - t0
+        if r.returncode != 1 or '2 imported, 1 failed' not in r.stdout:
+            raise AssertionError('import CLI ({}) exited {}: {}\n{}'.format(
+                dev, r.returncode, r.stdout, r.stderr[-3000:]))
+        if rel['corrupt'] not in r.stderr:
+            raise AssertionError('import CLI ({}) did not name the corrupt '
+                                 'job: {}'.format(dev, r.stderr[-3000:]))
+    diff = _tree_differences(trees['cuda'], trees['cpu'])
+    if diff:
+        raise AssertionError('card and CPU imports differ: {}'.format(diff))
+    n_files = sum(len(fs) for _, _, fs in os.walk(trees['cuda']))
+    # each job alone, in this process, on the card
+    job_s = {}
+    for k in ('flagship', 'resnet'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        import_reference_job(dirs[k], os.path.join(root, 'jobs_inproc',
+                                                   rel[k]))
+        job_s[k] = time.perf_counter() - t0
+    diff = _tree_differences(os.path.join(root, 'jobs_inproc'), trees['cuda'])
+    if diff:
+        raise AssertionError('in-process and CLI imports differ: {}'.format(
+            diff))
+
+    # --- the imported state against its source, bit for bit ---
+    fdir = os.path.join(trees['cuda'], rel['flagship'])
+    imp = load_job(fdir)
+    sd, sd2 = src.model.state_dict(), imp.model.state_dict()
+    if set(sd) != set(sd2) or not all(torch.equal(sd[k], sd2[k]) for k in sd):
+        raise AssertionError('imported weights differ from the source')
+    o, o2 = src.state.opt_state, imp.state.opt_state
+    if not (o.adam_count == o2.adam_count == INTEROP_SOURCE_STEPS
+            and o.learning_rate == o2.learning_rate
+            and set(o.mu) == set(o2.mu) == set(sd)
+            and all(torch.equal(o.mu[k], o2.mu[k])
+                    and torch.equal(o.nu[k], o2.nu[k]) for k in o.mu)
+            and torch.equal(src.sigma_state.data, imp.sigma_state.data)
+            and imp.trained == INTEROP_EPOCH
+            and imp.job_number == INTEROP_JOBS['flagship'][-1]):
+        raise AssertionError('imported optimizer or train state differs')
+    # the imported records: phase 6's bytes
+    for s in made['sets']:
+        with open(find_record(os.path.join(phase6_dir, 'samples', '0000'),
+                              s), 'rb') as f, \
+                open(os.path.join(fdir, 'samples', '{:04d}'.format(
+                    INTEROP_EPOCH), 'record-{}.jvr'.format(s)), 'rb') as g:
+            if f.read() != g.read():
+                raise AssertionError('imported record {} differs'.format(s))
+
+    # --- a Scorer batch: imported against source, the same noise; the
+    # imported batch traced (torch.profiler, a Chrome trace) ---
+    x = rng.uniform(0, 1, (BATCH,) + cfg.input_shape).astype(np.float32)
+    eps = torch.as_tensor(rng.standard_normal(
+        (cfg.test_latent_sampling + 1, BATCH, cfg.latent_dim))
+        .astype(np.float32), device='cuda')
+    eps[0] = 0.0
+    lows = {m: float('-inf') for m in METHODS}
+    want = Scorer(src, methods=METHODS, thresholds=lows)(x, eps=eps)
+    scorer = Scorer(imp, methods=METHODS, thresholds=lows)
+    scorer(x, eps=eps)                            # meets its shapes first
+    trace_dir = os.path.join(root, 'traces')
+    torch.cuda.synchronize()
+    _count_reset()
+    # --- the main path: one traced Scorer batch on the imported job ---
+    with trace(trace_dir):
+        got = scorer(x, eps=eps)
+    serve_launches = _counts()
+    # --- end of the main path ---
+    traced = _trace_kernels(trace_dir)
+    if (serve_launches != _want(0, 1) or traced['launch_spans'] != {
+            'same_grid_conv': SITES_PER_BATCH, 'iws_combine': 1}
+            or not all(traced['kernel_records'].values())):
+        raise AssertionError('imported Scorer batch: launches {}, traced '
+                             '{}'.format(serve_launches, traced))
+    serve_worst = 0.0
+    for m in METHODS:
+        np.testing.assert_allclose(got['scores'][m], want['scores'][m],
+                                   rtol=SERVE_RTOL, atol=SERVE_ATOL,
+                                   err_msg='imported vs source, ' + m)
+        serve_worst = max(serve_worst, float(np.max(np.abs(
+            got['scores'][m] - want['scores'][m]))))
+    if not np.array_equal(got['label'], want['label']):
+        raise AssertionError('imported and source labels differ')
+
+    # --- the imported ResNet flagship: its trunk against tv_resnet's
+    # eval-mode forward, its other weights bit-equal, a Scorer batch ---
+    rimp = load_job(os.path.join(trees['cuda'], rel['resnet']))
+    got_r = state_dict_to_jax(rimp.model)
+    rest_equal = all(np.array_equal(got_r[k], v)
+                     for k, v in made['rest'].items()
+                     if '/features_stack/' not in k)
+    xr = torch.as_tensor(x[:64], device='cuda')
+    trunk = made['trunk'].cuda()
+    with torch.no_grad():
+        tv = torch.nn.Sequential(*list(trunk.children())[:-1])(xr)
+        ours = rimp.model.features_stack(xr)
+    trunk_err = ((ours - tv).abs() / (tv.abs() + tv.square().mean().sqrt())
+                 ).max().item()
+    bn0 = torch.equal(rimp.model.features_stack.BatchNorm_0.running_mean,
+                      trunk.bn1.running_mean)
+    if not (rest_equal and bn0 and trunk_err <= CONV_TOL[torch.float32]):
+        raise AssertionError('imported ResNet flagship: rest equal {}, '
+                             'stem statistics equal {}, trunk error {}'
+                             .format(rest_equal, bn0, trunk_err))
+    rscorer = Scorer(rimp, methods=METHODS, thresholds=lows)
+    rscorer(x)
+    torch.cuda.synchronize()
+    _count_reset()
+    # --- the main path: a Scorer batch on the imported ResNet flagship ---
+    rout = rscorer(x)
+    resnet_launches = _counts()
+    # --- end of the main path ---
+    if resnet_launches != {'same_grid_conv': RESNET_SITES,
+                           'same_grid_conv_dx': 0, 'iws_combine': 1} or \
+            not all(np.all(np.isfinite(rout['scores'][m])) for m in METHODS):
+        raise AssertionError('imported ResNet Scorer: launches {}'.format(
+            resnet_launches))
+    del trunk, rimp, rscorer
+
+    # --- cli.test on the imported flagship: the recorder tier, then a
+    # recompute of accuracy, OOD and misclassification ---
+    base = ['--job-dir', trees['cuda'], '--job',
+            str(INTEROP_JOBS['flagship'][-1]), '--sets'] + list(
+                INTEROP_SETS) + ['-M', str(OOD_BATCH)]
+    # phase 6's OOD results, imported at epoch 2, are cleared, so that the
+    # recorder tier must rebuild them from the imported record files
+    stored = load_json(os.path.join(fdir, 'ood.json'))[INTEROP_EPOCH]
+    save_json({}, os.path.join(fdir, 'ood.json'))
+    _count_reset()
+    with open(os.path.join(root, 'test_re.out'), 'w') as f, \
+            contextlib.redirect_stdout(f):
+        rc = test_cli.main(base + ['--compute', 're'])
+    replay_launches = _counts()
+    replayed = load_json(os.path.join(fdir, 'ood.json')).get(
+        INTEROP_EPOCH, {})
+    if rc != 0 or any(replay_launches.values()) or 'cifar10' not in replayed:
+        raise AssertionError('cli.test --compute re: rc {}, launches {}, '
+                             'sets {}'.format(rc, replay_launches,
+                                              sorted(replayed)))
+    replay_err = max(abs(replayed['cifar10'][m]['auc'] - r['auc'])
+                     for m, r in stored['cifar10'].items()
+                     if m in replayed['cifar10'])
+    if not replay_err <= ROC_TOL:
+        raise AssertionError('replayed AUCs vs phase 6\'s: {}'.format(
+            replay_err))
+    batches = -(-OOD_SET_SIZE // OOD_BATCH)
+    # accuracy over the test set, the OOD engine over the test set and the
+    # OOD set, misclassification over the test set: 8 conv and 1 combine
+    # launches per batch of 512, the 272-image tail included
+    passes = 1 + len(INTEROP_SETS) + 1
+    want_test = _want(0, passes * batches)
+    _count_reset()
+    t0 = time.perf_counter()
+    # --- the main path: cli.test --compute rehard ---
+    with open(os.path.join(root, 'test_rehard.out'), 'w') as f, \
+            contextlib.redirect_stdout(f):
+        rc = test_cli.main(base + ['--compute', 'rehard'])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = _counts()
+    # --- end of the main path ---
+    recomputed = load_job(fdir, ghost=True)
+    if rc != 0 or test_launches != want_test or 'cifar10' not in \
+            recomputed.ood_results.get(INTEROP_EPOCH, {}):
+        raise AssertionError('cli.test --compute rehard: rc {}, launches {} '
+                             '(expected {})'.format(rc, test_launches,
+                                                    want_test))
+
+    # --- training resumed from the imported state: the first step beside
+    # the source's first step on the same batch and noise ---
+    eps_t = torch.as_tensor(rng.standard_normal(
+        (cfg.latent_sampling + 1, TRAIN_BATCH, cfg.latent_dim))
+        .astype(np.float32), device='cuda')
+    eps_t[0] = 0.0
+    xt = to_device(rng.uniform(0, 1, (TRAIN_BATCH,) + cfg.input_shape)
+                   .astype(np.float32), torch.device('cuda'))
+    yt = to_device(rng.integers(0, cfg.num_labels, TRAIN_BATCH),
+                   torch.device('cuda'))
+    step_i = make_train_step(imp.model, imp.opt_cfg)
+    torch.cuda.synchronize()
+    _count_reset()
+    # --- the main path: 4 steps from the imported state ---
+    t0 = time.perf_counter()
+    state, first = step_i(imp.state, xt, yt, eps=eps_t)
+    first = {k: v.item() for k, v in first.items()}
+    t1 = time.perf_counter()
+    for _ in range(INTEROP_RESUME_STEPS - 1):
+        state, last = step_i(state, xt, yt)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    resume_launches = _counts()
+    # --- end of the main path ---
+    first_s = t1 - t0
+    imp.state = state
+    if resume_launches != _want(INTEROP_RESUME_STEPS):
+        raise AssertionError('resumed steps launched {}'.format(
+            resume_launches))
+    _, src_first = step(src.state, xt, yt, eps=eps_t)
+    resume_err = {k: abs(first[k] - v.item()) / max(abs(v.item()), 1e-30)
+                  for k, v in src_first.items()}
+    if not (resume_err['total'] <= TRAIN_LOSS_RTOL
+            and all(np.isfinite(v.item()) for v in last.values())):
+        raise AssertionError('resumed first step vs the source\'s: {}'
+                             .format(resume_err))
+    del src, step, xb, yb, want, got
+
+    # --- the card's memory: the largest Scorer batch at L=16 and the
+    # largest train step; what runs after them must still run ---
+    x_one = x[:1]
+
+    def serve_n(n):
+        scorer(np.ascontiguousarray(np.broadcast_to(
+            x_one, (n,) + cfg.input_shape)))
+
+    pjob = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=5)
+    pstep = make_train_step(pjob.model, pjob.opt_cfg)
+    pstate = [pjob.state]
+
+    def train_n(n):
+        xs = torch.rand((n,) + cfg.input_shape, device='cuda')
+        ys = torch.randint(0, cfg.num_labels, (n,), device='cuda')
+        pstate[0], _ = pstep(pstate[0], xs, ys)
+    probes = {'scorer_l16': _probe('scorer_l16', serve_n),
+              'train_step': _probe('train_step', train_n)}
+    del pjob, pstep, pstate
+
+    # --- after the probes: a crash dump of the imported job with a
+    # batch on the card ---
+    xd = torch.as_tensor(x[:64], device='cuda')
+    yd = torch.as_tensor(rng.integers(0, cfg.num_labels, 64), device='cuda')
+    d = dump_crash(imp, xd, yd, RuntimeError('phase 11 dump'),
+                   log_dir=os.path.join(root, 'log'))
+    with np.load(os.path.join(d, 'batch.npz')) as z:
+        dumped = (np.array_equal(z['x'], xd.cpu().numpy())
+                  and np.array_equal(z['y'], yd.cpu().numpy()))
+    back = load_job(d)
+    sd, sd2 = imp.model.state_dict(), back.model.state_dict()
+    if not (dumped and all(torch.equal(sd[k], sd2[k]) for k in sd)):
+        raise AssertionError('crash dump: batch read back {}'.format(dumped))
+    out = {'import_cli_seconds': cli_s, 'import_job_seconds': job_s,
+           'write_seconds': made['write_seconds'],
+           'import_files': n_files, 'card_vs_cpu_tree': 'byte-equal',
+           'serve_launches': serve_launches, 'trace': traced,
+           'serve_imported_vs_source_max_abs_diff': serve_worst,
+           'resnet_trunk_err_over_abs_plus_rms': trunk_err,
+           'resnet_serve_launches': resnet_launches,
+           'test_cli': {'argv': base + ['--compute', 'rehard'],
+                        'seconds': test_s, 'launches': test_launches,
+                        'images_per_s': passes * OOD_SET_SIZE / test_s,
+                        'replay_launches': replay_launches,
+                        'replay_auc_vs_phase6_max_abs_diff': replay_err},
+           'resume': {'steps': INTEROP_RESUME_STEPS, 'batch': TRAIN_BATCH,
+                      'first_step_ms': first_s * 1e3,
+                      'ms_per_step': resume_s * 1e3
+                      / (INTEROP_RESUME_STEPS - 1),
+                      'launches': resume_launches,
+                      'first_step_rel_err_vs_source': resume_err},
+           'probe': probes, 'dump': d, 'card': card}
+    print('interop', json.dumps(out), flush=True)
+    return serve_launches, test_launches, resume_launches, resnet_launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -3418,6 +3937,8 @@ def main():
     wim_launches, poscod_launches, wim = timed('9 wim', wim_finetune, card)
     (resnet_step, resnet_serve, driver_launches, resnet,
      driver_line) = timed('10 trunks_and_drivers', trunks_and_drivers, card)
+    (interop_serve, interop_test, interop_resume, interop_resnet,
+     interop_line) = timed('11 interop', interop, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -3437,6 +3958,10 @@ def main():
          'launches_resnet_serve': resnet_serve['same_grid_conv'],
          'launches_drivers': {t: c['same_grid_conv']
                               for t, c in driver_launches.items()},
+         'launches_interop_serve': interop_serve['same_grid_conv'],
+         'launches_interop_resnet_serve': interop_resnet['same_grid_conv'],
+         'launches_interop_test_cli': interop_test['same_grid_conv'],
+         'launches_interop_resume': interop_resume['same_grid_conv'],
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -3484,6 +4009,7 @@ def main():
          'launches_resnet_serve': resnet_serve['same_grid_conv_dx'],
          'launches_drivers': {t: c['same_grid_conv_dx']
                               for t, c in driver_launches.items()},
+         'launches_interop_resume': interop_resume['same_grid_conv_dx'],
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -3530,6 +4056,9 @@ def main():
          'launches_resnet_serve': resnet_serve['iws_combine'],
          'launches_drivers': {t: c['iws_combine']
                               for t, c in driver_launches.items()},
+         'launches_interop_serve': interop_serve['iws_combine'],
+         'launches_interop_resnet_serve': interop_resnet['iws_combine'],
+         'launches_interop_test_cli': interop_test['iws_combine'],
          'launches_bench_bf16': {m: c['iws_combine']
                                  for m, c in bench16.items()},
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
@@ -3547,6 +4076,7 @@ def main():
                       'train': train_summary, 'ood': ood_summary,
                       'bench_train': bench, 'fleet': fleet, 'wim': wim,
                       'resnet': resnet, 'drivers': driver_line,
+                      'interop': interop_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

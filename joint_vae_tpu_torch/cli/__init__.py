@@ -1,7 +1,8 @@
-"""Command-line entry points of the port: train, serve, test, results and
-ft, and the analysis drivers sample (reconstruction and generation grids,
-latent exports), aggregate (ensembles), cascade (chained reconstructions)
-and grid (sweeps of the train CLI)."""
+"""Command-line entry points of the port: train, serve, test, results,
+ft, import_ref (reference-trained job directories), and the analysis
+drivers sample (reconstruction and generation grids, latent exports),
+aggregate (ensembles), cascade (chained reconstructions) and grid (sweeps
+of the train CLI)."""
 
 
 def add_device_arg(parser):
@@ -25,3 +26,49 @@ def add_mesh_args(parser):
     parser.add_argument('--distributed', action='store_true',
                         help='(not ported yet)')
     return parser
+
+
+def find_job_dirs(root):
+    """Every directory under root holding a params.json (a job dir), for
+    the import CLI's ``--scan``."""
+    import os
+    for dirpath, dirnames, filenames in os.walk(root):
+        if 'params.json' in filenames:
+            dirnames[:] = []                # job dirs don't nest
+            yield dirpath
+
+
+def convert_job_batch(sources, rel_root, out_root, convert, dry_run):
+    """The ``--scan`` batch loop: each source lands under its path
+    relative to ``rel_root`` (else under its basename, suffixed ``-1``,
+    ``-2``... when two sources share one), and a job that fails is
+    logged and counted without stopping the rest.
+
+    ``convert(src, dst)`` does the work; returns (done, failed)."""
+    import logging
+    import os
+    done, failed = 0, 0
+    taken = set()
+    for src in sources:
+        src = os.path.abspath(src)
+        if rel_root and src.startswith(rel_root + os.sep):
+            rel = os.path.relpath(src, rel_root)
+        else:
+            rel = os.path.basename(src.rstrip(os.sep))
+        base, n = rel, 1
+        while rel in taken:
+            rel = '{}-{}'.format(base, n)
+            n += 1
+        taken.add(rel)
+        dst = os.path.join(out_root, rel)
+        if dry_run:
+            print('{} -> {}'.format(src, dst))
+            continue
+        try:
+            convert(src, dst)
+            done += 1
+        except Exception as e:
+            logging.error('%s not converted: %s: %s',
+                          src, type(e).__name__, e)
+            failed += 1
+    return done, failed

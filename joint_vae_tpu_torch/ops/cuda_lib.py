@@ -8,6 +8,7 @@ its source so an edited kernel rebuilds.  The library is loaded with
 ``c_void_p``.  Nothing here runs at import time.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -16,6 +17,8 @@ import subprocess
 import tempfile
 import time
 from typing import Dict, Iterable, Optional
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -121,3 +124,14 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError('{} kernel launch failed: cudaError {} ({})'.format(
             what, rc, lib.kernel_error_string(rc).decode()))
+
+
+def launch_span(name: str):
+    """A ``torch.profiler`` span named ``<name>.launch`` around a kernel
+    launch while a profiler records, else nothing: a trace counts the
+    launches on the host's side, which it records in full, where the
+    device's kernel records of a long-lived process can miss the first
+    kernels of a session (PERF.md §7)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name + '.launch')
+    return contextlib.nullcontext()

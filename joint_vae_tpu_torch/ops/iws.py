@@ -74,8 +74,10 @@ def iws_combine(z: torch.Tensor, log_pxq: torch.Tensor, mean: torch.Tensor,
     out = torch.empty((C, N), dtype=torch.float32, device=z.device)
     lib = cuda_lib.load('iws_combine')
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = lib.iws_combine_f32(*(a.data_ptr() for a in args), out.data_ptr(),
-                             L, N, K, C, int(bool(ref_mode)), stream)
+    with cuda_lib.launch_span('iws_combine'):
+        rc = lib.iws_combine_f32(*(a.data_ptr() for a in args),
+                                 out.data_ptr(), L, N, K, C,
+                                 int(bool(ref_mode)), stream)
     cuda_lib.check(lib, rc, 'iws_combine')
     iws_combine.launches += 1
     return out

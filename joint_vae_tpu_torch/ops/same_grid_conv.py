@@ -36,6 +36,8 @@ from torch.profiler import record_function
 from . import cuda_lib
 
 IM2COL_BYTES = 1 << 29        # the im2col copy of a chunk of images
+MAX_ELEMS = 2 ** 31 - 1       # the kernel's int32 shapes: x's or y's
+                              # elements in one launch
 
 
 def same_grid_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
@@ -118,12 +120,14 @@ def _check(x: torch.Tensor, kernel: torch.Tensor, ph_lo: int, pw_lo: int):
             ph_lo, pw_lo, th, tw))
 
 
-def _run(x: torch.Tensor, kernel: torch.Tensor, ph_lo: int, pw_lo: int):
-    """-> (y, launched): the plain version on CPU tensors, the kernel on
-    CUDA tensors (or a raise)."""
+def _run(x: torch.Tensor, kernel: torch.Tensor, ph_lo: int, pw_lo: int,
+         name: str):
+    """-> (y, launches): the plain version on CPU tensors, the kernel on
+    CUDA tensors (or a raise), once per :func:`batch_chunks` range, each
+    launch in a ``<name>.launch`` profiler span."""
     _check(x, kernel, ph_lo, pw_lo)
     if x.device.type == 'cpu' and kernel.device.type == 'cpu':
-        return same_grid_conv_plain(x, kernel, ph_lo, pw_lo), False
+        return same_grid_conv_plain(x, kernel, ph_lo, pw_lo), 0
     if not (x.is_cuda and kernel.device == x.device):
         raise ValueError('same_grid_conv: x on {} and kernel on {}'.format(
             x.device, kernel.device))
@@ -136,31 +140,45 @@ def _run(x: torch.Tensor, kernel: torch.Tensor, ph_lo: int, pw_lo: int):
                          'kernel')
     n, h, w, ci = x.shape
     th, tw, _, co = kernel.shape
-    if max(x.numel(), n * h * w * co) >= 2 ** 31:
-        raise ValueError('same_grid_conv: tensor too large for int32 shapes')
+    chunks = batch_chunks(n, h * w * max(ci, co))
     y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y, False
+        return y, 0
     lib = cuda_lib.load('same_grid_conv')
     fn = (lib.same_grid_conv_f32 if x.dtype == torch.float32
           else lib.same_grid_conv_bf16)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), kernel.data_ptr(), y.data_ptr(), n, h, w, ci, co,
-            th, tw, ph_lo, pw_lo, stream)
-    cuda_lib.check(lib, rc, 'same_grid_conv')
-    return y, True
+    for i, j in chunks:
+        with cuda_lib.launch_span(name):
+            rc = fn(x[i:j].data_ptr(), kernel.data_ptr(), y[i:j].data_ptr(),
+                    j - i, h, w, ci, co, th, tw, ph_lo, pw_lo, stream)
+        cuda_lib.check(lib, rc, 'same_grid_conv')
+    return y, len(chunks)
+
+
+def batch_chunks(n: int, per_image: int) -> list:
+    """[(start, stop)] ranges of images, each launch's x and y within the
+    kernel's int32 shapes (MAX_ELEMS elements): one range unless the batch
+    is larger than that."""
+    if per_image > MAX_ELEMS:
+        raise ValueError('same_grid_conv: one image of {} elements is too '
+                         'large for int32 shapes'.format(per_image))
+    step = MAX_ELEMS // max(per_image, 1)
+    return [(i, min(n, i + step)) for i in range(0, n, step)]
 
 
 def same_grid_conv(x: torch.Tensor, kernel: torch.Tensor,
                    ph_lo: int, pw_lo: int) -> torch.Tensor:
     """y (n, h, w, co) = same-grid conv of x (n, h, w, ci) with the HWIO
     ``kernel``.  CPU tensors run :func:`same_grid_conv_plain`; CUDA tensors
-    launch the kernel (float32 or bfloat16, contiguous) or raise.  Its
-    launches are counted in ``launches``, the bfloat16 ones also in
+    launch the kernel (float32 or bfloat16, contiguous) or raise; a batch
+    beyond the kernel's int32 shapes in several launches.  Its launches
+    are counted in ``launches``, the bfloat16 ones also in
     :data:`bf16_launches`."""
-    y, launched = _run(x, kernel, ph_lo, pw_lo)
+    y, launched = _run(x, kernel, ph_lo, pw_lo, 'same_grid_conv')
     same_grid_conv.launches += launched
-    bf16_launches['same_grid_conv'] += launched and x.dtype == torch.bfloat16
+    if x.dtype == torch.bfloat16:
+        bf16_launches['same_grid_conv'] += launched
     return y
 
 
@@ -171,10 +189,11 @@ def same_grid_conv_dx(g: torch.Tensor, kernel: torch.Tensor,
     on :func:`dx_kernel`, counted in ``same_grid_conv_dx.launches`` (and
     :data:`bf16_launches`)."""
     th, tw = kernel.shape[:2]
-    y, launched = _run(g, dx_kernel(kernel), th - 1 - ph_lo, tw - 1 - pw_lo)
+    y, launched = _run(g, dx_kernel(kernel), th - 1 - ph_lo, tw - 1 - pw_lo,
+                       'same_grid_conv_dx')
     same_grid_conv_dx.launches += launched
-    bf16_launches['same_grid_conv_dx'] += (launched
-                                           and g.dtype == torch.bfloat16)
+    if g.dtype == torch.bfloat16:
+        bf16_launches['same_grid_conv_dx'] += launched
     return y
 
 

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``joint_vae_tpu_torch``, nothing in
-``chip_smoke.py`` and nothing in the card-only kernel tests imports jax,
+``chip_smoke.py``, nothing in the card-only kernel tests and nothing in
+the reference-layout writer that ``chip_smoke.py`` shares with the tests
+(``tests/torch_reference_layout.py``) imports jax,
 flax, optax, the JAX package or pandas (the card machine has no pandas:
 the port's result tables are its own), and importing them in a clean
 interpreter loads none of them."""
@@ -18,7 +20,8 @@ FORBIDDEN = ('jax', 'flax', 'optax', 'joint_vae_tpu', 'pandas')
 def _port_sources():
     pkg = os.path.join(ROOT, 'joint_vae_tpu_torch')
     out = [os.path.join(ROOT, 'chip_smoke.py'),
-           os.path.join(ROOT, 'tests', 'test_torch_kernels_cuda.py')]
+           os.path.join(ROOT, 'tests', 'test_torch_kernels_cuda.py'),
+           os.path.join(ROOT, 'tests', 'torch_reference_layout.py')]
     for dirpath, _, files in os.walk(pkg):
         out += [os.path.join(dirpath, f) for f in sorted(files)
                 if f.endswith('.py')]
@@ -45,7 +48,9 @@ def test_no_jax_import_in_source(path):
 
 def test_clean_import_loads_no_jax():
     code = ('import sys; sys.path.insert(0, {root!r}); '
-            'import chip_smoke, joint_vae_tpu_torch.serve, '
+            'sys.path.insert(0, {tests!r}); '
+            'import chip_smoke, torch_reference_layout, '
+            'joint_vae_tpu_torch.serve, '
             'joint_vae_tpu_torch.cli.serve, joint_vae_tpu_torch.save_load.jobs, '
             'joint_vae_tpu_torch.train.trainer, joint_vae_tpu_torch.cli.test, '
             'joint_vae_tpu_torch.cli.results, '
@@ -68,10 +73,15 @@ def test_clean_import_loads_no_jax():
             'joint_vae_tpu_torch.cli.sample, '
             'joint_vae_tpu_torch.cli.aggregate, '
             'joint_vae_tpu_torch.cli.cascade, '
-            'joint_vae_tpu_torch.cli.grid; '
+            'joint_vae_tpu_torch.cli.grid, '
+            'joint_vae_tpu_torch.cli.import_ref, '
+            'joint_vae_tpu_torch.save_load.import_reference, '
+            'joint_vae_tpu_torch.save_load.tv_resnet, '
+            'joint_vae_tpu_torch.utils.device, '
+            'joint_vae_tpu_torch.utils.profiling; '
             'bad = [m for m in sys.modules if m.split(".")[0] in {bad!r}]; '
             'print(bad); sys.exit(1 if bad else 0)').format(
-                root=ROOT, bad=FORBIDDEN)
+                root=ROOT, tests=os.path.join(ROOT, 'tests'), bad=FORBIDDEN)
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)

@@ -142,3 +142,27 @@ def test_wrappers_reject_bad_input(fresh_counters):
     with pytest.raises(ValueError):
         iws_combine(z[0], torch.zeros(2, 5), torch.zeros(3, 4),
                     torch.zeros(3), torch.zeros(3))           # z not (L,N,K)
+
+
+@pytest.mark.parametrize('n,per_image', [(512, 32 * 32 * 32),
+                                         (65536, 32 * 32 * 32),
+                                         (70000, 16 * 16 * 128), (7, 1)])
+def test_batch_chunks_cover_the_batch_within_int32(n, per_image):
+    """A batch beyond the kernel's int32 shapes runs in several launches:
+    the ranges tile the batch, each within MAX_ELEMS elements; the
+    flagship's batches take one."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import (MAX_ELEMS,
+                                                        batch_chunks)
+    chunks = batch_chunks(n, per_image)
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all((j - i) * per_image <= MAX_ELEMS for i, j in chunks)
+    assert len(chunks) == -(-n // (MAX_ELEMS // per_image))
+    if n * per_image <= MAX_ELEMS:
+        assert chunks == [(0, n)]
+
+
+def test_batch_chunks_refuse_an_image_beyond_int32():
+    from joint_vae_tpu_torch.ops.same_grid_conv import batch_chunks
+    with pytest.raises(ValueError, match='too large for int32'):
+        batch_chunks(1, 2 ** 31)

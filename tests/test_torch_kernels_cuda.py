@@ -62,6 +62,33 @@ def test_same_grid_kernel_on_card(geom, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_same_grid_kernel_in_chunks_on_card(dtype, cuda_device, monkeypatch):
+    """A batch beyond the kernel's int32 shapes (here MAX_ELEMS lowered to
+    one image) runs one launch per range of images, forward and dx,
+    bit-equal to the single launch."""
+    import joint_vae_tpu_torch.ops.same_grid_conv as sgc
+    dt = getattr(torch, dtype)
+    geom = CONV_GEOMS[2]
+    n, h, w, ci, co, th, tw, ph, pw = geom
+    x, k = conv_inputs(geom)
+    xd = torch.from_numpy(x).to(cuda_device, dt)
+    kd = torch.from_numpy(k).to(cuda_device, dt)
+    one, dx_one = same_grid_conv(xd, kd, ph, pw), same_grid_conv_dx(
+        same_grid_conv(xd, kd, ph, pw), kd, ph, pw)
+    monkeypatch.setattr(sgc, 'MAX_ELEMS', h * w * max(ci, co))
+    chunks = len(sgc.batch_chunks(n, h * w * max(ci, co)))
+    assert chunks == n > 1
+    before = (same_grid_conv.launches, same_grid_conv_dx.launches)
+    got = same_grid_conv(xd, kd, ph, pw)
+    dx = same_grid_conv_dx(one, kd, ph, pw)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches - before[0],
+            same_grid_conv_dx.launches - before[1]) == (chunks, chunks)
+    assert torch.equal(got, one) and torch.equal(dx, dx_one)
+
+
+@pytest.mark.cuda
 def test_subpixel_layer_on_card(cuda_device):
     """A stride-2 deconv through the sub-pixel route (one same-grid launch
     on the packed kernel) against F.conv_transpose2d in full float32."""
