@@ -218,11 +218,37 @@ Phases, any failure raising (nonzero exit):
    runs out of memory, with ``device_memory_stats`` before and after;
    then ``dump_crash`` of the imported job with a batch on the card, read
    back and reloaded (``interop`` line);
-12. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+12. the device mesh (``joint_vae_tpu_torch/parallel``).  (a) A world of
+   one rank over NCCL: ``train_model`` for 4 host-fed flagship steps of
+   1024 on a (1, 1) mesh against the same steps without one, run twice,
+   all under PyTorch's deterministic algorithms (the loss components
+   within 1e-6 relative, or within twice the spread between the two
+   plain runs where one is left), 8 forward and 7 dx launches per step; the step's ms with and without the mesh in turns
+   and the gradient all-reduce's own ms (CUDA events); the job saved as
+   a sharded checkpoint with and without ``AsyncCheckpointer`` (seconds
+   and bytes) and restored into a run with no mesh, arrays and optimizer
+   state byte-equal (``mesh_world1`` line).  (b) Two ranks spawned on the
+   one card over gloo (``--mesh-rank``; NCCL refuses two ranks on one
+   device), each under its own time limit: ``ood_detection_rates`` of
+   phase 4's flagship job on cifar100's test set and cifar10 (10,000
+   images each, batch 512, L=16) at ``model_axis=2`` (C=50 a rank: the
+   combine on (50, N)) and at ``sample_axis=2`` (17 samples as 9 + 8),
+   against this process's one-process card run (AUCs equal, means within
+   rtol 1e-6), then 4 steps of 1024 at ``model_axis=2``, deterministic
+   as in (a) (the losses within 1e-5 relative, or the spread as in (a)); each rank's launches of each
+   run counted (320 conv and 40 combine per evaluation, 32 forward and 28
+   dx for the steps), both kernels held against their plain versions on
+   each rank at a rank's shapes, and all_reduce, all_gather, broadcast
+   and barrier on the card's tensors over gloo (``mesh_gloo`` line; two
+   processes share the card, so its times are no speed figure).  (c) The
+   same over NCCL with one rank per card when the machine has two cards
+   or more, else one line saying that it waits for such a machine;
+13. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
-   ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's);
-13. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
+   ``launches_mesh_*``: phase 12's);
+14. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -3867,6 +3893,549 @@ def interop(card: str) -> tuple:
     return serve_launches, test_launches, resume_launches, resnet_launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the device mesh (``joint_vae_tpu_torch/parallel``).  (a) A world
+# of one rank over NCCL: the flagship's host-fed steps on a (1, 1) mesh
+# against the same steps without one, the step and its all-reduce timed,
+# the sharded checkpoint written with and without the asynchronous writer
+# and restored into a run with no mesh.  (b) Two ranks on the one card over
+# gloo (NCCL refuses two ranks on one device): the flagship's OOD
+# evaluation on the 'model' and 'sample' axes and 4 steps on the 'model'
+# axis against this process's one-process card run.  (c) The same over
+# NCCL, one rank per card, when the machine has two cards or more.
+# ---------------------------------------------------------------------------
+
+MESH_STEPS, MESH_BATCH = 4, 1024
+MESH_WARMUP, MESH_TIMED = 3, 10
+MESH_WORLD1_RTOL = 1e-6          # a (1, 1) mesh against no mesh
+MESH_STEP_RTOL = 1e-5            # two ranks against one process: losses
+MESH_MEAN_RTOL = 1e-6            # two ranks against one process: OOD means
+MESH_OOD = 'cifar10'
+MESH_NOISE_SEED = 5
+MESH_RANK_TIMEOUT = 420          # seconds, each spawned rank
+MESH_RUNS = ({'name': 'model2', 'model_axis': 2},
+             {'name': 'sample2', 'sample_axis': 2})
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _recorded_train(job, trainset, mesh, batch):
+    """``train_model`` for one epoch of ``trainset`` (host-fed, no
+    evaluation), recording each step's metrics."""
+    from joint_vae_tpu_torch.train import trainer
+    from joint_vae_tpu_torch.utils.print_log import EpochOutput
+    steps = []
+    real = trainer.make_train_step
+
+    def recording(*a, **k):
+        step = real(*a, **k)
+
+        def run(state, x, y, eps=None):
+            state, m = step(state, x, y, eps)
+            steps.append({k_: float(v) for k_, v in m.items()})
+            return state, m
+        return run
+    trainer.make_train_step = recording
+    try:
+        trainer.train_model(job, trainset, None, epochs=job.trained + 1,
+                            batch_size=batch,
+                            outputs=EpochOutput(stdout=False), seed=1,
+                            final_test=False, final_ood=False, mesh=mesh)
+    finally:
+        trainer.make_train_step = real
+    return steps
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms (warn-only: an op without one
+    warns) around a comparison of training runs: the card's backward
+    otherwise sums some gradients with atomics in no fixed order, and
+    Adam's first steps turn such last-bit differences into moves of
+    about lr (module docstring)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def _steps_gate(got, want, again, cfg, rtol: float, what: str) -> dict:
+    """The loss components of a mesh run's steps against the same steps
+    without a mesh: within ``rtol``, or within twice the spread of the
+    steps run twice without a mesh where that is larger (the card's
+    backward sums some gradients with atomics, in no fixed order).  Every
+    metric's largest relative difference is reported, mesh against plain
+    and plain against plain."""
+    if not len(got) == len(want) == len(again):
+        raise AssertionError('{}: {} steps, want {}'.format(
+            what, len(got), len(want)))
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    out = {'max_rel_err': 0.0, 'max_rel_err_all': 0.0,
+           'plain_spread_all': 0.0}
+    for i, (g, w, a) in enumerate(zip(got, want, again)):
+        for k, v in w.items():
+            out['max_rel_err_all'] = max(out['max_rel_err_all'],
+                                         rel(g[k], v))
+            out['plain_spread_all'] = max(out['plain_spread_all'],
+                                          rel(a[k], v))
+            if k not in cfg.loss_components:
+                continue
+            out['max_rel_err'] = max(out['max_rel_err'], rel(g[k], v))
+            lim = max(rtol * abs(v), 2 * abs(a[k] - v))
+            if not abs(g[k] - v) <= lim:
+                raise AssertionError(
+                    '{} step {} {}: {} against {} (plain again {})'.format(
+                        what, i, k, g[k], v, a[k]))
+    return out
+
+
+def _dir_bytes(d: str) -> int:
+    return sum(os.path.getsize(os.path.join(p, f))
+               for p, _, fs in os.walk(d) for f in fs)
+
+
+def _job_arrays(job) -> dict:
+    from joint_vae_tpu_torch.save_load.from_jax import (opt_state_to_jax,
+                                                        state_dict_to_jax)
+    out = dict(state_dict_to_jax(job.model))
+    out.update({'opt/' + k: v for k, v in opt_state_to_jax(
+        job.model, job.opt_cfg, job.state.opt_state).items()})
+    return out
+
+
+def mesh_world1(card: str, trainset, backend: str = 'nccl',
+                device: str = 'cuda', cfg=None) -> tuple:
+    """(a): the host-fed flagship steps on a (1, 1) mesh over one rank of
+    ``backend`` against the same steps without a mesh; the steps and the
+    all-reduce timed; the sharded checkpoint, synchronous and
+    asynchronous, restored byte-equal into a run without a mesh."""
+    import torch.distributed as dist
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.parallel.mesh import (all_reduce_mean_,
+                                                   distributed_init,
+                                                   make_mesh)
+    from joint_vae_tpu_torch.parallel.shard_steps import reduce_over_data
+    from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
+    from joint_vae_tpu_torch.save_load.sharded_checkpoint import (
+        AsyncCheckpointer, is_sharded_checkpoint)
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    cuda = device == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    root = os.path.join(WORK, 'mesh_world1')
+    shutil.rmtree(root, ignore_errors=True)
+    src = new_job(cfg or flagship_config(), OptimizerConfig(lr=TRAIN_LR),
+                  seed=0, device=device)
+    save_job(src, os.path.join(root, 'src'))
+
+    distributed_init('localhost:{}'.format(_free_port()), 1, 0,
+                     backend=backend)
+    try:
+        mesh = make_mesh(device=device)
+        if mesh.group('data') is None or dist.get_backend() != backend:
+            raise AssertionError('no {} group on the mesh'.format(backend))
+        # deterministic algorithms, and the same steps twice without the
+        # mesh: the card's own spread, if any is left
+        with _deterministic():
+            plain = load_job(os.path.join(root, 'src'), device=device)
+            want = _recorded_train(plain, trainset, None, MESH_BATCH)
+            again = _recorded_train(load_job(os.path.join(root, 'src'),
+                                             device=device), trainset, None,
+                                    MESH_BATCH)
+            meshed = load_job(os.path.join(root, 'src'), device=device)
+            _count_reset()
+            got = _recorded_train(meshed, trainset, mesh, MESH_BATCH)
+            launches = _counts()
+        if launches != _want(len(got)):
+            raise AssertionError('world-1 mesh steps launched {}, want {}'
+                                 .format(launches, _want(len(got))))
+        if len(got) != MESH_STEPS:
+            raise AssertionError('{} mesh steps'.format(len(got)))
+        worst = _steps_gate(got, want, again, meshed.model_cfg,
+                            MESH_WORLD1_RTOL, 'world-1 mesh')
+
+        # the step with and without the mesh, in turns; the all-reduce
+        x, y = trainset[:MESH_BATCH]
+        xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        yd = torch.from_numpy(np.ascontiguousarray(y)).to(device)
+        steps = {'plain': (plain.state, make_train_step(
+                     plain.model, plain.opt_cfg)),
+                 'mesh': (meshed.state, make_train_step(
+                     meshed.model, meshed.opt_cfg, mesh=mesh))}
+
+        def step_ms(kind):
+            st, fn = steps[kind]
+            for _ in range(MESH_WARMUP):
+                fn(st, xd, yd)
+            sync()
+            t = time.perf_counter()
+            for _ in range(MESH_TIMED):
+                fn(st, xd, yd)
+            sync()
+            return (time.perf_counter() - t) * 1e3 / MESH_TIMED
+        turns = [('plain', step_ms('plain')), ('mesh', step_ms('mesh')),
+                 ('mesh', step_ms('mesh')), ('plain', step_ms('plain'))]
+        n_params = sum(p.numel() for p in meshed.model.parameters())
+        flat = torch.zeros(n_params, device=device)
+        grads = {n: torch.zeros_like(p)
+                 for n, p in meshed.model.named_parameters()}
+        if cuda:
+            ar_ms = time_ms(lambda: all_reduce_mean_(flat, mesh, 'data',
+                                                     force=True), 20)
+            red_ms = time_ms(lambda: reduce_over_data(grads, mesh), 20)
+        else:
+            ar_ms = red_ms = None
+
+        # the sharded checkpoint: synchronous, then asynchronous
+        ckpt = {}
+        live = _job_arrays(meshed)
+        for kind in ('sync', 'async'):
+            d = os.path.join(root, kind)
+            ck = AsyncCheckpointer() if kind == 'async' else None
+            sync()
+            t = time.perf_counter()
+            save_job(meshed, d, sharded=True, checkpointer=ck)
+            submit_s = time.perf_counter() - t
+            if ck is not None:
+                ck.wait()
+            total_s = time.perf_counter() - t
+            if not is_sharded_checkpoint(os.path.join(d, 'state.shards')):
+                raise AssertionError('{}: no sharded checkpoint'.format(kind))
+            back = _job_arrays(load_job(d, device=device))
+            bad = [k for k in live if back[k].tobytes() != live[k].tobytes()]
+            if bad or set(back) != set(live):
+                raise AssertionError('{} checkpoint restored with other '
+                                     'bytes: {}'.format(kind, bad[:5]))
+            ckpt[kind] = {
+                'seconds': round(total_s, 4), 'submit_s': round(submit_s, 4),
+                'bytes': _dir_bytes(os.path.join(d, 'state.shards'))
+                + _dir_bytes(os.path.join(d, 'optimizer.shards'))}
+    finally:
+        dist.destroy_process_group()
+    summary = {'card': card, 'backend': backend, 'steps': len(got),
+               'batch': MESH_BATCH, **worst,
+               'step_ms_turns': [(k, round(v, 3)) for k, v in turns],
+               'all_reduce_ms': ar_ms, 'all_reduce_floats': n_params,
+               'reduce_over_data_ms': red_ms, 'checkpoint': ckpt,
+               'launches': launches}
+    print('mesh_world1', json.dumps(summary), flush=True)
+    return launches, summary
+
+
+def _mesh_sets(size=None):
+    from joint_vae_tpu_torch.data.loaders import get_dataset
+    _, testset = get_dataset('cifar100', splits=['test'])
+    _, ood = get_dataset(MESH_OOD, splits=['test'])
+    if size:
+        testset = testset.subset(np.arange(size))
+        ood = ood.subset(np.arange(size))
+    return testset, ood
+
+
+def _mesh_ood(job, testset, ood, batch, device, mesh=None):
+    from joint_vae_tpu_torch.evals.engines import ood_detection_rates
+    from joint_vae_tpu_torch.train.state import make_generator
+    return ood_detection_rates(
+        job, testset, [ood], batch_size=batch, recording=False,
+        from_where=('compute',), update_self_ood=False,
+        generator=make_generator(device, MESH_NOISE_SEED), mesh=mesh)
+
+
+def _mesh_steps(job, trainset, device, mesh=None, batch=MESH_BATCH):
+    """MESH_STEPS steps of the flagship on the first batches of
+    ``trainset``; each rank feeds its rows (all of them on the 'model'
+    axis)."""
+    from joint_vae_tpu_torch.parallel.sharded_data import aligned_global_batch
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    step = make_train_step(job.model, job.opt_cfg, mesh=mesh)
+    out = []
+    for i in range(MESH_STEPS):
+        x, y = trainset[i * batch:(i + 1) * batch]
+        if mesh is None:
+            xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            yd = torch.from_numpy(np.ascontiguousarray(y)).to(device)
+        else:
+            xd, yd = aligned_global_batch(mesh, x, y)
+        _, m = step(job.state, xd, yd)
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def mesh_rank(argv):
+    """One rank of phase 12 (b)/(c): ``chip_smoke.py --mesh-rank <spec
+    json> <rank>``.  Writes ``<out>/rank-<r>.json``."""
+    import torch.distributed as dist
+    from joint_vae_tpu_torch.device import set_float32_math
+    from joint_vae_tpu_torch.parallel.mesh import (distributed_init,
+                                                   ensure_placed, make_mesh)
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    rank = int(argv[1])
+    device = spec['device']
+    distributed_init('localhost:{}'.format(spec['port']), spec['world'],
+                     rank, backend=spec['backend'])
+    if device == 'cuda':
+        set_float32_math()
+        device = 'cuda:{}'.format(torch.cuda.current_device())
+    out = {'rank': rank, 'device': device, 'runs': {}}
+    testset, ood = _mesh_sets(spec.get('size'))
+    for run in spec['runs']:
+        mesh = make_mesh(model_axis=run.get('model_axis', 1),
+                         sample_axis=run.get('sample_axis', 1),
+                         device=device)
+        job = load_job(spec['job_dir'], device=device)
+        job.state = ensure_placed(job.state, mesh)
+        _count_reset()
+        t = time.perf_counter()
+        if run.get('steps'):
+            with _deterministic():
+                got = _mesh_steps(job, testset, device, mesh,
+                                  spec['step_batch'])
+        else:
+            got = _mesh_ood(job, testset, ood, spec['batch'], device, mesh)
+        if device.startswith('cuda'):
+            torch.cuda.synchronize()
+        out['runs'][run['name']] = {
+            'seconds': time.perf_counter() - t, 'launches': _counts(),
+            'result': got, 'coords': mesh.coords}
+    # the four collectives the port uses, on this device's tensors
+    mesh = make_mesh(model_axis=spec['world'], device=device)
+    g = mesh.group('model')
+    t = torch.full((3,), float(rank + 1), device=device)
+    dist.all_reduce(t, group=g)
+    parts = [torch.empty(2, device=device) for _ in range(spec['world'])]
+    dist.all_gather(parts, torch.full((2,), float(rank), device=device),
+                    group=g)
+    b = torch.full((2,), float(rank), device=device)
+    dist.broadcast(b, src=0, group=g)
+    dist.barrier()
+    n = spec['world']
+    out['collectives'] = {
+        'all_reduce': t.tolist() == [n * (n + 1) / 2] * 3,
+        'all_gather': [p.tolist() for p in parts]
+        == [[float(r)] * 2 for r in range(n)],
+        'broadcast': b.tolist() == [0.0, 0.0], 'barrier': True}
+    if device.startswith('cuda'):
+        out['kernels'] = mesh_kernel_checks(rank, spec['world'],
+                                            spec['step_batch'])
+    with open(os.path.join(spec['out'], 'rank-{}.json'.format(rank)),
+              'w') as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_kernel_checks(rank: int, parts: int, step_batch: int) -> dict:
+    """Both kernels on this rank against their plain versions at the
+    shapes a rank of the mesh gives them: the combine on a block of
+    C / parts classes (L=16, N=512, K=128); the conv at the decoder's
+    last same-grid site at each batch this rank decodes: all L samples
+    on the 'model' axis, its block of the L+1 samples less the mean one
+    on the 'sample' axis (``mesh.py::sample_blocks``), and the train
+    step's L=1 decode of its rows."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet, flagship_config
+    from joint_vae_tpu_torch.ops.iws import iws_combine, iws_combine_plain
+    from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
+                                                        same_grid_conv_plain)
+    from joint_vae_tpu_torch.parallel.mesh import sample_blocks
+    g = torch.Generator(device='cuda').manual_seed(11)
+    args, _ = iws_inputs(16, OOD_BATCH, 100 // parts, 128, g, mean_scale=17)
+    got = iws_combine(*args)
+    want = iws_combine_plain(*args)
+    iws_err = (got - want).abs().max().item()
+    if not torch.all((got - want).abs() <= IWS_ATOL + IWS_RTOL * want.abs()):
+        raise AssertionError('iws_combine on a class block: {}'.format(
+            iws_err))
+    cfg = flagship_config()
+    L = cfg.test_latent_sampling
+    a, b = sample_blocks(L + 1, parts)[rank]
+    decodes = {'model': L * OOD_BATCH,
+               'sample': (max(b, 1) - max(a, 1)) * OOD_BATCH,
+               'steps': cfg.latent_sampling * step_batch}
+    model = CVNet(cfg)
+    tol = CONV_TOL[torch.float32]
+    conv = {}
+    for axis, n in decodes.items():
+        site = same_grid_sites(model, n, 1)[-1]
+        x, _, kd = site_inputs(site, torch.float32, g)
+        got = same_grid_conv(x, kd, site['lo'], site['lo'])
+        want = same_grid_conv_plain(x, kd, site['lo'], site['lo'])
+        err = (got - want).abs().max().item()
+        if not torch.all((got - want).abs() <= tol * (
+                want.abs() + want.square().mean().sqrt())):
+            raise AssertionError('same_grid_conv at n={}: {}'.format(n, err))
+        conv[axis] = {'max_abs_err': err, 'site': site['site'], 'n': n}
+        del x, kd, got, want
+    return {'iws_combine': {'max_abs_err': iws_err,
+                            'shape': [16, OOD_BATCH, 100 // parts, 128]},
+            'same_grid_conv': conv}
+
+
+def mesh_ranks(backend: str, world: int, job_dir: str, device: str = 'cuda',
+               size=None, batch: int = OOD_BATCH,
+               step_batch: int = MESH_BATCH) -> list:
+    """Spawn the ranks of (b)/(c), each under its own time limit; a rank
+    that fails or hangs fails the phase."""
+    out = os.path.join(WORK, 'mesh_{}'.format(backend))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    spec = {'backend': backend, 'world': world, 'port': _free_port(),
+            'device': device, 'job_dir': job_dir, 'out': out, 'size': size,
+            'batch': batch, 'step_batch': step_batch,
+            'runs': list(MESH_RUNS) + [{'name': 'steps2', 'model_axis': 2,
+                                        'steps': MESH_STEPS}]}
+    path = os.path.join(out, 'spec.json')
+    with open(path, 'w') as f:
+        json.dump(spec, f)
+    logs = [open(os.path.join(out, 'rank-{}.log'.format(r)), 'w+')
+            for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               '--mesh-rank', path, str(r)],
+                              stdout=logs[r], stderr=subprocess.STDOUT,
+                              cwd=ROOT) for r in range(world)]
+    deadline = time.time() + MESH_RANK_TIMEOUT
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            break
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        text = []
+        for r in bad:
+            logs[r].seek(0)
+            text.append('rank {} exit {}:\n{}'.format(
+                r, procs[r].returncode, logs[r].read()[-3000:]))
+        raise AssertionError('{} ranks failed or timed out:\n{}'.format(
+            backend, '\n'.join(text)))
+    res = []
+    for r in range(world):
+        logs[r].close()
+        with open(os.path.join(out, 'rank-{}.json'.format(r))) as f:
+            res.append(json.load(f))
+    return res
+
+
+def mesh_check_ranks(ranks, ref_ood, ref_steps, cfg, n_batches,
+                     what) -> dict:
+    """Each rank's runs against the one-process card run: OOD AUCs equal
+    and means within MESH_MEAN_RTOL, the steps' losses within
+    MESH_STEP_RTOL (``_steps_gate``; ``ref_steps`` holds the one-process
+    steps twice), the launches of each run."""
+    worst = {'mean_rel': 0.0, 'step_rel': 0.0, 'step_rel_all': 0.0,
+             'plain_spread_all': 0.0}
+    want_ood = {'same_grid_conv': SITES_PER_BATCH * n_batches,
+                'same_grid_conv_dx': 0, 'iws_combine': n_batches}
+    for r in ranks:
+        if not all(r['collectives'].values()):
+            raise AssertionError('{} rank {} collectives: {}'.format(
+                what, r['rank'], r['collectives']))
+        for name, run in r['runs'].items():
+            if name == 'steps2':
+                g = _steps_gate(run['result'], ref_steps[0], ref_steps[1],
+                                cfg, MESH_STEP_RTOL,
+                                '{} rank {} {}'.format(what, r['rank'], name))
+                worst['step_rel'] = max(worst['step_rel'], g['max_rel_err'])
+                worst['step_rel_all'] = max(worst['step_rel_all'],
+                                            g['max_rel_err_all'])
+                worst['plain_spread_all'] = g['plain_spread_all']
+                want = _want(MESH_STEPS)
+            else:
+                got = run['result'][MESH_OOD]
+                for m, e in ref_ood[MESH_OOD].items():
+                    if got[m]['auc'] != e['auc']:
+                        raise AssertionError('{} rank {} {} {}: AUC {} '
+                                             'against {}'.format(
+                                                 what, r['rank'], name, m,
+                                                 got[m]['auc'], e['auc']))
+                    err = abs(got[m]['mean'] - e['mean']) / max(
+                        abs(e['mean']), 1e-30)
+                    if not err <= MESH_MEAN_RTOL:
+                        raise AssertionError('{} rank {} {} {}: mean {} '
+                                             'against {}'.format(
+                                                 what, r['rank'], name, m,
+                                                 got[m]['mean'], e['mean']))
+                    worst['mean_rel'] = max(worst['mean_rel'], err)
+                want = want_ood
+            if run['launches'] != want:
+                raise AssertionError('{} rank {} {}: launches {}, want {}'
+                                     .format(what, r['rank'], name,
+                                             run['launches'], want))
+    return worst
+
+
+def _mesh_launch_keys(launches: dict, kernel: str) -> dict:
+    """The kernels line's phase-12 launch counts of one kernel: the
+    world-1 mesh's steps, and per gloo run each rank's."""
+    return {'launches_mesh_world1': launches['world1'][kernel],
+            'launches_mesh_gloo': {n: [c[kernel] for c in per_rank]
+                                   for n, per_rank in launches['gloo'].items()}}
+
+
+def mesh_phase(card: str) -> tuple:
+    """Phase 12: (a), (b) and (c) of the section's comment."""
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    testset, ood = _mesh_sets()
+    w1_launches, w1 = mesh_world1(card, testset.subset(
+        np.arange(MESH_STEPS * MESH_BATCH)))
+
+    job_dir = os.path.join(WORK, 'flagship_job')       # phase 4's job
+    job = load_job(job_dir)
+    t = time.perf_counter()
+    ref_ood = _mesh_ood(job, testset, ood, OOD_BATCH, 'cuda')
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t
+    with _deterministic():
+        ref_steps = [_mesh_steps(load_job(job_dir), testset, 'cuda')
+                     for _ in range(2)]
+    n_batches = 2 * -(-len(testset) // OOD_BATCH)
+
+    t = time.perf_counter()
+    gloo = mesh_ranks('gloo', 2, job_dir)
+    gloo_s = time.perf_counter() - t
+    worst = mesh_check_ranks(gloo, ref_ood, ref_steps, job.model_cfg,
+                             n_batches, 'gloo')
+    line = {'card': card, 'world1': w1,
+            'gloo': {'ranks': 2, 'seconds': round(gloo_s, 2),
+                     'one_process_ood_s': round(ref_s, 3), **worst,
+                     'runs': {r['rank']: {n: {'seconds': round(v['seconds'],
+                                                               2),
+                                              'launches': v['launches'],
+                                              'coords': v['coords']}
+                                          for n, v in r['runs'].items()}
+                              for r in gloo},
+                     'kernels': {r['rank']: r['kernels'] for r in gloo},
+                     'note': 'two processes share one card: correctness '
+                             'runs, their times are no speed figure'}}
+    print('mesh_gloo', json.dumps(line['gloo']), flush=True)
+    if torch.cuda.device_count() >= 2:
+        nccl = mesh_ranks('nccl', 2, job_dir)
+        line['nccl'] = mesh_check_ranks(nccl, ref_ood, ref_steps,
+                                        job.model_cfg, n_batches, 'nccl')
+        print('mesh_nccl', json.dumps(line['nccl']), flush=True)
+    else:
+        print('mesh_nccl: the NCCL run over two cards waits for a machine '
+              'with two cards (this one has {})'.format(
+                  torch.cuda.device_count()), flush=True)
+    launches = {'world1': w1_launches,
+                'gloo': {n: [r['runs'][n]['launches'] for r in gloo]
+                         for n in gloo[0]['runs']}}
+    return launches, line
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -3939,6 +4508,7 @@ def main():
      driver_line) = timed('10 trunks_and_drivers', trunks_and_drivers, card)
     (interop_serve, interop_test, interop_resume, interop_resnet,
      interop_line) = timed('11 interop', interop, card)
+    mesh_launches, mesh_line = timed('12 mesh', mesh_phase, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -3962,6 +4532,7 @@ def main():
          'launches_interop_resnet_serve': interop_resnet['same_grid_conv'],
          'launches_interop_test_cli': interop_test['same_grid_conv'],
          'launches_interop_resume': interop_resume['same_grid_conv'],
+         **_mesh_launch_keys(mesh_launches, 'same_grid_conv'),
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -4010,6 +4581,7 @@ def main():
          'launches_drivers': {t: c['same_grid_conv_dx']
                               for t, c in driver_launches.items()},
          'launches_interop_resume': interop_resume['same_grid_conv_dx'],
+         **_mesh_launch_keys(mesh_launches, 'same_grid_conv_dx'),
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -4061,6 +4633,7 @@ def main():
          'launches_interop_test_cli': interop_test['iws_combine'],
          'launches_bench_bf16': {m: c['iws_combine']
                                  for m, c in bench16.items()},
+         **_mesh_launch_keys(mesh_launches, 'iws_combine'),
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -4076,7 +4649,7 @@ def main():
                       'train': train_summary, 'ood': ood_summary,
                       'bench_train': bench, 'fleet': fleet, 'wim': wim,
                       'resnet': resnet, 'drivers': driver_line,
-                      'interop': interop_line,
+                      'interop': interop_line, 'mesh': mesh_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -4084,4 +4657,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == '--mesh-rank':
+        mesh_rank(sys.argv[2:])
+    else:
+        main()

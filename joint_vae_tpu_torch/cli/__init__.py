@@ -15,17 +15,47 @@ def add_device_arg(parser):
 
 
 def add_mesh_args(parser):
-    """The JAX package's mesh flags, parsed to be refused
-    (``utils/parameters.py::refuse_unported``, ROADMAP Queue 1 item 14)."""
+    """Mesh and multi-process flags shared by the train, test and ft CLIs
+    (``parallel/mesh.py``): one rank per device, launched by
+    ``torchrun --nproc-per-node N``."""
     parser.add_argument('--mesh', nargs='?', const='all', default=None,
-                        metavar='N', help='(not ported yet)')
+                        metavar='N',
+                        help="run over a ('data','model') device mesh of N "
+                             'devices, one rank each (default: the whole '
+                             'world); implied by --distributed')
     parser.add_argument('--model-axis', type=int, default=1,
-                        help='(not ported yet)')
+                        help="size of the mesh 'model' axis (prior "
+                             'dictionary / classifier head split by class)')
     parser.add_argument('--sample-axis', type=int, default=1,
-                        help='(not ported yet)')
+                        help="size of the mesh 'sample' axis (splits the "
+                             'latent samples L during evaluation)')
     parser.add_argument('--distributed', action='store_true',
-                        help='(not ported yet)')
+                        help="join torchrun's (or SLURM's) world of ranks; "
+                             'run the same command on every rank')
     return parser
+
+
+def mesh_from_args(args):
+    """-> ``parallel.mesh.Mesh`` or None from :func:`add_mesh_args` flags.
+    ``--mesh`` or ``--distributed`` joins the launcher's world (a
+    one-process no-op without one; gloo with ``--device cpu``, else the
+    default backend); a world of more than one rank always gets a mesh,
+    which the trainer and the fine-tuning need there."""
+    from ..parallel.mesh import distributed_init, make_mesh, world
+    distributed = getattr(args, 'distributed', False)
+    device = getattr(args, 'device', None)
+    if args.mesh is not None or distributed:
+        distributed_init(backend='gloo' if device == 'cpu' else None)
+    if args.mesh is None and world()[0] == 1 and not distributed:
+        if args.model_axis > 1 or args.sample_axis > 1:
+            raise SystemExit('--model-axis/--sample-axis need --mesh')
+        return None
+    n = None if args.mesh in (None, 'all') else int(args.mesh)
+    try:
+        return make_mesh(n, model_axis=args.model_axis,
+                         sample_axis=args.sample_axis, device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 def find_job_dirs(root):

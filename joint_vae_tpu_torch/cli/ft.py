@@ -9,8 +9,9 @@ unless ``--device cpu``.
 Port of ``joint_vae_tpu/cli/ft.py``.  Load a source job as a WIMJob,
 build the alternate prior from CLI+config ([wim-default]), build the
 moving set, finetune into a NEW job under ``<job-dir>/wim``; or train a
-Poscod head; or run the array aggregation pass.  The mesh flags are
-refused (``utils/parameters.py::refuse_unported``).
+Poscod head; or run the array aggregation pass.  ``--mesh`` (with
+``torchrun --nproc-per-node N``) runs the fine-tuning, Poscod and the
+latent records on a device mesh; rank 0 draws the job number and writes.
 """
 
 import argparse
@@ -31,6 +32,8 @@ from ..ft.poscod import PoscodJob, save_poscod_head
 from ..ft.scheduler import Scheduler
 from ..ft.wim import WIMJob
 from ..ops.roc import DEFAULT_KEPT_TPR
+from ..parallel.mesh import broadcast_object
+from ..save_load.checkpoint import is_write_process
 from ..save_load.fetch import find_by_job_number
 from ..save_load.jobs import save_job
 from ..save_load.recorders import SampleRecorder
@@ -39,7 +42,7 @@ from ..utils.inspection import latent_pca, latent_shift, proj2d_csv
 from ..utils.parameters import (load_config_section, next_job_number,
                                 refuse_unported)
 from ..utils.print_log import EpochOutput
-from . import add_device_arg, add_mesh_args
+from . import add_device_arg, add_mesh_args, mesh_from_args
 from .train import save_dir_for
 
 
@@ -52,16 +55,17 @@ def _run_poscod(args, job, dflt):
     moving = create_moving_set(
         dataset, moving_size=int(dflt('moving-size', 512)),
         ood_mix=1.0, oodsets=ood_names, seed=args.seed, task=args.task)
+    mesh = args.mesh_obj
     pc = PoscodJob(job=job).finetune(testset, moving,
                                      epochs=int(dflt('epochs', 5)),
                                      batch_size=args.batch_size,
-                                     seed=args.seed)
-    ind_scores = pc.llr_scores(testset, args.test_batch_size)
+                                     seed=args.seed, mesh=mesh)
+    ind_scores = pc.llr_scores(testset, args.test_batch_size, mesh=mesh)
     epoch = job.trained
     job.ood_results.setdefault(epoch, {})
     for n in ood_names:
         _, ood = get_dataset(n, splits=['test'])
-        s = pc.llr_scores(ood, args.test_batch_size)
+        s = pc.llr_scores(ood, args.test_batch_size, mesh=mesh)
         r = host_roc(ind_scores, s)
         # 'n' is the OOD sample count — the reuse tier compares it against
         # the oodset size (evals/engines.py n_wanted; ref cvae.py:1886)
@@ -166,6 +170,7 @@ def main(argv=None):
         args = p.parse_args(line.split(), namespace=args)
     args.task += args.sampling_task_shift
     refuse_unported(args)
+    args.mesh_obj = mesh_from_args(args)
     logging.basicConfig(level=logging.DEBUG if args.debug else
                         logging.INFO if args.verbose else logging.WARNING)
     if args.seed is None:
@@ -256,7 +261,9 @@ def _job_main(args, dflt):
     # checkpoint and ood.json)
     wim_root = args.wim_job_dir or os.path.join(args.job_dir, 'wim')
     source_number = job.job_number
-    job.job_number = args.job_number or next_job_number(args.job_dir)
+    # rank 0 draws the number (the counter file is shared)
+    job.job_number = args.job_number or broadcast_object(
+        next_job_number(args.job_dir) if is_write_process() else None)
     job.training_parameters['from_job'] = source_number
     job.saved_dir = save_dir_for(job, wim_root,
                                  job.model_cfg.latent_sampling)
@@ -299,15 +306,17 @@ def _job_main(args, dflt):
         padding_sets=args.padding_sets, padding=args.padding,
         mix_padding=args.mix_padding, seed=args.seed, task=args.task)
 
+    mesh = args.mesh_obj
     inspect_sets = [testset] + list(oodsets)
     if args.inspection and job.saved_dir:
         record_latents(wim, inspect_sets, args.test_batch_size,
                        make_generator(job.device, args.seed),
                        os.path.join(job.saved_dir, 'samples',
-                                    '{:04d}'.format(job.trained), 'init'))
+                                    '{:04d}'.format(job.trained), 'init'),
+                       mesh=mesh)
 
-    outputs = EpochOutput()
-    if job.saved_dir:
+    outputs = EpochOutput(stdout=is_write_process())
+    if job.saved_dir and is_write_process():
         # add_file creates the parent directory itself
         outputs.add_file(os.path.join(job.saved_dir, 'output.out'))
 
@@ -319,7 +328,8 @@ def _job_main(args, dflt):
                      train_size=int(dflt('train-size', 100000)),
                      batch_size=args.batch_size,
                      test_batch_size=args.test_batch_size,
-                     save_dir=job.saved_dir, seed=args.seed, outputs=outputs)
+                     save_dir=job.saved_dir, seed=args.seed, mesh=mesh,
+                     outputs=outputs)
     finally:
         outputs.close()
     # moving-set composition into the persisted wim params so the flat
@@ -337,10 +347,12 @@ def _job_main(args, dflt):
         record_latents(wim, inspect_sets, args.test_batch_size,
                        make_generator(job.device, args.seed),
                        os.path.join(job.saved_dir, 'samples',
-                                    '{:04d}'.format(job.trained)))
-        _report_latent_shift(job.saved_dir, job.trained, testset.name,
-                             classes=getattr(testset, 'classes', None),
-                             model=args.inspection_model)
+                                    '{:04d}'.format(job.trained)),
+                       mesh=mesh)
+        if is_write_process():
+            _report_latent_shift(job.saved_dir, job.trained, testset.name,
+                                 classes=getattr(testset, 'classes', None),
+                                 model=args.inspection_model)
     return 0
 
 

@@ -3,13 +3,15 @@
     python -m joint_vae_tpu_torch.cli.test --job-dir jobs [--dataset cifar10 ...]
         [--compute [hard]] [--latex --results-file name] [--device cpu]
 
-Port of ``joint_vae_tpu/cli/test.py``, every flag but the JAX device and
-mesh ones: ``--device`` picks the torch device of a recompute (the CUDA
-card unless 'cpu' is asked for); ``--mesh``, ``--model-axis``,
-``--sample-axis`` and ``--distributed`` are refused (ROADMAP Queue 1 item
-14).  Runs that load no weights (no ``--compute``, the recorder tiers,
-``--list-jobs-and-quit``, ``--dry-run``) load jobs as ghosts and touch no
-device; the recorder tier replays on the host.
+Port of ``joint_vae_tpu/cli/test.py``, every flag but the JAX device
+ones: ``--device`` picks the torch device of a recompute (the CUDA card
+unless 'cpu' is asked for); ``--mesh``, ``--model-axis``,
+``--sample-axis`` and ``--distributed`` run the recompute on a device
+mesh (``torchrun --nproc-per-node N -m joint_vae_tpu_torch.cli.test ...
+--mesh``; rank 0 writes the JSON files).  Runs that load no weights (no
+``--compute``, the recorder tiers, ``--list-jobs-and-quit``,
+``--dry-run``) load jobs as ghosts and touch no device; the recorder tier
+replays on the host.
 
 Flow: fetch+filter models -> plan via available_results (json / recorders /
 compute per --compute mode) -> recompute what is missing -> build dataframes
@@ -33,13 +35,14 @@ from ..save_load.fetch import fetch_models
 from ..save_load.jobs import load_job, save_job
 from ..evals.engines import (accuracy, ood_detection_rates,
                              misclassification_detection_rates)
+from ..parallel.mesh import ensure_placed
 from ..results.tables import results_dataframe, agg_results, auto_remove_index
 from ..results.texify import texify_test_results_df
 from ..utils.filters import (DictOfListsOfParamFilters, MetaFilter,
                              ParamFilter, filters_from_dict, get_filter_keys)
 from ..utils.parameters import refuse_unported
 from ..utils.testing import cache_early_stopping
-from . import add_device_arg, add_mesh_args
+from . import add_device_arg, add_mesh_args, mesh_from_args
 
 # abbreviations from the reference's filters.ini [abbr] section
 FILTER_ABBR = {'sigma': 's', 'latent_dim': 'K', 'latent_sampling': 'L',
@@ -223,6 +226,7 @@ def main(argv=None):
     add_filter_args(p)
     args = p.parse_args(argv)
     refuse_unported(args)
+    mesh = mesh_from_args(args)
     logging.basicConfig(level=logging.DEBUG if args.debug else
                         logging.INFO if args.verbose else logging.WARNING)
 
@@ -363,18 +367,21 @@ def main(argv=None):
             om = 'all' if args.ood_methods is None else args.ood_methods
             mm = ('all' if args.misclass_methods is None
                   else args.misclass_methods)
+            if mesh is not None and job.state is not None:
+                job.state = ensure_placed(job.state, mesh)
             for ep in wanted_epochs:
                 accuracy(job, testset, batch_size=args.batch_size,
                          num_batch=num_batch, method=pm, epoch=ep,
-                         from_where=where)
+                         from_where=where, mesh=mesh)
                 ood_detection_rates(job, testset, sets,
                                     batch_size=args.batch_size,
-                                    num_batch=num_batch,
+                                    num_batch=num_batch, mesh=mesh,
                                     method=om, epoch=ep, from_where=where)
                 misclassification_detection_rates(
                     job, testset, batch_size=args.batch_size,
                     num_batch=num_batch, predict_methods=pm,
-                    misclass_methods=mm, epoch=ep, from_where=where)
+                    misclass_methods=mm, epoch=ep, from_where=where,
+                    mesh=mesh)
             save_job(job, m['dir'], save_state=False)
         for ep in wanted_epochs:
             refreshed.append(make_dict_from_model(

@@ -11,6 +11,14 @@ job number -> build or resume the job -> datasets + same-size OOD
 companions from the registry -> save dir from the arch string -> sanity
 forward pass -> ``train_model`` (with its test and OOD passes) under a
 signal handler, the live table teed to ``<save dir>/output.out``.
+
+On N cards, one rank each (``parallel/mesh.py``)::
+
+    torchrun --nproc-per-node N -m joint_vae_tpu_torch.cli.train ... \
+        --mesh [--model-axis 2] [--sample-axis 2]
+
+Rank 0 draws the job number, writes the JSON files and prints the live
+table; each rank writes its own chunks of the sharded checkpoint.
 """
 
 import json
@@ -25,6 +33,8 @@ from ..data.loaders import get_dataset
 from ..data.registry import get_same_size_by_name
 from ..device import to_device
 from ..models.evaluate import evaluate
+from ..parallel.mesh import broadcast_object
+from ..save_load.checkpoint import is_write_process
 from ..save_load.dictify import _arch_string
 from ..save_load.fetch import find_by_job_number
 from ..save_load.jobs import mark, new_job
@@ -37,6 +47,7 @@ from ..utils.parameters import (get_args, model_config_from_args,
                                 refuse_unported)
 from ..utils.print_log import EpochOutput
 from ..utils.signaling import default_handler
+from . import mesh_from_args
 
 
 def save_dir_for(job, job_dir: str, latent_sampling: int,
@@ -66,6 +77,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.DEBUG if args.debug else
                         logging.INFO if args.verbose else logging.WARNING)
     refuse_unported(args)
+    mesh = mesh_from_args(args)
     for flag, v in (('--conv-padding', args.conv_padding),
                     ('--force-cross-y', args.force_cross_y)):
         if v:
@@ -98,7 +110,9 @@ def main(argv=None):
     else:
         model_cfg = model_config_from_args(args)
         opt_cfg = optimizer_config_from_args(args)
-        jn = args.job_number or next_job_number(args.job_dir)
+        # rank 0 draws the number (the counter file is shared)
+        jn = args.job_number or broadcast_object(
+            next_job_number(args.job_dir) if is_write_process() else None)
         job = new_job(model_cfg, opt_cfg, seed=args.seed, job_number=jn,
                       device=args.device)
         job.training_parameters.update({
@@ -153,10 +167,12 @@ def main(argv=None):
         raise SystemExit('sanity pass failed: total loss {}'.format(total))
     logging.info('sanity pass ok (total=%.4f); saving to %s', total, save_dir)
 
-    outputs = EpochOutput()
+    writer = is_write_process()
+    outputs = EpochOutput(stdout=writer)
     os.makedirs(save_dir, exist_ok=True)
-    outputs.add_file(os.path.join(save_dir, 'output.out'))
-    if args.output_dir:                    # ref train.py:271-275
+    if writer:
+        outputs.add_file(os.path.join(save_dir, 'output.out'))
+    if args.output_dir and writer:         # ref train.py:271-275
         os.makedirs(args.output_dir, exist_ok=True)
         outputs.add_file(os.path.join(
             args.output_dir, 'train-{:06d}.out'.format(job.job_number)))
@@ -177,7 +193,7 @@ def main(argv=None):
                     fine_tuning=args.fine_tuning,
                     final_test=not args.no_final_test,
                     final_ood=not args.no_final_ood,
-                    device_data=args.device_data)
+                    device_data=args.device_data, mesh=mesh)
     finally:
         outputs.close()
     return 0

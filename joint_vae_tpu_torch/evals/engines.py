@@ -28,9 +28,17 @@ accuracy, +2 for misclassification), as the JAX package keys its draws.
 A bfloat16 model scores with the 'bf16' loss epilogue
 (``models/evaluate.py`` ``native_scores``), the JAX engine's default for
 bfloat16 models, so that its per-class scores follow the JAX engine's.
-The JAX package's scan over stacked batches, its evaluation knobs (its
-``JVT_EVAL_*`` environment) and its mesh and multi-process branches are
-not ported.
+The JAX package's scan over stacked batches and its evaluation knobs (its
+``JVT_EVAL_*`` environment) are not ported.
+
+``mesh=`` feeds the compute tier over a device mesh
+(``parallel/mesh.py``): each batch that divides the 'data' axis runs as
+this rank's rows (a tail goes in whole), the decode splits its samples
+over 'sample', the classes are split over 'model' as the state is placed,
+and the losses and logits are gathered back by rows, so that every rank
+scores the whole set as the one-process run does.  A multi-process run
+skips the recorder replay tier (one rank replaying while the others run
+collectives would hang them); rank 0 writes the record files.
 """
 
 import logging
@@ -46,8 +54,10 @@ from ..models.evaluate import evaluate
 from ..ops.roc import DEFAULT_KEPT_TPR, roc_curve, two_sided_from_method
 from ..ops.scores import (batch_dist_measures, develop_starred_methods,
                           predict_after_evaluate, strip_roc_suffix)
+from ..parallel.mesh import eval_feed, world
 from ..save_load.dictify import _fpr_at, needed_components
 from ..save_load.jobs import Job
+from ..save_load.checkpoint import is_write_process
 from ..save_load.recorders import LossRecorder, find_record, record_filename
 from ..train.state import make_generator
 from .odin import make_odin_scores
@@ -58,6 +68,36 @@ _ALL_TIERS = ('json', 'recorders', 'compute')
 
 def _epoch_of(job: Job, epoch):
     return job.trained if epoch in (None, 'last') else int(epoch)
+
+
+def _multiprocess_tiers(from_where):
+    """A multi-process run keeps every rank on the same compute path: the
+    recorder replay tier reads per-host files, and one rank replaying
+    while the others run a collective-bearing forward would hang them.
+    The json tier stays (the job's results are the same on every
+    rank)."""
+    if world()[0] > 1:
+        return tuple(w for w in from_where if w != 'recorders')
+    return tuple(from_where)
+
+
+_LOGITS = '/logits'
+
+
+def _rows(key: str, t: torch.Tensor) -> int:
+    """The row axis of an evaluation output: losses (..., N), logits
+    (..., N, C)."""
+    return t.ndim - 2 if key == _LOGITS else t.ndim - 1
+
+
+def _run_split(run, n, forward):
+    """(losses, logits) of ``forward`` through ``eval_feed``'s ``run``."""
+    def fn():
+        losses, logits = forward()
+        return {**losses, _LOGITS: logits}
+    out = run(n, fn, _rows)
+    logits = out.pop(_LOGITS)
+    return out, logits
 
 
 def _is_wim_method(m: str) -> bool:
@@ -127,10 +167,12 @@ def _fill_recorder(recorder: LossRecorder, batches):
 def _collect_scores(job: Job, dataset: ArrayDataset, methods: Sequence[str],
                     batch_size: int, recorder: Optional[LossRecorder],
                     odin, generator: torch.Generator,
-                    num_batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                    num_batch: Optional[int] = None,
+                    mesh=None) -> Dict[str, torch.Tensor]:
     """Run the model over a dataset; returns {method: (N,)} scores on the
     job's device and fills ``recorder`` (if any) with the set's losses."""
-    model, cfg, dev = job.model, job.model_cfg, job.device
+    model, cfg = job.model, job.model_cfg
+    put, run = eval_feed(mesh, job.device, 1 + len(dataset.shape))
     loader = DataLoader(dataset, batch_size, shuffle=False,
                         seed=((recorder.restore_seed() or 0)
                               if recorder is not None else 0),
@@ -142,19 +184,23 @@ def _collect_scores(job: Job, dataset: ArrayDataset, methods: Sequence[str],
     for i, (x, y) in enumerate(loader):
         if num_batch is not None and i >= num_batch:
             break
-        xt = to_device(x, dev)
-        out = evaluate(model, xt, None, sigma_state=job.sigma_state,
-                       train=False, decode_mean=False, native_scores=native,
-                       generator=generator)
-        losses = dict(out.losses)
-        if odin is not None:
-            losses.update(odin(xt, generator))
+        xt = put(x)
+
+        def forward():
+            out = evaluate(model, xt, None, sigma_state=job.sigma_state,
+                           train=False, decode_mean=False,
+                           native_scores=native, generator=generator)
+            losses = dict(out.losses)
+            if odin is not None:
+                losses.update(odin(xt, generator))
+            return losses, out.logits
+        losses, logits = _run_split(run, len(x), forward)
         with torch.no_grad():
-            scores = batch_dist_measures(cfg, out.logits, losses, methods)
+            scores = batch_dist_measures(cfg, logits, losses, methods)
         for m in methods:
             per_method[m].append(scores[m])
         if recorder is not None:
-            rec_batches.append((losses, out.logits, y))
+            rec_batches.append((losses, logits, y))
     if recorder is not None and rec_batches:
         _fill_recorder(recorder, rec_batches)
     return {m: torch.cat(v) for m, v in per_method.items()}
@@ -184,7 +230,13 @@ def _scores_from_recorder(job: Job, recorder: LossRecorder,
 def _save_recorder(rec: LossRecorder, path: str):
     """Never degrade a stored recorder (ref recorders accumulate per epoch
     dir): keep the old file when it holds more samples; fold old-only keys
-    in when the sample counts match."""
+    in when the sample counts match.  Rank 0 writes; in a multi-process
+    run a tie keeps the old tensors (the replay tier is off there, so a
+    later engine recomputes what one process would have replayed), with
+    the new-only keys folded in, so that the record files do not depend
+    on the process count."""
+    if not is_write_process():
+        return
     base = path[:-4]  # same set stored in either format counts
     for ext in ('.jvr', '.npz'):
         p = base + ext
@@ -200,9 +252,15 @@ def _save_recorder(rec: LossRecorder, path: str):
                          old.recorded_samples, rec.recorded_samples)
             return
         if old.recorded_samples == rec.recorded_samples:
-            for k in old.keys():
-                if k not in rec:
-                    rec._tensors[k] = old.get(k)
+            if world()[0] > 1:
+                for k in rec.keys():
+                    if k not in old:
+                        old._tensors[k] = rec.get(k)
+                rec = old
+            else:
+                for k in old.keys():
+                    if k not in rec:
+                        rec._tensors[k] = old.get(k)
     rec.save(path)
     # the saved file supersedes any other-format twin (keys folded in
     # above); remove it so find_record's newest-wins rule can't resurrect
@@ -239,7 +297,8 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
                         record_dir: Optional[str] = None,
                         from_where: Sequence[str] = _ALL_TIERS,
                         generator: Optional[torch.Generator] = None,
-                        outputs=None) -> Dict[str, Dict[str, dict]]:
+                        outputs=None,
+                        mesh=None) -> Dict[str, Dict[str, dict]]:
     """OOD scores + ROC for the test set against each OOD set.
 
     Per-(set, method) 3-tier reuse (ref available_results dictify.py:215-382
@@ -251,6 +310,7 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
     """
     cfg = job.model_cfg
     epoch = _epoch_of(job, epoch)
+    from_where = _multiprocess_tiers(from_where)
     methods = develop_starred_methods(
         cfg.ood_methods if method == 'all'
         else ([method] if isinstance(method, str) else list(method)))
@@ -337,7 +397,7 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
                 rec = LossRecorder(batch_size)
                 rec.init_seed_for_dataloader(0)
             scored = _collect_scores(job, s, ms, batch_size, rec, odin,
-                                     generator, num_batch)
+                                     generator, num_batch, mesh=mesh)
             measures.setdefault(s.name, {}).update(scored)
             if rec is not None:
                 _save_recorder(rec, rec_path)
@@ -404,7 +464,8 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
              recording: bool = True,
              generator: Optional[torch.Generator] = None,
              from_where: Sequence[str] = _ALL_TIERS,
-             outputs=None) -> Dict[str, float]:
+             outputs=None,
+             mesh=None) -> Dict[str, float]:
     """Classification accuracy per predict method (ref cvae.py:1187-1446).
 
     3-tier per-method reuse: stored json with enough samples is returned
@@ -413,6 +474,7 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
     cvae.py:1268-1330); only the residue evaluates the model."""
     cfg = job.model_cfg
     epoch = _epoch_of(job, epoch)
+    from_where = _multiprocess_tiers(from_where)
     predict_methods = (cfg.predict_methods if method == 'all'
                        else ([method] if isinstance(method, str) else list(method)))
     if not predict_methods:
@@ -468,6 +530,7 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
         generator = make_generator(job.device, epoch + 1)
 
     model, dev = job.model, job.device
+    put, run = eval_feed(mesh, dev, 1 + len(testset.shape))
     loader = DataLoader(testset, batch_size, shuffle=False, drop_last=False)
     n_total = 0
     rec = LossRecorder(batch_size) if (recording and sdir) else None
@@ -482,17 +545,22 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
     for i, (x, y) in enumerate(loader):
         if num_batch is not None and i >= num_batch:
             break
-        out = evaluate(model, to_device(x, dev), None,
-                       sigma_state=job.sigma_state, train=False,
-                       decode_mean=False, generator=generator)
+        xt = put(x)
+
+        def forward():
+            out = evaluate(model, xt, None, sigma_state=job.sigma_state,
+                           train=False, decode_mean=False,
+                           generator=generator)
+            return out.losses, out.logits
+        losses, logits = _run_split(run, len(x), forward)
         yt = to_device(y, dev)
         with torch.no_grad():
             for j, m in enumerate(pm):
                 counts[j] += torch.sum(predict_after_evaluate(
-                    cfg, out.logits, out.losses, m) == yt)
+                    cfg, logits, losses, m) == yt)
         n_total += len(y)
         if rec is not None:
-            rec_batches.append((out.losses, out.logits, y))
+            rec_batches.append((losses, logits, y))
 
     n_correct = {m: int(c) for m, c in zip(pm, counts.cpu().numpy())}
     if estimated is not None and 'already' in predict_methods:
@@ -532,11 +600,14 @@ def misclassification_detection_rates(job: Job,
                                       generator: Optional[torch.Generator] = None,
                                       from_where: Sequence[str] = (
                                           'recorders', 'compute'),
-                                      outputs=None) -> Dict[str, dict]:
+                                      outputs=None,
+                                      mesh=None) -> Dict[str, dict]:
     """Detect misclassifications by thresholding confidence scores
     (ref cvae.py:1913-2080).  The recorder tier replays recorded tensors
-    without model forwards (ref from_where=('json', 'recorders'))."""
+    without model forwards (ref from_where=('json', 'recorders'));
+    ``mesh`` feeds the compute tier as in :func:`ood_detection_rates`."""
     cfg = job.model_cfg
+    from_where = _multiprocess_tiers(from_where)
     epoch = _epoch_of(job, epoch)
     pms = (cfg.predict_methods if predict_methods == 'all'
            else list(predict_methods))
@@ -571,7 +642,8 @@ def misclassification_detection_rates(job: Job,
         if generator is None:
             generator = make_generator(job.device, epoch + 2)
         _collect_scores(job, testset, list(mms), batch_size, rec,
-                        _make_odin(job, mms), generator, num_batch)
+                        _make_odin(job, mms), generator, num_batch,
+                        mesh=mesh)
         # persist the fresh recording even when no prior record file
         # existed (find_record only returns pre-existing files)
         if rec_path is None and sdir:

@@ -10,8 +10,13 @@ The latent noise comes from generators on the job's device: the loop's
 seeded with ``seed``, the post-tuning evaluation's with ``seed + 10000``
 for the test set and ``seed + 10000 + i + 1`` for OOD set ``i`` (the JAX
 package folds the same numbers into its key).  The WIM scores and their
-ROCs run on the host, over the sets' pulled losses.  The JAX package's
-mesh and multi-process branches are not ported.
+ROCs run on the host, over the sets' pulled losses.
+
+``mesh=`` runs the flow on a device mesh, as the trainer does: the state
+is placed with the sharding rules, the fine-tune batches are each rank's
+rows of the same global batches (the one-process data order), the
+evaluations are mesh-fed and gathered on every rank, and rank 0 writes
+the files.  A multi-process run needs a mesh.
 """
 
 import dataclasses
@@ -30,7 +35,9 @@ from ..models.evaluate import evaluate
 from ..ops.priors import PriorConfig, build_prior_config, init_prior_arrays
 from ..ops.roc import DEFAULT_KEPT_TPR, roc_curve, two_sided_from_method
 from ..ops.scores import batch_dist_measures
-from ..save_load.checkpoint import save_json
+from ..parallel.mesh import (batch_sharding, ensure_placed, eval_feed,
+                             put_global, world)
+from ..save_load.checkpoint import is_write_process, save_json
 from ..save_load.jobs import load_job, save_job
 from ..save_load.recorders import LossRecorder, SampleRecorder, record_filename
 from ..train.optimizers import build_optimizer
@@ -40,6 +47,7 @@ from .wim import (WIM_MISCLASS_METHODS_PER_TYPE, WIM_OOD_METHODS_PER_TYPE,
                   WIMJob, is_wim_method, wim_measures)
 
 WIM_PRIOR_FILE = 'wim_prior.npz'
+_LOGITS = '/logits'
 EVAL_SEED_OFFSET = 10_000
 LATENT_BATCHES = 8
 
@@ -48,7 +56,7 @@ def save_wim_prior(wim: WIMJob, job_dir: str):
     """Persist the frozen alternate-prior arrays next to state.npz, under
     the JAX package's keys (``mean``, ``var_param``), so that either
     package reloads the prior the job was tuned against."""
-    if wim.alternate_prior_params is None:
+    if wim.alternate_prior_params is None or not is_write_process():
         return
     np.savez(os.path.join(job_dir, WIM_PRIOR_FILE),
              **{k: v.detach().cpu().numpy()
@@ -96,18 +104,27 @@ def load_wim_job(job_dir: str, device: DeviceLike = None,
 
 
 def _both_prior_losses(wim: WIMJob, dataset: ArrayDataset, batch_size: int,
-                       generator: torch.Generator) -> Dict[str, np.ndarray]:
+                       generator: torch.Generator,
+                       mesh=None) -> Dict[str, np.ndarray]:
     """Full-set losses with their '@' twins, the sample-mean logits and
     the true labels, as host arrays; the device outputs are kept until
-    the set's end and pulled once per key."""
+    the set's end and pulled once per key.  ``mesh``: mesh-fed batches,
+    gathered on every rank."""
     job = wim.job
-    dev = job.device
+    put, run = eval_feed(mesh, job.device, 1 + len(dataset.shape))
     acc: Dict[str, list] = {}
     logits_l, ys = [], []
     for x, y in DataLoader(dataset, batch_size, shuffle=False):
-        _, logits, losses, _ = wim.evaluate_on_both_priors(
-            to_device(x, dev), sigma_state=job.sigma_state,
-            decode_mean=False, generator=generator)
+        xt = put(x)
+
+        def forward():
+            _, logits, losses, _ = wim.evaluate_on_both_priors(
+                xt, sigma_state=job.sigma_state, decode_mean=False,
+                generator=generator)
+            return {**losses, _LOGITS: logits}
+        losses = run(len(x), forward,
+                     lambda k, v: v.ndim - (2 if k == _LOGITS else 1))
+        logits = losses.pop(_LOGITS)
         for k, v in losses.items():
             acc.setdefault(k, []).append(v)
         logits_l.append(logits)
@@ -155,32 +172,41 @@ def host_roc(ins: np.ndarray, outs: np.ndarray, two_sided=False):
 
 def record_latents(wim: WIMJob, datasets: Sequence[ArrayDataset],
                    batch_size: int, generator: torch.Generator,
-                   out_dir: str) -> None:
+                   out_dir: str, mesh=None) -> None:
     """SampleRecorder dumps of the encoder means of each set's first
     ``LATENT_BATCHES`` batches, with both priors' centroids as
     auxiliaries: the input of the post-hoc PCA / latent-shift inspection
-    (ref ft/__main__.py:209-221 feeding ft/inspection.py)."""
+    (ref ft/__main__.py:209-221 feeding ft/inspection.py).  ``mesh``:
+    every rank runs the mesh-fed forwards and gathers, rank 0 writes."""
     job = wim.job
-    model, dev = job.model, job.device
+    if mesh is not None:
+        job.state = ensure_placed(job.state, mesh)
+    model = job.model
     centroids = model.prior()['mean'].detach().float().cpu().numpy()
     alternate = (wim.alternate_prior_params['mean'].float().cpu().numpy()
                  if wim.alternate_prior_params is not None else None)
     for ds in datasets:
+        put, run = eval_feed(mesh, job.device, 1 + len(ds.shape))
         rec = SampleRecorder()
         mus, ys = [], []
         for i, (x, y) in enumerate(DataLoader(ds, batch_size, shuffle=False)):
             if i >= LATENT_BATCHES:
                 break
-            out = evaluate(model, to_device(x, dev), sigma_state=job.sigma_state,
-                           L=1, decode_mean=False, generator=generator)
-            mus.append(out.mu)
+            xt = put(x)
+
+            def forward():
+                return {'mu': evaluate(model, xt, sigma_state=job.sigma_state,
+                                       L=1, decode_mean=False,
+                                       generator=generator).mu}
+            mus.append(run(len(x), forward, lambda k, v: v.ndim - 2)['mu'])
             ys.append(np.asarray(y))
         for mu, y in zip(mus, ys):
             rec.append_batch(mu=mu.float().cpu().numpy(), y=y)
         rec.append_batch(centroids=centroids)
         if alternate is not None:
             rec.append_batch(alternate=alternate)
-        rec.save(os.path.join(out_dir, 'sample-{}.npz'.format(ds.name)))
+        if is_write_process():
+            rec.save(os.path.join(out_dir, 'sample-{}.npz'.format(ds.name)))
 
 
 def _ood_entry(epoch, ins: np.ndarray, outs: np.ndarray, method: str) -> dict:
@@ -210,9 +236,11 @@ def finetune(wim: WIMJob,
              ood_methods: Optional[Sequence[str]] = None,
              save_dir: Optional[str] = None,
              seed: int = 0,
+             mesh=None,
              outputs=None) -> WIMJob:
     """Run the WIM fine-tuning flow on the job's device; updates wim.job
-    in place (its model, optimizer, sigma state and results)."""
+    in place (its model, optimizer, sigma state and results).  ``mesh``:
+    the trainer's contract (module docstring)."""
     cfg = wim.cfg
     assert wim.alternate_prior_cfg is not None, 'set_alternate_prior first'
     moving_batch_size = moving_batch_size or batch_size
@@ -221,6 +249,23 @@ def finetune(wim: WIMJob,
     job = wim.job
     dev = job.device
     epoch0 = job.trained
+    multiprocess = world()[0] > 1
+    if multiprocess and mesh is None:
+        raise ValueError('multi-process fine-tuning needs an explicit mesh')
+    # the engines are mesh-fed in a multi-process run (as the trainer's)
+    eng_mesh = mesh if multiprocess else None
+    put_x = put_y = lambda a: to_device(a, dev)
+    if mesh is not None:
+        job.state = ensure_placed(job.state, mesh)
+        nd = mesh.axis_size('data')
+        if batch_size % nd or moving_batch_size % nd:
+            raise ValueError(
+                'batch sizes ({}, moving {}) must divide the mesh data '
+                'axis ({})'.format(batch_size, moving_batch_size, nd))
+        # every rank runs the same loaders and keeps its rows
+        put_x = lambda a: put_global(np.asarray(a),
+                                     batch_sharding(mesh, np.ndim(a)))
+        put_y = lambda a: put_global(np.asarray(a), batch_sharding(mesh, 1))
     # a fresh optimizer state from the job's config (ref ft/job.py:279-281)
     tx = build_optimizer(job.opt_cfg)
     state = job.state
@@ -240,7 +285,7 @@ def finetune(wim: WIMJob,
                                           if not is_wim_method(m)],
                                   update_self_ood=False, recording=True,
                                   record_dir=init_dir,
-                                  from_where=('compute',))
+                                  from_where=('compute',), mesh=eng_mesh)
         save_json(pre, os.path.join(init_dir, 'ood.json'))
 
     # ---- fine-tune loop (ref ft/job.py:356-424)
@@ -270,8 +315,8 @@ def finetune(wim: WIMJob,
                 mov_iter = iter(moving_loader)
                 xm, _ = next(mov_iter)
             state, metrics = wim.finetune_batch(
-                state, to_device(x, dev), to_device(y, dev),
-                to_device(xm, dev), alpha, tx=tx, train_L=cfg.latent_sampling)
+                state, put_x(x), put_y(y), put_x(xm), alpha, tx=tx,
+                train_L=cfg.latent_sampling, mesh=mesh)
             step_i += 1
             pending.append(metrics)
             if len(pending) < me and i != per_epoch - 1:
@@ -306,7 +351,8 @@ def finetune(wim: WIMJob,
     # ---- post-tuning evaluation with WIM scores (ref ft/job.py:433-477)
     eval_seed = seed + EVAL_SEED_OFFSET
     ind_losses = _both_prior_losses(wim, testset, test_batch_size,
-                                    make_generator(dev, eval_seed))
+                                    make_generator(dev, eval_seed),
+                                    mesh=eng_mesh)
     ind_scores = wim_scores_for_set(wim, ind_losses, methods)
 
     epoch_key = job.trained
@@ -314,7 +360,8 @@ def finetune(wim: WIMJob,
     ood_loss_sets = {}
     for i, ood in enumerate(oodsets):
         ood_losses = _both_prior_losses(wim, ood, test_batch_size,
-                                        make_generator(dev, eval_seed + i + 1))
+                                        make_generator(dev, eval_seed + i + 1),
+                                        mesh=eng_mesh)
         ood_loss_sets[ood.name] = ood_losses
         ood_scores = wim_scores_for_set(wim, ood_losses, methods)
         job.ood_results[epoch_key].setdefault(ood.name, {})
@@ -361,7 +408,8 @@ def finetune(wim: WIMJob,
             rec.append_batch(**{k: v for k, v in losses_.items()
                                 if k != 'logits'},
                              logits=losses_['logits'].T, **extra)
-            rec.save(os.path.join(sdir, record_filename(set_name)))
+            if is_write_process():
+                rec.save(os.path.join(sdir, record_filename(set_name)))
         save_job(job, save_dir)
         save_wim_prior(wim, save_dir)
     return wim

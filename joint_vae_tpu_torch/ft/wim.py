@@ -33,6 +33,8 @@ import torch
 from ..models.cvnet import CVNet, CVNetConfig
 from ..models.evaluate import evaluate
 from ..ops.priors import PriorConfig, build_prior_config, init_prior_arrays
+from ..parallel.mesh import mesh_scope, split_names
+from ..parallel.shard_steps import global_grad_norm, reduce_step
 from ..save_load.jobs import Job
 from ..train.optimizers import Optimizer
 from ..train.state import TrainState, named_params
@@ -124,7 +126,8 @@ class WIMJob:
                        y_in: torch.Tensor, x_mix: torch.Tensor,
                        alpha: float = 0.1, *,
                        train_L: Optional[int] = None,
-                       eps: Optional[torch.Tensor] = None):
+                       eps: Optional[torch.Tensor] = None,
+                       mesh=None):
         """The fine-tuning objective L = ELBO(x_in, original prior) +
         alpha ELBO(x_mix, alternate prior, y = 0), evaluated in training
         with BatchNorm in inference mode, and its gradient with the
@@ -132,43 +135,59 @@ class WIMJob:
         in-distribution half's sigma state); the metrics are 0-dim device
         tensors.  ``eps`` (L+1, N, K) injects the latent noise of both
         halves (tests; equal batch sizes); otherwise each half draws its
-        own from ``state.generator``."""
+        own from ``state.generator``.  On a ``mesh`` the batches are this
+        rank's rows and the gradients, metrics and sigma statistics are
+        averaged over 'data' in one collective (``shard_steps.py``)."""
         model = self.model
+        cfg = self.cfg
         params = named_params(model)
         kw = dict(sigma_state=state.sigma_state, train=True, bn_eval=True,
                   with_beta=True, L=train_L, native_scores=True, eps=eps,
                   generator=state.generator)
-        o_in = evaluate(model, x_in, y_in, **kw)
-        y_mix = torch.zeros((x_mix.shape[0],), dtype=torch.long,
-                            device=x_mix.device)
-        o_mix = evaluate(model, x_mix, y_mix, prior_override=self.alternate,
-                         **kw)
-        in_total = torch.mean(o_in.losses['total'])
-        mix_total = torch.mean(o_mix.losses['total'])
-        loss = in_total + alpha * mix_total
-        got = torch.autograd.grad(loss, list(params.values()),
-                                  allow_unused=True)
-        grads = _zero_prior_grads({k: torch.zeros_like(p) if g is None else g
-                                   for (k, p), g in zip(params.items(), got)})
+        with mesh_scope(mesh, rows=True):
+            o_in = evaluate(model, x_in, y_in, **kw)
+            y_mix = torch.zeros((x_mix.shape[0],), dtype=torch.long,
+                                device=x_mix.device)
+            o_mix = evaluate(model, x_mix, y_mix,
+                             prior_override=self.alternate, **kw)
+            in_total = torch.mean(o_in.losses['total'])
+            mix_total = torch.mean(o_mix.losses['total'])
+            loss = in_total + alpha * mix_total
+            got = torch.autograd.grad(loss, list(params.values()),
+                                      allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), got)}
         metrics = {'total': loss.detach(), 'in_total': in_total.detach(),
                    'mix_total': mix_total.detach()}
-        return grads, metrics, o_in.sigma_state
+        sigma_state = o_in.sigma_state
+        if mesh is not None:
+            grads, metrics, sigma_state = reduce_step(
+                cfg, mesh, grads, metrics, sigma_state, state.sigma_state,
+                o_in.measures.get('mse'))
+        return _zero_prior_grads(grads), metrics, sigma_state
 
     def finetune_batch(self, state: TrainState, x_in: torch.Tensor,
                        y_in: torch.Tensor, x_mix: torch.Tensor,
                        alpha: float = 0.1, *, tx: Optimizer,
                        train_L: Optional[int] = None,
-                       eps: Optional[torch.Tensor] = None):
+                       eps: Optional[torch.Tensor] = None,
+                       mesh=None):
         """One fine-tuning step (ref ft/wim.py:215-259) on
         :meth:`finetune_grads`, updating the model and ``state`` in place;
         returns (state, metrics).  The prior's updates are zeroed too, so
         that weight decay does not move it either; BatchNorm's running
         statistics do not move; the sigma state follows the
-        in-distribution half."""
+        in-distribution half.  ``mesh``: this rank's rows, the global
+        batch's step (the clipping norm sums the class-split blocks over
+        'model')."""
         params = named_params(self.model)
         grads, metrics, sigma_state = self.finetune_grads(
-            state, x_in, y_in, x_mix, alpha, train_L=train_L, eps=eps)
-        updates, state.opt_state = tx.update(grads, state.opt_state, params)
+            state, x_in, y_in, x_mix, alpha, train_L=train_L, eps=eps,
+            mesh=mesh)
+        norm = (global_grad_norm(grads, mesh, split_names(self.model))
+                if mesh is not None else None)
+        updates, state.opt_state = tx.update(grads, state.opt_state, params,
+                                             norm=norm)
         updates = _zero_prior_grads(updates)
         with torch.no_grad():
             torch._foreach_add_(list(params.values()),

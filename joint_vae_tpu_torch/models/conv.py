@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.same_grid_conv import SameGridConvFn
+from ..parallel.mesh import batch_moments
 
 FEATURES_ARCHS = {
     'vgg11': '[x3-Mx2]64-M-128-M-256-256-M-512-512-M-512-512-M-Ax1',
@@ -470,7 +471,9 @@ class BatchNorm(nn.Module):
     E[x^2] - E[x]^2, clipped at 0) and, when ``updates`` is a dict, records
     the new running statistics there under this module:
     ``0.99 running + 0.01 batch`` (the biased variance again); the buffers
-    change only when the caller applies them (``apply_bn_updates``)."""
+    change only when the caller applies them (``apply_bn_updates``).  On a
+    mesh the batch statistics are the global batch's: the sums are
+    all-reduced over 'data' with their gradient (``batch_moments``)."""
 
     momentum = 0.99
 
@@ -488,9 +491,7 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.ndim - 1))
             # at least float32, as flax promotes (float64 stays float64)
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = torch.mean(xf, dim=axes)
-            var = torch.clamp(torch.mean(torch.square(xf), dim=axes)
-                              - torch.square(mean), min=0.0)
+            mean, var = batch_moments(xf, axes)
             if updates is not None:
                 m = self.momentum
                 updates[self] = (

@@ -458,7 +458,7 @@ class CVNet(nn.Module):
     def classify(self, z: torch.Tensor) -> torch.Tensor:
         if self.cfg.classifier_type == 'softmax':
             # gaussian-dictionary classifier (ref cvae.py:499, bias sign kept)
-            m = self.prior.mean.to(z.dtype)
+            m = self.prior()['mean'].to(z.dtype)
             return (torch.matmul(z, m.T)
                     + 0.5 * torch.sum(torch.square(m), dim=-1))
         return self.classifier(z)

@@ -33,6 +33,7 @@ from ..ops.priors import Params, PriorConfig, prior_kl, prior_log_density
 from ..ops.sampling import reparameterize
 from ..ops.sigma import (SigmaState, sigma_value, update_sigma_coded,
                          update_sigma_rmse)
+from ..parallel.mesh import gather_uneven, sample_blocks, sample_split
 from .conv import ConvStack
 from .cvnet import CVNet
 from .layers import capacity, dict_min_distance, onehot_encoding
@@ -144,9 +145,21 @@ def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
     dist = 'uniform' if cfg.prior.distribution == 'uniform' else 'gaussian'
     z, eps_used = reparameterize(mu, log_var, L, dist, sampled, eps=eps,
                                  generator=generator)
+    # a mesh scope with a 'sample' axis: this rank decodes its block of
+    # the L+1 samples (17 over 2 ranks: 9 + 8), and the per-sample losses
+    # are gathered below before anything consumes them
+    ssplit = sample_split() if cfg.x_is_generated else None
+    if ssplit is not None:
+        smesh, parts, sidx = ssplit
+        first = 0 if decode_mean else 1
+        dec_sizes = [max(b, first) - max(a, first)
+                     for a, b in sample_blocks(z.shape[0], parts)]
+        a, b = sample_blocks(z.shape[0], parts)[sidx]
+        z_dec = z[max(a, first):max(b, first)]
+    else:
+        z_dec = z if decode_mean else z[1:]
     if cfg.x_is_generated:
-        x_reco = model.decode(z if decode_mean else z[1:], train, mtrain,
-                              generator, bn_updates)
+        x_reco = model.decode(z_dec, train, mtrain, generator, bn_updates)
     else:
         x_reco = x
     logits = model.classify(z)
@@ -162,7 +175,7 @@ def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
     sigma_dims = D if scfg.per_dim else 1
 
     if cfg.x_is_generated:
-        x_reco_s = x_reco[1:] if decode_mean else x_reco
+        x_reco_s = x_reco[1:] if (decode_mean and ssplit is None) else x_reco
         # ---- sigma resolution (ref cvae.py:626-675) ----
         if scfg.coded:
             out_dim = scfg.output_dim
@@ -208,6 +221,17 @@ def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
             cat_ce_l = categorical_loss(x_reco_s, x, ndim=nd, batch_mean=False)
             amax = torch.argmax(x_reco_s, dim=-nd - 1)
             wmse_l = mse_loss(amax.float() / 255.0, x, ndim=nd, batch_mean=False)
+        if ssplit is not None:
+            # every sample's losses on every rank, in sample order; the
+            # mean sample's are dropped as the unsplit decode drops them
+            def whole(t):
+                t = gather_uneven(t, smesh, 'sample', dec_sizes, 0)
+                return t[1:] if decode_mean else t
+            wmse_l = whole(wmse_l)
+            if cfg.output_distribution != 'gaussian':
+                cat_ce_l = whole(cat_ce_l)
+            if decode_mean:
+                x_reco = gather_uneven(x_reco, smesh, 'sample', dec_sizes, 0)
 
         if scfg.is_rmse:
             sigma2 = torch.mean(wmse_l, dim=0)
@@ -289,13 +313,20 @@ def _evaluate(model, x, y, *, sigma_state, train, with_beta, kl_var_weighting,
         ref_mode = cfg.iws_mode == 'reference'
         if (all_classes and prior_cfg.distribution == 'gaussian'
                 and prior_cfg.var_dim == 'scalar'):
-            # the per-class combine of the kernel (csrc/iws_combine.cu)
-            vp = prior_params['var_param'].float()
+            # the per-class combine of the kernel (csrc/iws_combine.cu); on
+            # a mesh splitting the classes over 'model', on this rank's
+            # block of classes, gathered along C (each class's value is
+            # the same bits as in the whole combine)
+            local = model.prior.local() if prior_override is None else None
+            pparams = local[0] if local is not None else prior_params
+            vp = pparams['var_param'].float()
             iws = iws_combine(z1.contiguous(), (log_iws + log_inv_q).contiguous(),
-                              prior_params['mean'].float().contiguous(),
+                              pparams['mean'].float().contiguous(),
                               torch.square(vp).contiguous(),
                               (-2.0 * prior_cfg.dim * torch.log(vp)).contiguous(),
                               ref_mode=ref_mode)
+            if local is not None:
+                iws = local[1](iws)
         else:
             if prior_cfg.conditional:
                 if x_rep:

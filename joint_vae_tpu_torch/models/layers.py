@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.priors import PriorConfig
+from ..parallel.mesh import draw_rows
 from .conv import ACTIVATIONS
 
 LOG_VAR_CLIP = 20.0
@@ -30,7 +31,12 @@ def onehot_encoding(y: torch.Tensor, num_labels: int,
 
 class Dense(nn.Linear):
     """``nn.Linear`` computing in the model's compute dtype (flax
-    ``nn.Dense(dtype=...)``): weight (out, in)."""
+    ``nn.Dense(dtype=...)``): weight (out, in).  On a mesh that splits
+    its outputs over 'model' (the classifier head), ``split``
+    (``parallel/mesh.py::ClassSplit``) gathers the weight and bias rows
+    where they are read."""
+
+    split = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -39,18 +45,24 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w, b = self.weight, self.bias
+        if self.split is not None:
+            w = self.split.gather(w) if 'weight' in self.split.names else w
+            b = self.split.gather(b) if 'bias' in self.split.names else b
+        return F.linear(x.to(dt), w.to(dt), b.to(dt))
 
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax ``nn.Dropout`` in training: keep each element with probability
     1 - rate (a uniform draw from ``generator`` below 1 - rate) and scale
-    the kept ones by 1 / (1 - rate); all zeros at rate 1."""
+    the kept ones by 1 / (1 - rate); all zeros at rate 1.  On a mesh the
+    draw is this rank's rows of the global batch's (``draw_rows``)."""
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator,
+                                       device=x.device), x.shape)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -145,7 +157,12 @@ class Classifier(nn.Module):
 
 
 class PriorParams(nn.Module):
-    """Holds the prior parameters ``mean`` (P, K) and ``var_param``."""
+    """Holds the prior parameters ``mean`` (P, K) and ``var_param``.
+    Calling it gives them whole; on a mesh that splits them over 'model'
+    (``split``) they are gathered, and :meth:`local` gives this rank's
+    block of classes instead."""
+
+    split = None
 
     def __init__(self, cfg: PriorConfig):
         super().__init__()
@@ -154,7 +171,19 @@ class PriorParams(nn.Module):
         self.var_param = nn.Parameter(torch.ones(cfg.var_param_shape))
 
     def forward(self):
-        return {'mean': self.mean, 'var_param': self.var_param}
+        p = {'mean': self.mean, 'var_param': self.var_param}
+        if self.split is not None:
+            p = {k: self.split.gather(v) if k in self.split.names else v
+                 for k, v in p.items()}
+        return p
+
+    def local(self):
+        """(this rank's block of the parameters, the gather along the class
+        axis) when the classes are split over 'model', else None."""
+        sp = self.split
+        if sp is None or not self.cfg.conditional or 'mean' not in sp.names:
+            return None
+        return {'mean': self.mean, 'var_param': self.var_param}, sp.gather
 
 
 def capacity(prior_mean: torch.Tensor, num_labels: int) -> torch.Tensor:

@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import draw_rows
+
 SQRT12 = 3.4641016151377544  # sqrt(12)
 
 
@@ -18,14 +20,17 @@ def draw_epsilon(shape: Tuple[int, ...], sampling_size: int,
                  distribution: str = 'gaussian', *,
                  generator: Optional[torch.Generator] = None,
                  device=None, dtype=torch.float32) -> torch.Tensor:
-    """(L+1, *shape) noise with eps[0] = 0."""
+    """(L+1, *shape) noise with eps[0] = 0; on a mesh, this rank's rows
+    (axis -2) of the global batch's draw (``parallel/mesh.py::draw_rows``)."""
     full = (sampling_size + 1,) + tuple(shape)
     if distribution == 'gaussian':
-        eps = torch.randn(full, generator=generator, device=device,
-                          dtype=dtype)
+        eps = draw_rows(lambda s: torch.randn(s, generator=generator,
+                                              device=device, dtype=dtype),
+                        full)
     elif distribution == 'uniform':
-        eps = (torch.rand(full, generator=generator, device=device,
-                          dtype=dtype) - 0.5) * SQRT12
+        eps = (draw_rows(lambda s: torch.rand(s, generator=generator,
+                                              device=device, dtype=dtype),
+                         full) - 0.5) * SQRT12
     else:
         raise ValueError('{} for sampling unknown'.format(distribution))
     eps[0] = 0.0

@@ -25,8 +25,18 @@ def _json_default(o):
     raise TypeError('not JSON serializable: {}'.format(type(o)))
 
 
+def is_write_process() -> bool:
+    """A multi-process run writes its JSON files and archives from rank 0
+    only (each rank writes its own shard files)."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def save_json(d: Dict[str, Any], path: str, indent: int = 1):
-    """Atomic JSON write (temp file + rename)."""
+    """Atomic JSON write (temp file + rename); rank 0's only."""
+    if not is_write_process():
+        return
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or '.', suffix='.tmp')
     try:
@@ -60,7 +70,9 @@ def load_json(path: str):
 
 
 def save_arrays(path: str, arrays: Dict[str, np.ndarray]):
-    """Save {key: array} to a .npz (atomic)."""
+    """Save {key: array} to a .npz (atomic); rank 0's only."""
+    if not is_write_process():
+        return
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or '.', suffix='.npz')
     os.close(fd)

@@ -89,27 +89,39 @@ def _opt_prefixes(opt_cfg):
     return '{}/'.format(c), '{}/inner_state/{}/'.format(c, a)
 
 
-def opt_state_to_jax(model: nn.Module, opt_cfg, opt_state
-                     ) -> Dict[str, np.ndarray]:
-    """The port's ``OptState`` -> the JAX package's optimizer.npz arrays."""
+def opt_state_entries(model: nn.Module, opt_cfg, opt_state):
+    """(JAX key, value, to_jax, parameter name or None) of every leaf of
+    the JAX package's optimizer.npz, the values as the port holds them."""
     outer, inner = _opt_prefixes(opt_cfg)
-    out = {outer + 'count': np.asarray(opt_state.count, np.int32),
-           outer + 'hyperparams/learning_rate':
-               np.asarray(opt_state.learning_rate, np.float32)}
+    out = [(outer + 'count', np.asarray(opt_state.count, np.int32), None,
+            None),
+           (outer + 'hyperparams/learning_rate',
+            np.asarray(opt_state.learning_rate, np.float32), None, None)]
+    if opt_cfg.optim_type == 'adam':
+        out.append((inner + 'count', np.asarray(opt_state.adam_count,
+                                                np.int32), None, None))
     conv = {tkey: (jkey[len('params/'):], to_jax)
             for jkey, tkey, _, to_jax in _entries(model)
             if jkey.startswith('params/')}
-    moments = {'mu': opt_state.mu, 'nu': opt_state.nu,
-               'trace': opt_state.trace}
-    if opt_cfg.optim_type == 'adam':
-        out[inner + 'count'] = np.asarray(opt_state.adam_count, np.int32)
-    for kind, tensors in moments.items():
-        for tkey, t in tensors.items():
+    for kind in ('mu', 'nu', 'trace'):
+        for tkey, t in getattr(opt_state, kind).items():
             path, to_jax = conv[tkey]
-            t = t.detach().cpu().float()
+            out.append(('{}{}/{}'.format(inner, kind, path),
+                        t.detach().float(), to_jax, tkey))
+    return out
+
+
+def opt_state_to_jax(model: nn.Module, opt_cfg, opt_state
+                     ) -> Dict[str, np.ndarray]:
+    """The port's ``OptState`` -> the JAX package's optimizer.npz arrays."""
+    out = {}
+    for key, v, to_jax, _ in opt_state_entries(model, opt_cfg, opt_state):
+        if isinstance(v, torch.Tensor):
+            v = v.cpu()
             if to_jax is not None:
-                t = to_jax(t)
-            out['{}{}/{}'.format(inner, kind, path)] = t.contiguous().numpy()
+                v = to_jax(v)
+            v = v.contiguous().numpy()
+        out[key] = v
     return out
 
 

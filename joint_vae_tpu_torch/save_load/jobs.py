@@ -17,13 +17,16 @@ A job written by either package loads in the other and resumes training
 there: ``load_job`` converts the JAX arrays with ``from_jax.py`` and
 ``save_job`` writes the same keys back.  The JAX package's sampling key
 (``rng``) has no counterpart: a loaded job's generator is seeded from its
-step counter.  The JAX package's sharded checkpoints (``state.shards/``)
-are read (``sharded_checkpoint.py``); the port writes ``state.npz``.
-A ghost load reads the JSON files only, for fleet queries.
+step counter.  A multi-process run (or ``JVT_SHARDED_CKPT``) writes
+sharded ``state.shards/`` and ``optimizer.shards/`` instead of the npz
+archives (``sharded_checkpoint.py``), each rank its own chunks, and the
+JSON files from rank 0; either format loads onto any mesh.  A ghost load
+reads the JSON files only, for fleet queries.
 """
 
 import dataclasses
 import os
+import shutil
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -34,11 +37,14 @@ from ..models.cvnet import CVNet, CVNetConfig, init_weights
 from ..ops.sigma import SigmaState
 from ..train.optimizers import OptimizerConfig
 from ..train.state import TrainState, create_train_state
-from .checkpoint import load_arrays, load_json, save_arrays, save_json
-from .from_jax import (jax_to_opt_state, jax_to_state_dict, opt_state_to_jax,
-                       state_dict_to_jax)
-from .sharded_checkpoint import (MANIFEST, is_sharded_checkpoint,
-                                 load_checkpoint_sharded)
+from ..parallel.mesh import split_names, world
+from .checkpoint import (is_write_process, load_arrays, load_json,
+                         save_arrays, save_json)
+from .from_jax import (_entries, jax_to_opt_state, jax_to_state_dict,
+                       opt_state_entries, opt_state_to_jax, state_dict_to_jax)
+from .sharded_checkpoint import (MANIFEST, Leaf, barrier,
+                                 is_sharded_checkpoint,
+                                 load_checkpoint_sharded, sharded_write)
 
 SENTINELS = ('deleted', 'derailed')
 
@@ -107,10 +113,62 @@ def new_job(model_cfg: CVNetConfig, opt_cfg: Optional[OptimizerConfig] = None,
     return job
 
 
-def save_job(job: Job, job_dir: str, save_state: bool = True):
+def _sharded_default() -> bool:
+    return (os.environ.get('JVT_SHARDED_CKPT', '').strip().lower()
+            not in ('', '0', 'off', 'false', 'no', 'none')
+            or world()[0] > 1)
+
+
+def _split_axis(tkey: str, value: torch.Tensor, to_jax, split: set):
+    """The JAX-layout axis of a class-split tensor (its dim 0, which a
+    Dense kernel's transpose moves last), else None."""
+    if tkey not in split:
+        return None
+    return value.ndim - 1 if to_jax is not None else 0
+
+
+def state_leaves(st: TrainState) -> Dict[str, Leaf]:
+    """The state.npz tree of a (possibly mesh-placed) TrainState as
+    sharded-checkpoint leaves."""
+    model = st.model
+    split = split_names(model)
+    sd = model.state_dict()
+    leaves = {}
+    for jkey, tkey, _, to_jax in _entries(model):
+        t = sd[tkey].detach().float()
+        leaves[jkey] = Leaf(t, to_jax, _split_axis(tkey, t, to_jax, split))
+    leaves['sigma_state/data'] = Leaf(st.sigma_state.data.detach())
+    leaves['sigma_state/rmse'] = Leaf(st.sigma_state.rmse.detach())
+    leaves['counters/epoch'] = Leaf(np.asarray(st.epoch, np.int32))
+    leaves['counters/step'] = Leaf(np.asarray(st.step, np.int32))
+    return leaves
+
+
+def opt_leaves(model: CVNet, opt_cfg: OptimizerConfig, opt_state
+               ) -> Dict[str, Leaf]:
+    split = split_names(model)
+    return {k: Leaf(v, to_jax, None if tkey is None
+                    else _split_axis(tkey, v, to_jax, split))
+            for k, v, to_jax, tkey in opt_state_entries(model, opt_cfg,
+                                                        opt_state)}
+
+
+def save_job(job: Job, job_dir: str, save_state: bool = True,
+             sharded: Optional[bool] = None, checkpointer=None):
     """Write the job directory in the JAX package's schema;
     ``save_state=False`` writes the JSON files only (results saved back
-    by the test CLI)."""
+    by the test CLI).
+
+    ``sharded`` writes per-rank ``state.shards/`` and
+    ``optimizer.shards/`` instead of the npz archives; it defaults to
+    ``JVT_SHARDED_CKPT`` or a world of more than one rank, and a model
+    split over 'model' always saves sharded.  ``checkpointer`` (an
+    ``AsyncCheckpointer``) takes a sharded save as one write (state,
+    optimizer, the other format's removal) after an on-device snapshot,
+    and returns; its host copies and file IO run on the worker thread
+    (the caller waits on it, and calls ``barrier``, before any rank
+    loads).  The JSON files and archives are rank 0's; the
+    format not written is removed once the new one is on disk."""
     os.makedirs(job_dir, exist_ok=True)
     arch = dict(job.model_cfg.architecture)
     arch['job_number'] = job.job_number
@@ -121,15 +179,61 @@ def save_job(job: Job, job_dir: str, save_state: bool = True):
     save_json(job.train_history, os.path.join(job_dir, 'history.json'))
     if save_state and job.state is not None:
         st = job.state
-        arrays = state_dict_to_jax(st.model)
-        arrays['sigma_state/data'] = st.sigma_state.data.detach().cpu().numpy()
-        arrays['sigma_state/rmse'] = st.sigma_state.rmse.detach().cpu().numpy()
-        arrays['counters/epoch'] = np.asarray(st.epoch, np.int32)
-        arrays['counters/step'] = np.asarray(st.step, np.int32)
-        save_arrays(os.path.join(job_dir, 'state.npz'), arrays)
-        save_arrays(os.path.join(job_dir, 'optimizer.npz'),
-                    opt_state_to_jax(st.model, job.opt_cfg, st.opt_state))
+        mesh = getattr(st.model, 'mesh', None)
+        if sharded is None:
+            sharded = _sharded_default()
+        if not sharded and (world()[0] > 1 or split_names(st.model)):
+            raise ValueError('a multi-process job or a model split over '
+                             "'model' saves sharded checkpoints")
+        if sharded:
+            snap = checkpointer is not None
+            writes = (
+                sharded_write(os.path.join(job_dir, 'state.shards'),
+                              state_leaves(st), mesh, snapshot=snap),
+                sharded_write(os.path.join(job_dir, 'optimizer.shards'),
+                              opt_leaves(st.model, job.opt_cfg,
+                                         st.opt_state),
+                              mesh, snapshot=snap))
+
+            def write():
+                for w in writes:
+                    w()
+                if checkpointer is None:
+                    barrier()
+                _drop_stale(job_dir, '.npz')
+            if checkpointer is None:
+                write()
+            else:
+                checkpointer.submit(write)
+        else:
+            arrays = state_dict_to_jax(st.model)
+            arrays['sigma_state/data'] = st.sigma_state.data.detach().cpu().numpy()
+            arrays['sigma_state/rmse'] = st.sigma_state.rmse.detach().cpu().numpy()
+            arrays['counters/epoch'] = np.asarray(st.epoch, np.int32)
+            arrays['counters/step'] = np.asarray(st.step, np.int32)
+            save_arrays(os.path.join(job_dir, 'state.npz'), arrays)
+            save_arrays(os.path.join(job_dir, 'optimizer.npz'),
+                        opt_state_to_jax(st.model, job.opt_cfg, st.opt_state))
+            _drop_stale(job_dir, '.shards')
     job.saved_dir = job_dir
+
+
+def _drop_stale(job_dir: str, kind: str):
+    """Remove the other checkpoint format after a save (rank 0's: the npz
+    archives and the manifest are its files), so that a copy of the job
+    that loses its mtimes cannot resurrect older weights."""
+    if not is_write_process():
+        return
+    for stem in ('state', 'optimizer'):
+        p = os.path.join(job_dir, stem + kind)
+        try:
+            if kind == '.shards':
+                if os.path.isdir(p):
+                    shutil.rmtree(p)
+            elif os.path.exists(p):
+                os.unlink(p)
+        except OSError:
+            pass
 
 
 def _load_arrays(job_dir: str, stem: str) -> Dict[str, np.ndarray]:
@@ -229,8 +333,11 @@ def is_derailed(job_dir: str) -> bool:
 
 
 def mark(job_dir: str, sentinel: str):
-    """Drop a sentinel file ('deleted', 'derailed' or 'RESUMED')."""
+    """Drop a sentinel file ('deleted', 'derailed' or 'RESUMED'); rank
+    0's in a multi-process run."""
     if sentinel not in SENTINELS + ('RESUMED',):
         raise ValueError('unknown sentinel {}'.format(sentinel))
+    if not is_write_process():
+        return
     with open(os.path.join(job_dir, sentinel), 'w') as f:
         f.write('')

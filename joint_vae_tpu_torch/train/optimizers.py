@@ -94,15 +94,19 @@ class Optimizer:
         return st
 
     def update(self, grads: Dict[str, torch.Tensor], state: OptState,
-               params: Dict[str, torch.Tensor]
+               params: Dict[str, torch.Tensor],
+               norm: Optional[torch.Tensor] = None
                ) -> Tuple[Dict[str, torch.Tensor], OptState]:
         """-> (updates to add to the parameters, the new state).  ``grads``
-        and ``params`` share their keys; ``grads`` is not modified."""
+        and ``params`` share their keys; ``grads`` is not modified.
+        ``norm`` gives the gradients' global norm for the clipping (a mesh
+        step sums the squares of the class-split blocks over 'model')."""
         cfg = self.cfg
         names = list(grads)
         g = [grads[k] for k in names]
         if cfg.grad_clipping:
-            norm = global_norm(g)
+            if norm is None:
+                norm = global_norm(g)
             scale = torch.where(norm < cfg.grad_clipping,
                                 torch.ones_like(norm),
                                 cfg.grad_clipping / norm)

@@ -15,7 +15,9 @@ import torch
 from ..models.conv import apply_bn_updates
 from ..models.cvnet import CVNet
 from ..models.evaluate import evaluate
-from .optimizers import OptimizerConfig, build_optimizer, global_norm
+from ..parallel.mesh import Mesh, mesh_scope, split_names
+from ..parallel.shard_steps import global_grad_norm, reduce_step
+from .optimizers import OptimizerConfig, build_optimizer
 from .state import TrainState, apply_grad_mask, grad_mask, named_params
 
 
@@ -27,7 +29,9 @@ def warmup_weight(epoch: int, warmup: Tuple[int, int]) -> float:
 def make_train_step(model: CVNet, opt_cfg: OptimizerConfig,
                     warmup: Tuple[int, int] = (0, 0),
                     warmup_gamma: Tuple[int, int] = (0, 0),
-                    frozen_modules: Tuple[str, ...] = ()) -> Callable:
+                    frozen_modules: Tuple[str, ...] = (),
+                    mesh: Optional[Mesh] = None,
+                    split_sampling_per_shard: bool = True) -> Callable:
     """The train step: ``step(state, x, y, eps=None) -> (state, metrics)``.
 
     x (N, *input_shape) and y (N,) on the model's device.  ``eps``
@@ -36,31 +40,54 @@ def make_train_step(model: CVNet, opt_cfg: OptimizerConfig,
     parameters and BatchNorm buffers and ``state`` are updated in place.
     metrics: 0-dim device tensors — the batch mean of each loss, the
     measures, ``grad_norm`` (of the masked gradient) and ``train_acc``
-    when the model classifies."""
+    when the model classifies.
+
+    On a ``mesh`` (the state placed there, ``mesh.py::ensure_placed``)
+    x and y are this rank's rows of the global batch and the step is the
+    global batch's (``parallel/shard_steps.py``): one all-reduce over
+    'data', the sigma state rebuilt from the global mse, the clipping
+    norm summed over 'model'.  ``split_sampling_per_shard=False`` draws
+    the local noise shape, the same on every rank."""
     cfg = model.cfg
     has_bn = cfg.has_batch_norm
     tx = build_optimizer(opt_cfg)
     mask = grad_mask(model, frozen_modules)
     params = named_params(model)
+    split = split_names(model)
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
              eps: Optional[torch.Tensor] = None):
         kl_w = warmup_weight(state.epoch, warmup)
         g_w = warmup_weight(state.epoch, warmup_gamma)
-        res = evaluate(model, x, y, sigma_state=state.sigma_state,
-                       train=True, with_beta=True, kl_var_weighting=kl_w,
-                       gamma_weighting=g_w, return_bn_updates=has_bn,
-                       native_scores=True, eps=eps,
-                       generator=state.generator)
-        out, bn_updates = res if has_bn else (res, None)
-        loss = torch.mean(out.losses['total'])
-        names = list(params)
-        got = torch.autograd.grad(loss, [params[k] for k in names],
-                                  allow_unused=True)
+        with mesh_scope(mesh, rows=True,
+                        same_noise=not split_sampling_per_shard):
+            res = evaluate(model, x, y, sigma_state=state.sigma_state,
+                           train=True, with_beta=True, kl_var_weighting=kl_w,
+                           gamma_weighting=g_w, return_bn_updates=has_bn,
+                           native_scores=True, eps=eps,
+                           generator=state.generator)
+            out, bn_updates = res if has_bn else (res, None)
+            loss = torch.mean(out.losses['total'])
+            names = list(params)
+            got = torch.autograd.grad(loss, [params[k] for k in names],
+                                      allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, got)}
+        metrics = {k: torch.mean(v.detach()) for k, v in out.losses.items()}
+        metrics.update({k: v.detach() for k, v in out.measures.items()})
+        if cfg.y_is_decoded:
+            # running train accuracy from the sample-mean logits
+            metrics['train_acc'] = torch.mean(
+                (torch.argmax(out.logits.detach(), dim=-1) == y).float())
+        sigma_state = out.sigma_state
+        if mesh is not None:
+            grads, metrics, sigma_state = reduce_step(
+                cfg, mesh, grads, metrics, sigma_state, state.sigma_state,
+                out.measures.get('mse'))
         grads = apply_grad_mask(model, grads, mask, state.epoch)
-        updates, state.opt_state = tx.update(grads, state.opt_state, params)
+        norm = global_grad_norm(grads, mesh, split)
+        updates, state.opt_state = tx.update(grads, state.opt_state, params,
+                                             norm=norm)
         # frozen parameters receive no update at all (weight decay inside
         # the optimizer would otherwise still move them)
         updates = apply_grad_mask(model, updates, mask, state.epoch)
@@ -69,16 +96,9 @@ def make_train_step(model: CVNet, opt_cfg: OptimizerConfig,
                                 [updates[k] for k in names])
         if bn_updates:
             apply_bn_updates(bn_updates)
-        state.sigma_state = out.sigma_state
+        state.sigma_state = sigma_state
         state.step += 1
-
-        metrics = {k: torch.mean(v.detach()) for k, v in out.losses.items()}
-        metrics.update({k: v.detach() for k, v in out.measures.items()})
-        metrics['grad_norm'] = global_norm(list(grads.values()))
-        if cfg.y_is_decoded:
-            # running train accuracy from the sample-mean logits
-            metrics['train_acc'] = torch.mean(
-                (torch.argmax(out.logits.detach(), dim=-1) == y).float())
+        metrics['grad_norm'] = norm
         return state, metrics
 
     return step

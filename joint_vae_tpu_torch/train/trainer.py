@@ -21,8 +21,14 @@ cvae.py:2081-2547):
 Per epoch, every ``ood_detection_every`` and ``full_test_every`` epochs,
 and once at the end, it runs the evaluation engines (``evals/engines.py``:
 ``ood_detection_rates``, ``accuracy``), the in-training ones capped at
-``test_sample_size`` samples.  Not ported here: the mesh and
-multi-process branches.
+``test_sample_size`` samples.
+
+``mesh`` (``parallel/mesh.py``) trains on a device mesh: the state is
+placed with the sharding rules, every rank iterates the same full loader
+and feeds its rows of each global batch (``aligned_global_batch``) to the
+train step on the mesh (its collectives: ``parallel/shard_steps.py``), so
+the data order and the noise are the one-process run's.  The
+device-resident set is off on a mesh.  A multi-process run needs a mesh; its evaluations are mesh-fed.
 """
 
 import logging
@@ -37,6 +43,10 @@ from ..device import to_device
 from ..evals.engines import accuracy, ood_detection_rates
 from ..models.cvnet import CVNet
 from ..models.evaluate import evaluate
+from ..parallel.mesh import (ensure_placed, eval_batch_putters, mesh_scope,
+                             rows_split, world)
+from ..parallel.shard_steps import reduce_over_data
+from ..parallel.sharded_data import aligned_global_batch
 from ..save_load.jobs import Job, mark, save_job
 from ..utils.print_log import EpochOutput
 from ..utils.signaling import SIGHandler
@@ -77,11 +87,13 @@ def train_model(job: Job,
                 final_test: bool = True,
                 final_ood: bool = True,
                 metrics_every: int = 0,
-                device_data: bool = False) -> Job:
+                device_data: bool = False,
+                mesh=None) -> Job:
     """Train ``job.state`` in place on the job's device; returns the job.
     Without a trainset, the job's set comes from the registry
     (``get_dataset``), its test split as the testset.  ``device_data``
-    feeds the steps from a copy of the training set on the device."""
+    feeds the steps from a copy of the training set on the device;
+    ``mesh`` trains on a device mesh (module docstring)."""
     if trainset is None:
         name = job.training_parameters.get('set') or 'cifar10'
         trainset, ts = get_dataset(name)
@@ -114,8 +126,15 @@ def train_model(job: Job,
 
     frozen = tuple(tp.get('frozen_modules') or ())
     ramps = (tuple(warmup), tuple(warmup_gamma), frozen)
-    step = make_train_step(model, job.opt_cfg, *ramps)
-    device_data = device_data and not data_augmentation
+    multiprocess = world()[0] > 1
+    if multiprocess and mesh is None:
+        raise ValueError('multi-process training needs an explicit mesh')
+    # the in-training evaluations are mesh-fed in a multi-process run
+    eng_mesh = mesh if multiprocess else None
+    if mesh is not None:
+        job.state = state = ensure_placed(state, mesh)
+    step = make_train_step(model, job.opt_cfg, *ramps, mesh=mesh)
+    device_data = device_data and not data_augmentation and mesh is None
     if device_data:
         dd = DeviceDataset(trainset, device=dev)
         per_epoch = dd.n // batch_size
@@ -149,10 +168,12 @@ def train_model(job: Job,
         if ood_now and testset is not None:
             ood_detection_rates(job, testset, oodsets,
                                 batch_size=test_batch_size, epoch=epoch,
-                                num_batch=eval_num_batch, outputs=outputs)
+                                num_batch=eval_num_batch, outputs=outputs,
+                                mesh=eng_mesh)
         if full_test and testset is not None and cfg.predict_methods:
             accuracy(job, testset, batch_size=test_batch_size, epoch=epoch,
-                     num_batch=eval_num_batch, outputs=outputs)
+                     num_batch=eval_num_batch, outputs=outputs,
+                     mesh=eng_mesh)
 
         # per-epoch LR decay (ref optimizer.update_lr, optimizers.py:123-127)
         set_learning_rate(state.opt_state, job.opt_cfg.lr_at_epoch(epoch))
@@ -169,6 +190,9 @@ def train_model(job: Job,
                                                    dev))
             batches = (batch_slice(ex, ey, i, batch_size)
                        for i in range(per_epoch))
+        elif mesh is not None:
+            # every rank runs the same full loader and keeps its rows
+            batches = (aligned_global_batch(mesh, x, y) for x, y in loader)
         else:
             batches = ((to_device(x, dev), to_device(y, dev))
                        for x, y in loader)
@@ -222,14 +246,14 @@ def train_model(job: Job,
 
         if validationset is not None:
             vl, vm = _mean_losses(model, state, validationset,
-                                  test_batch_size, epoch)
+                                  test_batch_size, epoch, mesh=eng_mesh)
             checkpoint['validation_loss'] = vl
             checkpoint['validation_measures'] = vm
         if testset is not None and (
                 epoch == epochs - 1
                 or (epoch - first_epoch) % full_test_every == full_test_every - 1):
             tl, tm = _mean_losses(model, state, testset, test_batch_size,
-                                  epoch)
+                                  epoch, mesh=eng_mesh)
             checkpoint['test_loss'] = tl
             checkpoint['test_measures'] = tm
         job.train_history[epoch + 1] = checkpoint
@@ -244,32 +268,39 @@ def train_model(job: Job,
     if signal_handler.sig <= 3 and testset is not None:
         if cfg.predict_methods and final_test:
             accuracy(job, testset, batch_size=test_batch_size,
-                     outputs=outputs)
+                     outputs=outputs, mesh=eng_mesh)
         if oodsets and final_ood:
             ood_detection_rates(job, testset, oodsets,
-                                batch_size=test_batch_size, outputs=outputs)
+                                batch_size=test_batch_size, outputs=outputs,
+                                mesh=eng_mesh)
         if save_dir:
             save_job(job, save_dir)
     return job
 
 
 def _mean_losses(model: CVNet, state: TrainState, dataset: ArrayDataset,
-                 batch_size: int, epoch: int):
+                 batch_size: int, epoch: int, mesh=None):
     """-> (mean per-component losses, mean measures incl. rmse/dB) with
     labels (validation/test history tracking); the latent noise comes from
     a generator seeded with the epoch, and the batch means are pulled from
-    the card once."""
+    the card once.  ``mesh``: each batch is fed over 'data'
+    (``eval_batch_putters``) and its means are averaged over the ranks."""
     dev = state.device
     gen = make_generator(dev, epoch)
+    put_x = put_y = lambda a: to_device(a, dev)
+    if mesh is not None:
+        put_x, put_y = eval_batch_putters(mesh, 1 + len(dataset.shape))
     per_batch = []
     for x, y in DataLoader(dataset, batch_size, shuffle=False):
-        out = evaluate(model, to_device(x, dev), to_device(y, dev),
-                       sigma_state=state.sigma_state, train=False,
-                       generator=gen)
-        per_batch.append(
-            {**{'loss/' + k: torch.mean(v) for k, v in out.losses.items()},
-             **{'measure/' + k: torch.mean(v)
-                for k, v in out.measures.items()}})
+        split = rows_split(mesh, len(x))
+        with mesh_scope(mesh, rows=split):
+            out = evaluate(model, put_x(x), put_y(y),
+                           sigma_state=state.sigma_state, train=False,
+                           generator=gen)
+        row = {**{'loss/' + k: torch.mean(v) for k, v in out.losses.items()},
+               **{'measure/' + k: torch.mean(v)
+                  for k, v in out.measures.items()}}
+        per_batch.append(reduce_over_data(row, mesh) if split else row)
     sums: Dict[str, float] = {}
     for row in pull_metrics(per_batch):
         for k, v in row.items():

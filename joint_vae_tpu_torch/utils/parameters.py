@@ -7,8 +7,8 @@ section whose values become argparse defaults, the full CLI overrides them,
 and everything is persisted to the job directory (ref :179-389).  Job
 numbers are hostname-scoped counters in a ``number-<host>`` file (ref
 :33-59).  ``--device`` picks the torch device (the CUDA card by default).
-The flags of what the port does not run yet (the mesh and
-multi-process runs) are parsed and refused by :func:`refuse_unported`."""
+A flag of what the port does not run yet would be parsed and refused by
+:func:`refuse_unported` (``UNPORTED`` names none now)."""
 
 import argparse
 import configparser
@@ -339,10 +339,9 @@ def optimizer_config_from_args(args) -> 'OptimizerConfig':
 
 
 # flags the JAX package runs and the port does not yet, with the ROADMAP
-# item (Queue 1) that ports them
-UNPORTED = (('mesh', 'the device mesh (ROADMAP Queue 1 item 14, Multi-GPU)'),
-            ('distributed', 'multi-process runs (ROADMAP Queue 1 item 14, '
-                            'Multi-GPU)'))
+# item that ports them: none (the mesh flags run since the mesh was
+# ported; ``cli.mesh_from_args`` keeps the JAX package's own refusals)
+UNPORTED = ()
 
 
 def refuse_unported(args) -> None:
@@ -350,8 +349,5 @@ def refuse_unported(args) -> None:
     not run yet."""
     bad = ['--{}: {}'.format(k.replace('_', '-'), what)
            for k, what in UNPORTED if getattr(args, k, None)]
-    if getattr(args, 'model_axis', 1) > 1 or getattr(args, 'sample_axis', 1) > 1:
-        bad.append('--model-axis/--sample-axis: the device mesh (ROADMAP '
-                   'Queue 1 item 14, Multi-GPU)')
     if bad:
         raise SystemExit('not ported yet:\n  ' + '\n  '.join(bad))

@@ -12,7 +12,8 @@ the CPU, from a tiny cvae job that the port's train CLI wrote:
   ``WIMArray.recompute_rates`` called directly;
 - ``--args-from-file`` takes the INDEX-th non-comment line;
 - ``--lr`` / ``--weight-decay`` give the fine-tune a fresh adam;
-- the mesh flags are refused by name.
+- ``--mesh`` and ``--distributed`` run on a world of one process, and
+  an axis without ``--mesh`` is refused as in the JAX CLI.
 """
 
 import hashlib
@@ -182,6 +183,21 @@ def test_args_from_file(cli_jobs, tmp_path):
 
 @pytest.mark.parametrize('flag', [['--mesh'], ['--distributed'],
                                   ['--model-axis', '2']])
-def test_mesh_flags_refused(cli_jobs, flag):
-    with pytest.raises(SystemExit, match='ROADMAP Queue 1 item 14'):
-        main(['1', '--job-dir', cli_jobs['jobs']] + FT + flag)
+def test_mesh_flags_refused(cli_jobs, tmp_path, flag):
+    """``--mesh`` and ``--distributed`` fine-tune on a world of one
+    process (into a WIM job dir of their own); ``--model-axis`` without
+    ``--mesh`` is refused as the JAX CLI refuses it."""
+    argv = (['1', '--job-dir', cli_jobs['jobs'], '--wim-job-dir',
+             str(tmp_path), '--job-number', '99'] + FT + flag)
+    if flag == ['--model-axis', '2']:
+        with pytest.raises(SystemExit, match='need --mesh'):
+            main(argv)
+        return
+    assert main(argv) == 0
+    (d,) = _wim_dirs_under(str(tmp_path))
+    wim = load_wim_job(d, device='cpu')
+    assert wim.job.job_number == 99 and wim.job.ood_results
+
+
+def _wim_dirs_under(root):
+    return sorted(p for p, _, fs in os.walk(root) if 'params.json' in fs)

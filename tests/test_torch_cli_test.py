@@ -22,7 +22,7 @@ a validation history.
   agree within that file's 5e-4;
 - ``--list-jobs-and-quit``, ``--last``, ``--sort``, ``--from-files``,
   ``--early-stopping``, ``--all-epochs``, ``--export-losses`` and the
-  column options: the same files; the mesh flags are refused;
+  column options: the same files; the mesh flags run on a world of one;
 - ``cli.results`` in comparison and per-section modes: the same files.
 """
 
@@ -241,9 +241,20 @@ def test_list_jobs_and_export_losses(fleet, tmp_path):
 @pytest.mark.parametrize('flag', [['--mesh'], ['--model-axis', '2'],
                                   ['--sample-axis', '2'], ['--distributed']],
                          ids=lambda f: f[0])
-def test_mesh_flags_refused(fleet, flag):
-    with pytest.raises(SystemExit, match='item 14'):
-        ttest.main(['--job-dir', fleet] + flag)
+def test_mesh_flags_refused(fleet, capsys, flag):
+    """``--mesh`` and ``--distributed`` run on a world of one process and
+    print the fleet's table as without them; an axis without ``--mesh``
+    is refused as the JAX CLI refuses it."""
+    argv = ['--job-dir', fleet, '--device', 'cpu']
+    if flag[0] in ('--model-axis', '--sample-axis'):
+        with pytest.raises(SystemExit, match='need --mesh'):
+            ttest.main(argv + flag)
+        return
+    capsys.readouterr()
+    assert ttest.main(argv) == 0
+    plain = capsys.readouterr().out
+    assert ttest.main(argv + flag) == 0
+    assert capsys.readouterr().out == plain and plain
 
 
 RESULTS_INIS = {

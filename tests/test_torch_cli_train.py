@@ -3,8 +3,9 @@ CPU: a tiny cvae job trains, tests and OOD-scores end to end, and the JAX
 package's ``load_job`` reads what it wrote; ``--where`` and ``--dry-run``
 print the JAX CLI's save dir and write nothing; ``--resume`` continues the
 job with its saved data settings; ``--device-data`` trains from the
-device-resident set (``train_model(device_data=True)``); the unported
-flags are refused by name, and ``--device-data`` is no longer one.
+device-resident set (``train_model(device_data=True)``); ``--mesh`` and
+``--distributed`` train on a world of one process, and an axis without
+``--mesh`` is refused as the JAX CLI refuses it.
 The save dir is the one the JAX CLI's ``save_dir_for`` gives the job.
 """
 
@@ -68,12 +69,25 @@ def test_train_cli_job_loads_in_jax(tmp_path, capsys):
                 '--device', 'cpu') == where
 
 
-@pytest.mark.parametrize('flag', [['--mesh'], ['--distributed'],
-                                  ['--sample-axis', '2'],
-                                  ['--model-axis', '2']])
-def test_train_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(SystemExit, match='ROADMAP Queue 1 item'):
-        main(TINY + ['--job-dir', str(tmp_path), '--device', 'cpu'] + flag)
+@pytest.mark.parametrize('flag,refusal', [
+    (['--mesh'], None), (['--distributed'], None),
+    (['--sample-axis', '2'], 'need --mesh'),
+    (['--model-axis', '2'], 'need --mesh'),
+    (['--mesh', '2'], 'needs a world of 2')])
+def test_train_cli_refuses_unported_flags(tmp_path, capsys, flag, refusal):
+    """The mesh flags run: ``--mesh`` and ``--distributed`` train on a
+    world of one process (a mesh of one rank) and the JAX package loads
+    the job; the JAX CLI's refusal of an axis without ``--mesh`` stays,
+    and a mesh larger than the world is refused."""
+    argv = TINY + ['--job-dir', str(tmp_path), '--device', 'cpu',
+                   '--epochs', '1'] + flag
+    if refusal:
+        with pytest.raises(SystemExit, match=refusal):
+            main(argv)
+        return
+    where = _run(capsys, *argv, '--where')
+    assert main(argv) == 0
+    assert jjobs.load_job(where).trained == 1
 
 
 def test_train_cli_device_data_trains(tmp_path, capsys, monkeypatch):

@@ -149,6 +149,30 @@ def test_iws_case_on_card(case, ref_mode, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('ref_mode', [True, False])
+@pytest.mark.parametrize('shape', [(16, 512, 128, 100, 2),
+                                   (16, 272, 128, 100, 4),
+                                   (128, 64, 128, 100, 2)])
+def test_iws_kernel_on_a_class_block_on_card(shape, ref_mode, cuda_device):
+    """A mesh that splits the classes over 'model' runs the combine on
+    each rank's block of classes: each block equals that block of the
+    whole combine, bit for bit, whatever cluster split either launch
+    takes."""
+    L, N, K, C, parts = shape
+    z, lp, mean, s2, ldp = (torch.from_numpy(a).to(cuda_device)
+                            for a in iws_inputs(L, N, C, K, mean_scale=17))
+    whole = iws_combine(z, lp, mean, s2, ldp, ref_mode=ref_mode)
+    per = C // parts
+    for i in range(parts):
+        blk = slice(i * per, (i + 1) * per)
+        got = iws_combine(z, lp, mean[blk].contiguous(), s2[blk].contiguous(),
+                          ldp[blk].contiguous(), ref_mode=ref_mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole[blk]), (i, kernel_splits(L, N, K, per),
+                                              kernel_splits(L, N, K, C))
+
+
+@pytest.mark.cuda
 def test_iws_kernel_splits_and_unaligned_rows(cuda_device):
     """L=128 over two (C, N) tiles takes a cluster of 8 or more; z and the means at
     an offset of one float take the 4-byte copies."""

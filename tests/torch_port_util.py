@@ -65,5 +65,21 @@ def close(got, want, tol, what=''):
                                rtol=tol, atol=tol, err_msg=what)
 
 
-__all__ = ['port_cfg', 'jax_arrays', 'port_model', 'port_sigma_state',
+def mesh_cfg(**kw):
+    """The JAX config of the mesh tests (tests/test_parallel.py's widths:
+    INPUT_SHAPE (1, 6, 6), C=4), test L=3, with ``kw`` replaced."""
+    from joint_vae_tpu.models.cvnet import CVNetConfig as JCVNetConfig
+    from joint_vae_tpu.ops.priors import PriorConfig as JPriorConfig
+    from joint_vae_tpu.ops.sigma import SigmaConfig as JSigmaConfig
+    base = dict(input_shape=(1, 6, 6), num_labels=4, type='cvae',
+                encoder=(16,), decoder=(16,), classifier=(8,), latent_dim=8,
+                latent_sampling=1, test_latent_sampling=3, gamma=10.0,
+                beta=1e-2, sigma=JSigmaConfig(value=0.3),
+                prior=JPriorConfig(dim=8, num_priors=4, init_mean=1.0,
+                                   learned_means=True))
+    base.update(kw)
+    return JCVNetConfig(**base)
+
+
+__all__ = ['port_cfg', 'mesh_cfg', 'jax_arrays', 'port_model', 'port_sigma_state',
            'make_eps', 'inject_jax_eps', 'close', 'jax']
