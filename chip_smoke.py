@@ -243,12 +243,34 @@ Phases, any failure raising (nonzero exit):
    processes share the card, so its times are no speed figure).  (c) The
    same over NCCL with one rank per card when the machine has two cards
    or more, else one line saying that it waits for such a machine;
-13. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+13. export to moxime/joint-vae's job layout (the export slice): a stub
+   reference checkout written by ``tests/torch_reference_stub.py`` (the
+   reference's ``cvae.py``, ``module/vae_layers/conv.py`` with its
+   densenet routing bug, ``utils/save_load/recorders.py``); copies of
+   phase 5's trained flagship (Adam moments), phase 6's job (records,
+   ``test.json``, ``ood.json``), phase 9's WIM and Poscod jobs, phase 10's
+   ResNet flagship, a densenet121-trunk flagship at width 64 and a
+   corrupt job; ``python -m joint_vae_tpu_torch.cli.export_ref --scan``
+   in a subprocess on the card (``6 exported, 1 failed``, exit 1, the
+   corrupt job named), each job exported in process and timed, the two
+   trees equal (``.pth`` files as loaded, JSON as parsed); every export
+   imported back on the card: weights, BatchNorm statistics, sigma,
+   Adam's moments, count and learning rate bit-equal to the source after
+   ``load_job`` (a WIM or Poscod job's moments are not imported back by
+   either package, which is checked), record files' bytes equal; phase
+   11's imported flagship exported again, its ``state.pth`` and
+   ``optimizer.pth`` equal to phase 11's reference-layout source tensor
+   by tensor, key order included; a ``Scorer`` batch (512, L=16) on the
+   re-imported phase-5 flagship bit-equal to the source's on the same
+   noise (8 conv and 1 combine launches), and both kernels against their
+   plain versions at that batch's shapes (``export`` line: seconds per
+   job and per ``--scan``, files, bytes and tensors written);
+14. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
    ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
-   ``launches_mesh_*``: phase 12's);
-14. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches_mesh_*``: phase 12's; ``launches_export``: phase 13's);
+15. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -4436,6 +4458,306 @@ def mesh_phase(card: str) -> tuple:
     return launches, line
 
 
+# ---------------------------------------------------------------------------
+# phase 13: export to moxime/joint-vae's job layout (the last module of the
+# JAX package).  The jobs that earlier phases saved, and a densenet121-trunk
+# job, exported through a stub reference checkout
+# (tests/torch_reference_stub.py) and imported back bit-equal; phase 11's
+# imported flagship exported back to its reference-layout source
+# ---------------------------------------------------------------------------
+EXPORT_JOBS = ('train', 'ood', 'wim', 'poscod', 'resnet', 'densenet')
+EXPORT_REL = 'cifar100/{}/adam/{}'
+
+
+def _same_loaded(a, b, where: str) -> list:
+    """Paths where two loaded ``.pth`` objects differ: dict keys in their
+    order, tensors by dtype, shape and bits (a Parameter subclass as its
+    data), other values by ==."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and a.numpy().tobytes() == b.numpy().tobytes())
+        return [] if same else [where]
+    if type(a) is not type(b):
+        return [where]
+    if isinstance(a, dict):
+        if list(a) != list(b):
+            return [where + ' (keys)']
+        return [d for k in a for d in _same_loaded(a[k], b[k],
+                                                   '{}/{}'.format(where, k))]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _same_loaded(x, y, '{}[{}]'.format(where, i))]
+    return [] if a == b else [where]
+
+
+def _pth(path: str):
+    return torch.load(path, map_location='cpu', weights_only=False)
+
+
+def _export_tree_differences(a: str, b: str) -> list:
+    """Relative paths that differ between two exported trees: ``.pth``
+    files by their loaded contents (``torch.save`` zips may lay out equal
+    contents apart), JSON files as parsed, others byte for byte."""
+    def files(root):
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, fs in os.walk(root) for f in fs}
+    fa, fb = files(a), files(b)
+    diff = sorted(fa ^ fb)
+    for rel in sorted(fa & fb):
+        pa, pb = os.path.join(a, rel), os.path.join(b, rel)
+        if rel.endswith('.pth'):
+            diff += _same_loaded(_pth(pa), _pth(pb), rel)
+        elif rel.endswith('.json'):
+            with open(pa) as f, open(pb) as g:
+                if json.load(f) != json.load(g):
+                    diff.append(rel)
+        else:
+            with open(pa, 'rb') as f, open(pb, 'rb') as g:
+                if f.read() != g.read():
+                    diff.append(rel)
+    return diff
+
+
+def _densenet_job(job_dir: str):
+    """A densenet121-trunk flagship at a small width (encoder and decoder
+    64) with random running statistics, saved."""
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job, save_job
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    cfg = dataclasses.replace(flagship_config(), features='densenet121',
+                              encoder=(64,), decoder=(64,))
+    job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=13)
+    rng = np.random.default_rng(13)
+    with torch.no_grad():
+        for name, b in job.model.named_buffers():
+            if name.endswith(('running_mean', 'running_var')):
+                b.copy_(torch.as_tensor(np.abs(rng.normal(
+                    0.5, 0.2, tuple(b.shape))).astype(np.float32)))
+    job.train_history = {'epochs': 1}
+    save_job(job, job_dir)
+
+
+def _round_trip(src: str, back: str) -> dict:
+    """import(export(job)) against the job, on the card: weights,
+    BatchNorm statistics, sigma, Adam's moments, count and learning rate
+    bit-equal after ``load_job``, the record files' bytes equal, a Poscod
+    head's arrays equal.  A WIM or Poscod job's moments are not imported
+    back (its state.pth holds parameters that optimizer.pth does not
+    index: ROADMAP Queue 3), which is checked too."""
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    a, b = load_job(src), load_job(back)
+    sd, sd2 = a.model.state_dict(), b.model.state_dict()
+    bad = [k for k in sd if k not in sd2 or not torch.equal(sd[k], sd2[k])]
+    if not torch.equal(a.sigma_state.data, b.sigma_state.data):
+        bad.append('sigma')
+    o, o2 = a.state.opt_state, b.state.opt_state
+    extra = any(os.path.exists(os.path.join(src, f))
+                for f in ('wim_prior.npz', 'poscod_head.npz'))
+    moments = o.adam_count > 0
+    if moments and not extra:
+        if (o.adam_count, o.learning_rate) != (o2.adam_count,
+                                               o2.learning_rate):
+            bad.append('adam count or learning rate')
+        bad += ['mu/' + k for k in o.mu if not torch.equal(o.mu[k], o2.mu[k])]
+        bad += ['nu/' + k for k in o.nu if not torch.equal(o.nu[k], o2.nu[k])]
+    elif os.path.exists(os.path.join(back, 'optimizer.npz')):
+        bad.append('optimizer.npz imported')
+    records = 0
+    for d, _, fs in os.walk(os.path.join(src, 'samples')):
+        for f in fs:
+            if f.endswith('.jvr'):
+                rel = os.path.relpath(os.path.join(d, f), src)
+                with open(os.path.join(d, f), 'rb') as x, \
+                        open(os.path.join(back, rel), 'rb') as y:
+                    if x.read() != y.read():
+                        bad.append(rel)
+                records += 1
+    head = os.path.join(src, 'poscod_head.npz')
+    if os.path.exists(head):
+        with np.load(head) as x, np.load(os.path.join(
+                back, 'poscod_head.npz')) as y:
+            if not all(np.array_equal(x[k], y[k]) for k in x.files):
+                bad.append('poscod_head.npz')
+    if bad:
+        raise AssertionError('import(export({})) differs at {}'.format(
+            src, bad[:10]))
+    return {'tensors': len(sd), 'moments': 'bit-equal' if moments and not
+            extra else ('not re-imported' if moments else 'none'),
+            'records': records}
+
+
+def export_kernel_checks() -> dict:
+    """Both kernels against their plain versions at the Scorer batch's
+    shapes: the conv at the flagship's eight sites (512 images, 8,192
+    decoded), the combine at L=16, N=512, C=100, K=128."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet, flagship_config
+    from joint_vae_tpu_torch.ops.iws import iws_combine, iws_combine_plain
+    from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
+                                                        same_grid_conv_plain)
+    g = torch.Generator(device='cuda').manual_seed(13)
+    cfg = flagship_config()
+    tol = CONV_TOL[torch.float32]
+    conv = 0.0
+    for site in same_grid_sites(CVNet(cfg), BATCH, cfg.test_latent_sampling):
+        x, _, kd = site_inputs(site, torch.float32, g)
+        got = same_grid_conv(x, kd, site['lo'], site['lo'])
+        want = same_grid_conv_plain(x, kd, site['lo'], site['lo'])
+        if not torch.all((got - want).abs() <= tol * (
+                want.abs() + want.square().mean().sqrt())):
+            raise AssertionError('same_grid_conv at {}: {}'.format(
+                site['site'], (got - want).abs().max().item()))
+        conv = max(conv, (got - want).abs().max().item())
+        del x, kd, got, want
+    args, _ = iws_inputs(cfg.test_latent_sampling, BATCH, cfg.num_labels,
+                         cfg.latent_dim, g, mean_scale=17)
+    got, want = iws_combine(*args), iws_combine_plain(*args)
+    if not torch.all((got - want).abs() <= IWS_ATOL + IWS_RTOL * want.abs()):
+        raise AssertionError('iws_combine: {}'.format(
+            (got - want).abs().max().item()))
+    return {'same_grid_conv_max_abs_err': conv,
+            'iws_combine_max_abs_err': (got - want).abs().max().item()}
+
+
+def export_phase(card: str) -> tuple:
+    """Phase 13: the jobs of phases 5, 6, 9 and 10 and a densenet121-trunk
+    job exported through the export CLI (a corrupt job beside them) and
+    each in process, imported back bit-equal; phase 11's imported
+    flagship exported back to its source; a Scorer batch on the
+    re-imported flagship against the source's."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    from torch_reference_stub import write_stub_checkout
+    from joint_vae_tpu_torch.save_load.export_reference import \
+        export_to_reference_job
+    from joint_vae_tpu_torch.save_load.import_reference import \
+        import_reference_job
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.serve import Scorer
+
+    root = os.path.join(WORK, 'export')
+    shutil.rmtree(root, ignore_errors=True)
+    stub = write_stub_checkout(os.path.join(root, 'reference_stub'))
+    jobs = os.path.join(root, 'jobs')
+    ft = _job_dirs(os.path.join(WORK, 'ft_jobs', 'wim'))
+    sources = {
+        'train': os.path.join(WORK, 'train_job'),           # phase 5
+        'ood': os.path.join(WORK, 'flagship_job'),          # phases 4, 6
+        'wim': [d for d in ft if os.path.exists(
+            os.path.join(d, 'wim_prior.npz'))][0],           # phase 9
+        'poscod': [d for d in ft if os.path.exists(
+            os.path.join(d, 'poscod_head.npz'))][0],         # phase 9
+        'resnet': os.path.join(WORK, 'resnet_train_job')}   # phase 10
+    rel = {k: EXPORT_REL.format(k, i + 1) for i, k in enumerate(EXPORT_JOBS)}
+    for k, d in sources.items():
+        shutil.copytree(d, os.path.join(jobs, rel[k]))
+    _densenet_job(os.path.join(jobs, rel['densenet']))
+    corrupt = os.path.join(jobs, EXPORT_REL.format('corrupt', 9))
+    os.makedirs(corrupt)
+    with open(os.path.join(corrupt, 'params.json'), 'w') as f:
+        f.write('{ this is not json')
+
+    # --- the export CLI in a subprocess, on the card ---
+    cli_out = os.path.join(root, 'ref_cli')
+    argv = [sys.executable, '-m', 'joint_vae_tpu_torch.cli.export_ref',
+            '--scan', jobs, '--out', cli_out, '--reference', stub]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    cli_s = time.perf_counter() - t0
+    want_line = '{} exported, 1 failed'.format(len(EXPORT_JOBS))
+    if r.returncode != 1 or want_line not in r.stdout:
+        raise AssertionError('export CLI exited {}: {}\n{}'.format(
+            r.returncode, r.stdout, r.stderr[-3000:]))
+    if os.path.relpath(corrupt, jobs) not in r.stderr:
+        raise AssertionError('the export CLI did not name the corrupt job: '
+                             '{}'.format(r.stderr[-3000:]))
+
+    # --- each job in process, timed; the same files as the CLI's ---
+    inproc = os.path.join(root, 'ref_inproc')
+    job_s, written = {}, {}
+    for k in EXPORT_JOBS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst = export_to_reference_job(os.path.join(jobs, rel[k]),
+                                      os.path.join(inproc, rel[k]),
+                                      reference_path=stub)
+        job_s[k] = time.perf_counter() - t0
+        files = [os.path.join(d, f) for d, _, fs in os.walk(dst) for f in fs]
+        written[k] = {
+            'files': len(files),
+            'bytes': sum(os.path.getsize(p) for p in files),
+            'tensors': sum(len(_pth(p)) for p in files
+                           if p.endswith('state.pth'))}
+    diff = _export_tree_differences(inproc, cli_out)
+    if diff:
+        raise AssertionError('in-process and CLI exports differ: {}'.format(
+            diff[:10]))
+
+    # --- import(export(job)) == job, on the card ---
+    back = os.path.join(root, 'back')
+    round_trip = {}
+    for k in EXPORT_JOBS:
+        import_reference_job(os.path.join(inproc, rel[k]),
+                             os.path.join(back, rel[k]))
+        round_trip[k] = _round_trip(os.path.join(jobs, rel[k]),
+                                    os.path.join(back, rel[k]))
+
+    # --- export(import(ref)) == ref: phase 11's imported flagship ---
+    iroot = os.path.join(WORK, 'interop')
+    irel = os.path.join(*map(str, INTEROP_JOBS['flagship']))
+    again = export_to_reference_job(
+        os.path.join(iroot, 'jobs_cuda', irel), os.path.join(root, 'again'),
+        reference_path=stub)
+    ref_diff = []
+    for name in ('state.pth', 'optimizer.pth'):
+        ref_diff += _same_loaded(_pth(os.path.join(iroot, 'ref', irel, name)),
+                                 _pth(os.path.join(again, name)), name)
+    if ref_diff:
+        raise AssertionError('export(import(ref)) differs from phase 11\'s '
+                             'source at {}'.format(ref_diff[:10]))
+
+    # --- a Scorer batch on the re-imported flagship against the source's,
+    # the same noise: bit-equal ---
+    cfg = load_job(os.path.join(jobs, rel['train']), ghost=True).model_cfg
+    rng = np.random.default_rng(13)
+    x = rng.uniform(0, 1, (BATCH,) + cfg.input_shape).astype(np.float32)
+    eps = torch.as_tensor(rng.standard_normal(
+        (cfg.test_latent_sampling + 1, BATCH, cfg.latent_dim))
+        .astype(np.float32), device='cuda')
+    eps[0] = 0.0
+    lows = {m: float('-inf') for m in METHODS}
+    want = Scorer(load_job(os.path.join(jobs, rel['train'])), methods=METHODS,
+                  thresholds=lows)(x, eps=eps)
+    scorer = Scorer(load_job(os.path.join(back, rel['train'])),
+                    methods=METHODS, thresholds=lows)
+    scorer(x, eps=eps)                            # meets its shapes first
+    torch.cuda.synchronize()
+    _count_reset()
+    # --- the main path: a Scorer batch on the re-imported flagship ---
+    got = scorer(x, eps=eps)
+    launches = _counts()
+    # --- end of the main path ---
+    if launches != _want(0, 1):
+        raise AssertionError('re-imported Scorer batch launched {}'.format(
+            launches))
+    unequal = [m for m in METHODS
+               if got['scores'][m].tobytes() != want['scores'][m].tobytes()]
+    if unequal or not np.array_equal(got['label'], want['label']):
+        raise AssertionError('re-imported vs source scores differ: {}'.format(
+            unequal))
+    kernels = export_kernel_checks()
+    out = {'card': card, 'cli_seconds': cli_s, 'cli_line': want_line,
+           'job_seconds': job_s, 'written': written,
+           'round_trip': round_trip,
+           'export_of_import_vs_reference_source': 'equal',
+           'serve_launches': launches, 'serve_vs_source': 'bit-equal',
+           'kernels_at_serve_batch': kernels}
+    print('export', json.dumps(out), flush=True)
+    return launches, out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -4509,6 +4831,7 @@ def main():
     (interop_serve, interop_test, interop_resume, interop_resnet,
      interop_line) = timed('11 interop', interop, card)
     mesh_launches, mesh_line = timed('12 mesh', mesh_phase, card)
+    export_launches, export_line = timed('13 export', export_phase, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -4533,6 +4856,7 @@ def main():
          'launches_interop_test_cli': interop_test['same_grid_conv'],
          'launches_interop_resume': interop_resume['same_grid_conv'],
          **_mesh_launch_keys(mesh_launches, 'same_grid_conv'),
+         'launches_export': export_launches['same_grid_conv'],
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -4634,6 +4958,7 @@ def main():
          'launches_bench_bf16': {m: c['iws_combine']
                                  for m, c in bench16.items()},
          **_mesh_launch_keys(mesh_launches, 'iws_combine'),
+         'launches_export': export_launches['iws_combine'],
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -4650,6 +4975,7 @@ def main():
                       'bench_train': bench, 'fleet': fleet, 'wim': wim,
                       'resnet': resnet, 'drivers': driver_line,
                       'interop': interop_line, 'mesh': mesh_line,
+                      'export': export_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Command-line entry points of the port: train, serve, test, results,
-ft, import_ref (reference-trained job directories), and the analysis
+ft, import_ref (reference-trained job directories), export_ref (jobs
+written out in the reference's layout), and the analysis
 drivers sample (reconstruction and generation grids, latent exports),
 aggregate (ensembles), cascade (chained reconstructions) and grid (sweeps
 of the train CLI)."""
@@ -60,7 +61,7 @@ def mesh_from_args(args):
 
 def find_job_dirs(root):
     """Every directory under root holding a params.json (a job dir), for
-    the import CLI's ``--scan``."""
+    the import and export CLIs' ``--scan``."""
     import os
     for dirpath, dirnames, filenames in os.walk(root):
         if 'params.json' in filenames:

@@ -13,7 +13,17 @@ write such a trunk where torchvision is not installed (the import tests
 and ``chip_smoke.py``).  ``pretrained`` is accepted and ignored: the
 weights are random (``torch.manual_seed``), pretrained values arrive
 inside a reference job's ``state.pth``.
+
+For the exporter (``export_reference.py``), which builds its template
+network with the reference checkout's own code: ``install`` attaches
+these factories to a torchvision stub's ``models`` module where the real
+package is absent, and ``route_densenet`` repairs the checkout's trunk
+routing, which sends only ``resnet*`` names to ``ResOrDenseNetFeatures``
+(ref module/vae_layers/conv.py:138), so that a densenet-trunk job's
+template builds.
 """
+
+import sys
 
 import torch
 import torch.nn as nn
@@ -190,3 +200,37 @@ densenet121 = _densenet_factory('densenet121')
 densenet161 = _densenet_factory('densenet161')
 densenet169 = _densenet_factory('densenet169')
 densenet201 = _densenet_factory('densenet201')
+
+
+def route_densenet(ref_cvae):
+    """Wrap the ``build_de_conv_layers`` that the checkout's ``cvae``
+    module imported, so that ``densenet*`` feature names reach
+    ``ResOrDenseNetFeatures`` of the same module (ref conv.py:247-272)
+    instead of the conv-DSL fallthrough.  Idempotent (the mark is the
+    JAX package's, so neither package wraps the other's wrapper)."""
+    orig = ref_cvae.build_de_conv_layers
+    if getattr(orig, '_jvt_densenet_routed', False):
+        return
+
+    def routed(input_shape, layers_name, *a, **kw):
+        if (kw.get('where', 'input') == 'input'
+                and str(layers_name).startswith('densenet')):
+            conv_mod = sys.modules[orig.__module__]
+            return conv_mod.ResOrDenseNetFeatures(
+                model_name=layers_name, input_shape=input_shape)
+        return orig(input_shape, layers_name, *a, **kw)
+
+    routed._jvt_densenet_routed = True
+    ref_cvae.build_de_conv_layers = routed
+
+
+def install():
+    """Attach the factories to a torchvision stub's ``models`` module
+    (instance attributes win over the stub's ``__getattr__``); a real
+    torchvision (its modules have a ``__file__``) is left as it is."""
+    m = sys.modules.get('torchvision.models')
+    if m is not None and getattr(m, '__file__', None) is None:
+        for arch in ('resnet18', 'resnet34', 'resnet50', 'resnet101',
+                     'resnet152', 'densenet121', 'densenet161',
+                     'densenet169', 'densenet201'):
+            setattr(m, arch, globals()[arch])

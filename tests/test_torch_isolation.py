@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``joint_vae_tpu_torch``, nothing in
-``chip_smoke.py``, nothing in the card-only kernel tests and nothing in
-the reference-layout writer that ``chip_smoke.py`` shares with the tests
-(``tests/torch_reference_layout.py``) imports jax,
+``chip_smoke.py``, nothing in the card-only kernel tests, nothing in
+the reference-layout writer and the stub reference checkout that
+``chip_smoke.py`` shares with the tests (``tests/torch_reference_layout.py``,
+``tests/torch_reference_stub.py``) and nothing in the port's quality run
+(``scripts/torch_quality_run.py``) imports jax,
 flax, optax, the JAX package or pandas (the card machine has no pandas:
 the port's result tables are its own), and importing them in a clean
 interpreter loads none of them."""
@@ -21,7 +23,9 @@ def _port_sources():
     pkg = os.path.join(ROOT, 'joint_vae_tpu_torch')
     out = [os.path.join(ROOT, 'chip_smoke.py'),
            os.path.join(ROOT, 'tests', 'test_torch_kernels_cuda.py'),
-           os.path.join(ROOT, 'tests', 'torch_reference_layout.py')]
+           os.path.join(ROOT, 'tests', 'torch_reference_layout.py'),
+           os.path.join(ROOT, 'tests', 'torch_reference_stub.py'),
+           os.path.join(ROOT, 'scripts', 'torch_quality_run.py')]
     for dirpath, _, files in os.walk(pkg):
         out += [os.path.join(dirpath, f) for f in sorted(files)
                 if f.endswith('.py')]
@@ -50,6 +54,7 @@ def test_clean_import_loads_no_jax():
     code = ('import sys; sys.path.insert(0, {root!r}); '
             'sys.path.insert(0, {tests!r}); '
             'import chip_smoke, torch_reference_layout, '
+            'torch_reference_stub, '
             'joint_vae_tpu_torch.serve, '
             'joint_vae_tpu_torch.cli.serve, joint_vae_tpu_torch.save_load.jobs, '
             'joint_vae_tpu_torch.train.trainer, joint_vae_tpu_torch.cli.test, '
@@ -76,6 +81,8 @@ def test_clean_import_loads_no_jax():
             'joint_vae_tpu_torch.cli.grid, '
             'joint_vae_tpu_torch.cli.import_ref, '
             'joint_vae_tpu_torch.save_load.import_reference, '
+            'joint_vae_tpu_torch.save_load.export_reference, '
+            'joint_vae_tpu_torch.cli.export_ref, '
             'joint_vae_tpu_torch.save_load.tv_resnet, '
             'joint_vae_tpu_torch.utils.device, '
             'joint_vae_tpu_torch.utils.profiling; '
