@@ -10,12 +10,17 @@ Phases, any failure raising (nonzero exit):
    source, all started together), print the build time, ptxas's register
    report and the tensor-core instructions of the conv library
    (``cuobjdump -sass``: HMMA/HGMMA by opcode and kernel), and fail
-   unless it holds both TF32 and BF16 ones;
+   unless it holds both TF32 and BF16 ones and unless the tensor-core
+   conv kernel (``tc_conv_kernel``, the flagship's tensor-core sites)
+   holds HGMMA (wgmma) TF32 in each float32 instantiation and HGMMA BF16
+   in each bfloat16 one (the ``hgmma`` line: counts by instantiation);
 3. hold each kernel against its plain PyTorch version at the flagship's
    shapes and time kernel, plain version, library call and bound:
    the same-grid conv at its eight sites (N=512 features, L*N=8192
    decoder; the two stride-2 deconvs as their packed sub-pixel convs) in
-   float32 and bfloat16, the co=3 head also zero-padded to co=8 (the
+   float32 and bfloat16, each row with the kernel its shape dispatches
+   (``kernel``: ``ops/same_grid_conv.py::kernel_route``), the co=3 head
+   also zero-padded to co=8 (the
    8-wide tensor-core tile, against float32's CUDA-core path); the IWAE
    combine at L=16, N=512, C=100, K=128 in both modes, a ragged C=37,
    N=137 case, the OOD evaluation's ragged last batch N=272, the
@@ -469,8 +474,8 @@ def check_conv(sites):
     true deconv for a sub-pixel site.  FLOPs count the packed conv as
     launched; the true (de)conv's FLOPs are printed beside them."""
     import torch.nn.functional as F
-    from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
-                                                        same_grid_conv_plain)
+    from joint_vae_tpu_torch.ops.same_grid_conv import (
+        kernel_route, same_grid_conv, same_grid_conv_plain)
     g = torch.Generator(device='cuda').manual_seed(1)
     rows, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
                        'bound_ms': 0.0, 'bound_ms_cuda_core': 0.0,
@@ -510,6 +515,7 @@ def check_conv(sites):
             true_flops = 2.0 * n * h * w * k * k * ci * true_co
             b, by = bound_ms(nbytes, flops, PEAK_FLOPS[dt])
             row = {'site': name, 'route': site['route'],
+                   'kernel': kernel_route(dt, ci, co),
                    'dtype': str(dt).split('.')[-1],
                    'launched_shape': [n, h, w, ci, co, th, tw],
                    'ms': ms, 'plain_ms': plain, 'library_ms': lib,
@@ -550,8 +556,8 @@ def check_tail_conv(sites) -> float:
     (10,000 = 19 x 512 + 272 images: n=272 at the features, 16 x 272 =
     4,352 at the decoder), float32, against its plain version in the
     conv's form.  Returns the largest error."""
-    from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
-                                                        same_grid_conv_plain)
+    from joint_vae_tpu_torch.ops.same_grid_conv import (
+        kernel_route, same_grid_conv, same_grid_conv_plain)
     g = torch.Generator(device='cuda').manual_seed(6)
     worst = 0.0
     for site in sites:
@@ -564,6 +570,7 @@ def check_tail_conv(sites) -> float:
         worst = max(worst, err)
         print('conv_tail', json.dumps({
             'site': site['site'], 'launched_shape': list(x.shape) + list(kd.shape),
+            'kernel': kernel_route(x.dtype, x.shape[3], kd.shape[3]),
             'max_abs_err': err}), flush=True)
         del x, kd, y, ref
     torch.cuda.empty_cache()
@@ -598,6 +605,30 @@ def sass_counts(name: str) -> dict:
         for op, c in counts.items():
             ops[op] = ops.get(op, 0) + c
     return {'library': name, 'by_opcode': ops, 'by_kernel': by_kernel}
+
+
+def hgmma_counts(sass: dict) -> dict:
+    """HGMMA (wgmma) instructions of the tensor-core conv kernel
+    (``tc_conv_kernel``, which runs the flagship's tensor-core sites) by
+    instantiation and type; raises unless its float32 instantiations hold
+    TF32 ones and its bfloat16 ones BF16 ones, every one of them."""
+    out = {}
+    for fn, ops in sass['by_kernel'].items():
+        if 'tc_conv_kernel' not in fn:
+            continue
+        counts = {kind: sum(c for op, c in ops.items()
+                            if op.startswith('HGMMA') and kind in op)
+                  for kind in ('TF32', 'BF16')}
+        # the mangled template arguments: float or __nv_bfloat16
+        kind = 'BF16' if 'bfloat16' in fn else 'TF32'
+        if counts[kind] == 0:
+            raise AssertionError('no HGMMA {} in {}'.format(kind, fn))
+        out[fn] = counts
+    for kind in ('TF32', 'BF16'):
+        if not any(c[kind] for c in out.values()):
+            raise AssertionError('no HGMMA {} in the tensor-core conv '
+                                 'kernel'.format(kind))
+    return out
 
 
 # the combine's cases: (L, N, C, K, mean scale, modes).  The flagship
@@ -983,7 +1014,7 @@ def check_train_conv(sites, dt=torch.float32):
     whose error against float64 is printed (not gated)."""
     import torch.nn.functional as F
     from joint_vae_tpu_torch.ops.same_grid_conv import (
-        same_grid_conv, same_grid_conv_dw, same_grid_conv_dx,
+        kernel_route, same_grid_conv, same_grid_conv_dw, same_grid_conv_dx,
         same_grid_conv_dx_plain, same_grid_conv_plain)
     g_cuda = torch.Generator(device='cuda').manual_seed(3)
     tag = '' if dt == torch.float32 else '_bf16'
@@ -1013,6 +1044,7 @@ def check_train_conv(sites, dt=torch.float32):
         fwd_flops = 2.0 * n * h * w * th * tw * ci * co
         fb, fby = bound_ms(fwd_bytes, fwd_flops, PEAK_FLOPS[dt])
         fwd_rows.append({'site': name, 'launched_shape': [n, h, w, ci, co, th, tw],
+                         'kernel': kernel_route(dt, ci, co),
                          'dtype': str(dt).split('.')[-1], 'ms': fwd_ms,
                          'plain_ms': fwd_plain, 'library_ms': fwd_lib,
                          'bound_ms': fb, 'bound_by': fby,
@@ -1050,6 +1082,7 @@ def check_train_conv(sites, dt=torch.float32):
         flops = 2.0 * n * h * w * th * tw * ci * co
         b, by = bound_ms(nbytes, flops, PEAK_FLOPS[dt])
         row = {'site': name, 'dx_shape': [n, h, w, co, ci, th, tw],
+               'kernel': kernel_route(dt, co, ci),
                'dtype': str(dt).split('.')[-1],
                'ms': ms, 'plain_ms': plain, 'library_ms': lib,
                'bound_ms': b, 'bound_by': by, 'share_of_bound': b / ms,
@@ -1506,7 +1539,8 @@ def odin_gate(card: str) -> dict:
     from joint_vae_tpu_torch.models.cvnet import flagship_config
     from joint_vae_tpu_torch.ops.priors import PriorConfig
     from joint_vae_tpu_torch.ops.same_grid_conv import (
-        same_grid_conv, same_grid_conv_dx, same_grid_conv_dx_plain)
+        kernel_route, same_grid_conv, same_grid_conv_dx,
+        same_grid_conv_dx_plain)
     from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
     cfg = dataclasses.replace(flagship_config(), type='vib',
                               prior=PriorConfig(dim=128))
@@ -1583,6 +1617,7 @@ def odin_gate(card: str) -> dict:
                      PEAK_FLOPS[torch.float32])
     conv_0_dx = {
         'dx_shape': [n, h, w, co, ci, th, tw], 'max_abs_err': dx_err,
+        'kernel': kernel_route(torch.float32, co, ci),
         'odin_g_rms': seen[0].square().mean().sqrt().item(),
         'ms': time_ms(lambda: same_grid_conv_dx(g_rand, k0, lo0, lo0), 20),
         'plain_ms': time_ms(lambda: same_grid_conv_dx_plain(
@@ -4785,6 +4820,8 @@ def main():
         if not any(kind in op for op in sass['by_opcode']):
             raise AssertionError('no {} tensor-core instruction in the '
                                  'same-grid kernel library'.format(kind))
+    hgmma = hgmma_counts(sass)
+    print('hgmma', json.dumps(hgmma), flush=True)
 
     phase_s['1-2 build'] = time.perf_counter() - t_start
     t0 = time.perf_counter()

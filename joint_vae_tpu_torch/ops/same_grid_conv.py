@@ -8,7 +8,9 @@ grid — pads ``(ph_lo, th-1-ph_lo)`` x ``(pw_lo, tw-1-pw_lo)``, possibly
 asymmetric — on x (n, h, w, ci) with an HWIO kernel (th, tw, ci, co),
 float32 accumulation, output in the input dtype, no bias.  The kernel is
 ``csrc/same_grid_conv.cu`` (tensor cores: 3xTF32 in float32, one bf16
-pass in bfloat16); on a CUDA tensor a wrapper launches it or raises, and
+pass in bfloat16, on ``wgmma`` or ``mma.sync`` by shape, and float32
+with co < 8 on the CUDA cores: :func:`kernel_route`); on a CUDA tensor a
+wrapper launches it or raises, and
 only CPU tensors take the plain version.  The model calls it at its
 same-grid (de)convs and at the packed conv of its sub-pixel deconvs
 (``models/conv.py``), through :class:`SameGridConvFn`.
@@ -38,6 +40,35 @@ from . import cuda_lib
 IM2COL_BYTES = 1 << 29        # the im2col copy of a chunk of images
 MAX_ELEMS = 2 ** 31 - 1       # the kernel's int32 shapes: x's or y's
                               # elements in one launch
+
+
+def wgmma_tile(dtype: torch.dtype, co: int) -> dict:
+    """The wgmma kernel's tile for ``co`` output channels in ``dtype``
+    (``csrc/same_grid_conv.cu``): N = co rounded up to 8..64 (float32)
+    or 8..128 (bfloat16), wider co in several N tiles; ``units`` K units
+    of 64 bytes of channels an iteration; four warpgroups of 64 rows from
+    N = 64 on, else two."""
+    size = torch.empty((), dtype=dtype).element_size()
+    widest = 64 if size == 4 else 128
+    n_tile = next((n for n in (8, 16, 32, 64) if co <= n), widest)
+    return {'n_tile': n_tile,
+            'units': (2 if n_tile < 128 else 1) * (4 // size),
+            'warpgroups': 4 if n_tile >= 64 else 2}
+
+
+def kernel_route(dtype: torch.dtype, ci: int, co: int) -> dict:
+    """The kernel that ``csrc/same_grid_conv.cu::dispatch`` launches for
+    a conv of ``ci`` -> ``co`` channels in ``dtype``: float32 with co < 8
+    on the CUDA cores (``head``); ci of at most 16 bytes folded into K on
+    ``wgmma``; other co <= 32 on ``mma.sync`` (faster there, timed on
+    the card); wider co on ``wgmma``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if dtype == torch.float32 and co < 8:
+        return {'kernel': 'head', 'co': co}
+    folded = ci * size <= 16
+    if not folded and co <= 32:
+        return {'kernel': 'mma.sync', 'tile': [256, 32] if co > 8 else [128, 8]}
+    return {'kernel': 'wgmma', 'folded': folded, **wgmma_tile(dtype, co)}
 
 
 def same_grid_conv_plain(x: torch.Tensor, kernel: torch.Tensor,

@@ -3,7 +3,8 @@
 the reference-layout writer and the stub reference checkout that
 ``chip_smoke.py`` shares with the tests (``tests/torch_reference_layout.py``,
 ``tests/torch_reference_stub.py``) and nothing in the port's quality run
-(``scripts/torch_quality_run.py``) imports jax,
+(``scripts/torch_quality_run.py``) or its conv timer
+(``scripts/time_torch_conv.py``) imports jax,
 flax, optax, the JAX package or pandas (the card machine has no pandas:
 the port's result tables are its own), and importing them in a clean
 interpreter loads none of them."""
@@ -25,7 +26,8 @@ def _port_sources():
            os.path.join(ROOT, 'tests', 'test_torch_kernels_cuda.py'),
            os.path.join(ROOT, 'tests', 'torch_reference_layout.py'),
            os.path.join(ROOT, 'tests', 'torch_reference_stub.py'),
-           os.path.join(ROOT, 'scripts', 'torch_quality_run.py')]
+           os.path.join(ROOT, 'scripts', 'torch_quality_run.py'),
+           os.path.join(ROOT, 'scripts', 'time_torch_conv.py')]
     for dirpath, _, files in os.walk(pkg):
         out += [os.path.join(dirpath, f) for f in sorted(files)
                 if f.endswith('.py')]

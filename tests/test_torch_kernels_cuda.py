@@ -18,9 +18,11 @@ from joint_vae_tpu_torch.ops.same_grid_conv import (SameGridConvFn,
                                                     same_grid_conv_dx,
                                                     same_grid_conv_plain)
 
-from torch_kernel_cases import (CONV_GEOMS, FLAGSHIP_DX_GEOMS, IWS_CASES,
-                                WIDE_CONV_GEOM, conv_inputs, iws_case_id,
-                                iws_case_inputs, iws_inputs)
+from torch_kernel_cases import (CONV_GEOMS, FLAGSHIP_DX_GEOMS,
+                                FLAGSHIP_SITE_GEOMS, IWS_CASES,
+                                STRESS_CONV_GEOMS, WIDE_CONV_GEOM,
+                                conv_inputs, iws_case_id, iws_case_inputs,
+                                iws_inputs)
 
 # the conv gate's float32 tolerance (chip_smoke.py): |got - want| <=
 # tol (|want| + rms(want)), sums of up to 1,600 products in another order
@@ -59,6 +61,58 @@ def test_same_grid_kernel_on_card(geom, dtype, cuda_device):
     want = same_grid_conv_plain(xd, kd, ph, pw)
     tol = 1e-5 if dt == torch.float32 else 2e-2
     close(got.float(), want.float(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('geom', STRESS_CONV_GEOMS)
+def test_same_grid_kernel_tiling_on_card(geom, dtype, cuda_device):
+    """The tensor-core kernel's N tiles (8..128, co 256 in two), M tails,
+    partial and folded channel chunks, asymmetric pads and the float32
+    co < 8 kernel: forward and input gradient against their plain
+    versions, one launch each."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import same_grid_conv_dx_plain
+    dt = getattr(torch, dtype)
+    n, h, w, ci, co, th, tw, ph, pw = geom
+    x, k = conv_inputs(geom)
+    xd = torch.from_numpy(x).to(cuda_device, dt)
+    kd = torch.from_numpy(k).to(cuda_device, dt)
+    g = torch.from_numpy(conv_inputs((n, h, w, co, ci, th, tw, ph, pw),
+                                     seed=1)[0]).to(cuda_device, dt)
+    before = (same_grid_conv.launches, same_grid_conv_dx.launches)
+    got = same_grid_conv(xd, kd, ph, pw)
+    dx = same_grid_conv_dx(g, kd, ph, pw)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, same_grid_conv_dx.launches) == (
+        before[0] + 1, before[1] + 1)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    close(got.float(), same_grid_conv_plain(xd, kd, ph, pw).float(), tol)
+    close(dx.float(), same_grid_conv_dx_plain(g, kd, ph, pw).float(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('site', sorted(FLAGSHIP_SITE_GEOMS))
+def test_flagship_sites_at_train_batch_on_card(site, dtype, cuda_device):
+    """Each of the flagship's eight same-grid sites at the train step's
+    batch (1024, L=1) in both dtypes, the packed sub-pixel kernels as
+    launched: the forward, and the input gradient where a step takes one
+    (not conv_0, which reads the data), against their plain versions."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import same_grid_conv_dx_plain
+    dt = getattr(torch, dtype)
+    n, h, w, ci, co, th, tw, ph, pw = (1024,) + FLAGSHIP_SITE_GEOMS[site][1:]
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    x = torch.rand((n, h, w, ci), device=cuda_device, generator=gen).to(dt)
+    k = (torch.randn((th, tw, ci, co), device=cuda_device, generator=gen)
+         / (th * tw * ci) ** 0.5).to(dt)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    close(same_grid_conv(x, k, ph, pw).float(),
+          same_grid_conv_plain(x, k, ph, pw).float(), tol)
+    if site != 'features_stack.conv_0':
+        g = (0.05 * torch.randn((n, h, w, co), device=cuda_device,
+                                generator=gen)).to(dt)
+        close(same_grid_conv_dx(g, k, ph, pw).float(),
+              same_grid_conv_dx_plain(g, k, ph, pw).float(), tol)
 
 
 @pytest.mark.cuda

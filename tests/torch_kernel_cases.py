@@ -19,6 +19,26 @@ CONV_GEOMS = [
 ]
 WIDE_CONV_GEOM = (3, 40, 70, 17, 40, 3, 3, 1, 1)   # several column tiles
 
+# Geometries that stress the tensor-core kernel's tiling (wgmma N tiles of
+# 8..128, 128-pixel M tiles, 64-byte channel chunks, taps folded into K
+# where ci fits in 16 bytes) and the float32 co < 8 kernel.
+STRESS_CONV_GEOMS = [
+    (3, 8, 8, 3, 3, 5, 5, 2, 2),       # ci 3 folded, co 3
+    (5, 8, 8, 8, 8, 3, 3, 1, 1),       # ci 8, co 8; M 320: a 64-row tail
+    (3, 8, 8, 17, 32, 5, 5, 2, 2),     # ci 17: a partial chunk
+    (5, 8, 8, 64, 64, 5, 5, 2, 2),     # two 8x8 images a tile, M tail
+    (3, 8, 8, 64, 256, 3, 3, 1, 1),    # co 256: two N tiles of 128
+    (2, 9, 11, 64, 32, 3, 5, 0, 4),    # asymmetric pads, 3x5 taps
+    (2, 5, 13, 8, 64, 5, 3, 4, 0),     # asymmetric, M 130
+    (1, 3, 3, 3, 8, 5, 5, 1, 3),       # an image smaller than the taps
+    (4, 7, 9, 3, 17, 5, 5, 2, 2),      # folded, co 17 (N tile 32)
+    (2, 4, 4, 64, 3, 3, 3, 1, 1),      # co 3 at ci 64
+    (2, 12, 40, 17, 7, 5, 5, 2, 2),    # co 7, 40 wide: two column tiles
+    (2, 6, 6, 5, 5, 1, 1, 0, 0),       # 1x1 taps: one unit a chunk
+    (2, 8, 8, 3, 32, 7, 7, 3, 3),      # folded, 49 taps: a ragged unit
+    (2, 9, 9, 2, 100, 5, 5, 2, 2),     # co 100 in a 128 tile
+]
+
 # The forward geometries (n, h, w, ci, co, th, tw, ph_lo, pw_lo) of the
 # flagship's seven same-grid sites whose input gradient a train step
 # launches (features conv_0 reads the data and has none); dx swaps ci and
@@ -32,6 +52,9 @@ FLAGSHIP_DX_GEOMS = {
     'imager.deconv_5': (8, 32, 32, 32, 32, 5, 5, 2, 2),
     'imager.conv_6': (8, 32, 32, 32, 3, 5, 5, 2, 2),
 }
+# all eight same-grid sites of the flagship's forward
+FLAGSHIP_SITE_GEOMS = {'features_stack.conv_0': (8, 32, 32, 3, 32, 5, 5, 2, 2),
+                       **FLAGSHIP_DX_GEOMS}
 
 
 def conv_inputs(geom, seed=0):
