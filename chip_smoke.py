@@ -270,12 +270,31 @@ Phases, any failure raising (nonzero exit):
    noise (8 conv and 1 combine launches), and both kernels against their
    plain versions at that batch's shapes (``export`` line: seconds per
    job and per ``--scan``, files, bytes and tensors written);
-14. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+14. the evidence scripts in rehearsal (the evidence slice): first the
+   conv against its plain version at their shapes that no earlier phase
+   gives it (the plain VAE's eight sites at L=1, n=128 and 256, forward
+   and dx, float32 and bfloat16: ``evidence_conv`` lines); then, counted
+   as one run, ``scripts/torch_wim_quality.py``, ``torch_wim_study.py``,
+   ``torch_poscod_quality.py`` (float32) and
+   ``torch_wim_inversion_study.py`` (bfloat16) through their ``main`` at
+   1 pretrain epoch of 1,024 images, 256 images per evaluation set and one
+   fine-tune epoch of 512, each record's keys those of the JAX package's
+   record (``docs/WIM_QUALITY.json`` ...), the WIM quality run's launches
+   by stage those worked out from the code (8 forward and 7 dx per step
+   of pretraining and per half of a fine-tune step, 8 forward per batch of
+   the pre-tuning engines, 16 per both-prior batch, no combine); then
+   ``torch_prepare_data.py make-fixtures``, ``torch_reproduce_sota.py
+   --fixtures`` (its table's rows, its sets and methods) and
+   ``torch_prepare_data.py verify`` on the fixtures (every fixture set
+   read back as real) (``evidence`` line: each script's seconds and
+   launches);
+15. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
    ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
-   ``launches_mesh_*``: phase 12's; ``launches_export``: phase 13's);
-15. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches_mesh_*``: phase 12's; ``launches_export``: phase 13's;
+   ``launches_evidence``: phase 14's);
+16. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -4792,6 +4811,198 @@ def export_phase(card: str) -> tuple:
     print('export', json.dumps(out), flush=True)
     return launches, out
 
+# ---------------------------------------------------------------------------
+# phase 14: the evidence scripts in rehearsal (scripts/torch_*.py: the WIM
+# quality run, the WIM study, the Poscod study, the WIM inversion study, the
+# reproduction of the reference's sota row in fixture mode and the data
+# preparer), each called in process through its ``main`` at a size that
+# runs in seconds: 1 pretrain epoch of 1,024 images (4 steps of 256), 256
+# images per evaluation set, one fine-tune epoch of 512 images (4 steps of
+# 128 + 128); the inversion study in bfloat16 (its own default), the others
+# in float32
+# ---------------------------------------------------------------------------
+EVIDENCE_ARGS = ['--epochs', '1', '--train-size', '1024', '--test-size',
+                 '256', '--ft-size', '512', '--ft-epochs', '1']
+EVIDENCE_STUDIES = (     # (name, module, dtype, the JAX package's record)
+    ('wim_quality', 'torch_wim_quality', 'float32', 'WIM_QUALITY.json'),
+    ('wim_study', 'torch_wim_study', 'float32', 'WIM_STUDY.json'),
+    ('poscod_quality', 'torch_poscod_quality', 'float32',
+     'POSCOD_QUALITY.json'),
+    ('wim_inversion', 'torch_wim_inversion_study', 'bfloat16',
+     'WIM_INVERSION.json'))
+# the conv's batches new to the card in these scripts: each fine-tune half
+# and Poscod's head batches (128), pretraining and Poscod's scoring (256)
+EVIDENCE_BATCHES = (128, 256)
+EVIDENCE_EVAL_BATCH = 512
+SOTA_SETS = ('lsunr', 'svhn')
+SOTA_METHODS = {'elbo', 'elbo@', 'zdist', 'zdist@', 'kl'}
+
+
+def evidence_conv_checks() -> list:
+    """The conv against its plain version at the evidence scripts' shapes
+    that no earlier phase gives it: the plain VAE's eight sites at L=1 and
+    n in ``EVIDENCE_BATCHES``, the forward at each site and the dx at the
+    seven whose input needs one, float32 and bfloat16, in the conv's form
+    and tolerance."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet
+    from joint_vae_tpu_torch.ops.same_grid_conv import (
+        same_grid_conv, same_grid_conv_dx, same_grid_conv_dx_plain,
+        same_grid_conv_plain)
+    from scripts.torch_evidence import vae_config
+    g = torch.Generator(device='cuda').manual_seed(17)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for n in EVIDENCE_BATCHES:
+            sites = same_grid_sites(CVNet(vae_config('float32', 8)), n, 1)
+            if len(sites) != SITES_PER_BATCH:
+                raise AssertionError('{} sites in the plain VAE'.format(
+                    len(sites)))
+            err = {'forward': 0.0, 'dx': 0.0}
+            for j, site in enumerate(sites):
+                lo, what = site['lo'], '{} n={} {}'.format(site['site'], n, dt)
+                x, _, kd = site_inputs(site, dt, g)
+                y = same_grid_conv(x, kd, lo, lo)
+                ref = same_grid_conv_plain(x, kd, lo, lo)
+                conv_gate(y, ref, 'evidence forward ' + what, dt)
+                err['forward'] = max(err['forward'],
+                                     (y.float() - ref.float()).abs().max().item())
+                if j:                 # features conv_0 reads the data
+                    gy = (0.05 * torch.randn(y.shape, generator=g,
+                                             device='cuda')).to(dt)
+                    dx = same_grid_conv_dx(gy, kd, lo, lo)
+                    dref = same_grid_conv_dx_plain(gy, kd, lo, lo)
+                    conv_gate(dx, dref, 'evidence dx ' + what, dt)
+                    err['dx'] = max(err['dx'], (dx.float() - dref.float())
+                                    .abs().max().item())
+            rows.append({'dtype': str(dt).split('.')[-1], 'n': n,
+                         'sites': len(sites), 'dx_sites': len(sites) - 1,
+                         'max_abs_err': err})
+            print('evidence_conv', json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def _evidence_want(rec: dict) -> dict:
+    """The WIM quality rehearsal's launches by stage, worked out from the
+    code and its record's sizes: pretraining 8 forward and 7 dx per step of
+    256; the pre-tuning engines 8 forward per batch of 512 of the test set
+    and of each OOD set; the fine-tune 8 forward and 7 dx per half per step
+    (``_ft_want``) and 16 forward per both-prior batch of its post-tuning
+    evaluation of the same sets; no combine anywhere (the plain VAE's
+    prior is unconditional, ``models/evaluate.py``)."""
+    def batches(n):
+        return -(-n // EVIDENCE_EVAL_BATCH)
+    evals = batches(rec['test_images']) + sum(
+        batches(n) for n in rec['ood_images'].values())
+    pt, ft = rec['pretrain']['steps'], rec['finetune']['steps']
+    return {'pretrain': _want(pt), 'pre_eval': _want(0) | {
+                'same_grid_conv': SITES_PER_BATCH * evals},
+            'finetune': _ft_want(ft, 0, evals) | {'iws_combine': 0}}
+
+
+def evidence(card: str) -> tuple:
+    """Phase 14: the six evidence scripts through their ``main``, each
+    checked to return 0 and to write a record with the JAX package's
+    record's keys (the reproduction: its table's rows and sets, the data
+    preparer: its fixtures read back by the port's loaders); the WIM
+    quality rehearsal's launches against those worked out from the code;
+    the conv at the scripts' new shapes.  Returns (launches, line)."""
+    import contextlib
+    import csv
+    import importlib
+    import io
+    from scripts.torch_evidence import keys_unlike
+    from joint_vae_tpu_torch.data import loaders
+    root = os.path.join(WORK, 'evidence')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    conv_rows = evidence_conv_checks()
+    seconds, launched, records = {}, {}, {}
+    torch.cuda.synchronize()
+    _count_reset()
+    # --- the main path of phase 14 ---
+    for name, module, dtype, _ in EVIDENCE_STUDIES:
+        before, t0 = _counts(), time.perf_counter()
+        out = os.path.join(root, name + '.json')
+        mod = importlib.import_module('scripts.' + module)
+        if mod.main(EVIDENCE_ARGS + ['--dtype', dtype, '--out', out]) != 0:
+            raise AssertionError('{} did not return 0'.format(module))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launched[name] = {k: v - before[k] for k, v in _counts().items()}
+        with open(out) as f:
+            records[name] = json.load(f)['runs'][dtype]
+    old_dir, old_env = loaders.DATA_DIR, os.environ.get('JVT_DATA_DIR')
+    fx, sota = os.path.join(root, 'fixtures'), os.path.join(root, 'sota')
+    try:
+        from scripts import torch_prepare_data, torch_reproduce_sota
+        for name, fn, argv in (
+                ('prepare_data', torch_prepare_data.main,
+                 ['make-fixtures', '--data-dir', fx]),
+                ('reproduce_sota', torch_reproduce_sota.main,
+                 ['--fixtures', fx, '--out', sota]),
+                ('prepare_data_verify', torch_prepare_data.main,
+                 ['verify', '--data-dir', fx])):
+            before, t0 = _counts(), time.perf_counter()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = fn(argv)
+            if rc != 0:
+                raise AssertionError('{} returned {}'.format(name, rc))
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launched[name] = {k: v - before[k] for k, v in _counts().items()}
+            records[name] = text.getvalue()
+    finally:
+        loaders.DATA_DIR = old_dir
+        if old_env is None:
+            os.environ.pop('JVT_DATA_DIR', None)
+        else:
+            os.environ['JVT_DATA_DIR'] = old_env
+        loaders._cache.clear()
+    launches = _counts()
+    # --- end of the main path ---
+    for name, _, _, reference in EVIDENCE_STUDIES:
+        with open(os.path.join(ROOT, 'docs', reference)) as f:
+            unlike = keys_unlike(records[name], json.load(f))
+        if unlike:
+            raise AssertionError('{}: keys unlike docs/{}: {}'.format(
+                name, reference, unlike))
+    wq = records['wim_quality']
+    if wq['pretrain']['steps'] != 1024 // 256 or wq['finetune']['steps'] != 4:
+        raise AssertionError('wim_quality steps: {} {}'.format(
+            wq['pretrain']['steps'], wq['finetune']['steps']))
+    want = _evidence_want(wq)
+    got = {k: wq[k]['launches'] for k in want}
+    if got != want:
+        raise AssertionError('wim_quality launches {}, want {}'.format(
+            got, want))
+    with open(os.path.join(sota, 'sota_native.csv')) as f:
+        rows = list(csv.reader(f))
+    if [r[0] for r in rows] != ['set', 'method', 'measures',
+                                'vae (published)', 'vae (this run)'] or \
+            rows[0][1:] != [s for s in SOTA_SETS for _ in range(6)]:
+        raise AssertionError('sota_native.csv rows: {}'.format(rows))
+    with open(os.path.join(sota, 'sota_native.json')) as f:
+        post = json.load(f)['post']
+    if {s: set(ms) for s, ms in post.items()} != {
+            s: SOTA_METHODS for s in SOTA_SETS}:
+        raise AssertionError('sota_native.json post: {}'.format(post))
+    verified = dict(line.split(None, 1) for line in
+                    records['prepare_data_verify'].splitlines())
+    fallback = sorted(n for n, v in verified.items() if not
+                      v.startswith('real'))
+    if fallback != ['imagenet12', 'imagenet1k', 'imagenet20']:
+        raise AssertionError('fixtures not read back as real: {}'.format(
+            fallback))
+    line = {'card': card, 'seconds': seconds, 'launches': launched,
+            'total_launches': launches,
+            'wim_quality_launches': got,
+            'wim_quality_auroc': {'pre': wq['pre_best'],
+                                  'post': wq['post_best']},
+            'sota_this_run': rows[4], 'conv_at_new_shapes': conv_rows}
+    print('evidence', json.dumps(line), flush=True)
+    return launches, line
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4869,6 +5080,7 @@ def main():
      interop_line) = timed('11 interop', interop, card)
     mesh_launches, mesh_line = timed('12 mesh', mesh_phase, card)
     export_launches, export_line = timed('13 export', export_phase, card)
+    evidence_launches, evidence_line = timed('14 evidence', evidence, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -4894,6 +5106,7 @@ def main():
          'launches_interop_resume': interop_resume['same_grid_conv'],
          **_mesh_launch_keys(mesh_launches, 'same_grid_conv'),
          'launches_export': export_launches['same_grid_conv'],
+         'launches_evidence': evidence_launches['same_grid_conv'],
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -4943,6 +5156,7 @@ def main():
                               for t, c in driver_launches.items()},
          'launches_interop_resume': interop_resume['same_grid_conv_dx'],
          **_mesh_launch_keys(mesh_launches, 'same_grid_conv_dx'),
+         'launches_evidence': evidence_launches['same_grid_conv_dx'],
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -4996,6 +5210,7 @@ def main():
                                  for m, c in bench16.items()},
          **_mesh_launch_keys(mesh_launches, 'iws_combine'),
          'launches_export': export_launches['iws_combine'],
+         'launches_evidence': evidence_launches['iws_combine'],
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -5012,7 +5227,7 @@ def main():
                       'bench_train': bench, 'fleet': fleet, 'wim': wim,
                       'resnet': resnet, 'drivers': driver_line,
                       'interop': interop_line, 'mesh': mesh_line,
-                      'export': export_line,
+                      'export': export_line, 'evidence': evidence_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

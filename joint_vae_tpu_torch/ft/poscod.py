@@ -64,8 +64,10 @@ class PoscodJob:
 
     def _mu(self, x: np.ndarray, generator: torch.Generator,
             mesh=None) -> torch.Tensor:
-        """The encoder means (N, K) of a host batch, on the job's device
-        (gathered on every rank of a mesh)."""
+        """The encoder means (N, K) of a host batch in float32, on the
+        job's device (gathered on every rank of a mesh).  A bfloat16
+        model's means are widened, as JAX promotes them against the
+        float32 head."""
         job = self.job
         if mesh is not None:
             job.state = ensure_placed(job.state, mesh)
@@ -77,7 +79,7 @@ class PoscodJob:
                                    sigma_state=job.sigma_state, train=False,
                                    L=1, compute_iws=False, decode_mean=False,
                                    generator=generator).mu}
-        mu = run(len(x), forward, lambda k, v: v.ndim - 2)['mu']
+        mu = run(len(x), forward, lambda k, v: v.ndim - 2)['mu'].float()
         return mu.reshape((-1, mu.shape[-1])) if mu.ndim > 2 else mu
 
     @staticmethod

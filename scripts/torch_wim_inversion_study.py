@@ -1,0 +1,236 @@
+#!/usr/bin/env python
+"""WIM inversion study of the PyTorch port: why does plain `kl` beat the
+WIM LLR (`elbo@`/`zdist@`) on shapes32?  As
+``scripts/wim_inversion_study.py`` does for the JAX package.
+
+The LLR score k@ = sign*k(original prior) - sign*k(alternate prior)
+subtracts two discriminators.  The study decomposes it for two pretrain
+prior families x two WIM operating points:
+
+  families - 'gaussian': the WIM quality configuration (where the three
+  LLR methods are one discriminator: kl@ == zdist@ == elbo@, the identity
+  ``tests/test_wim_llr_identity.py`` proves), and 'tilted': the
+  reference's sota.csv operating point (config.ini [tilted]: tilted
+  prior, forced encoder variance 1.0, sigma 0.7071, beta 1, tau and
+  init_mean 20 for K=64; alternate prior tilted, mean 0, the same tau);
+
+  operating points - A: the reference's (mix 0.5, alpha 0.3, 1 fine-tune
+  epoch) and B: the strong dose (a pure-OOD moving set, alpha 1.0, 8
+  fine-tune epochs).
+
+Reported per score k in {elbo, zdist, kl}: auc_plain (the original-prior
+score alone), auc_alt (the alternate-prior twin alone, same
+orientation), auc_llr (their difference, the k@ method) and r_ind/r_ood
+(the Pearson correlation of the two components per population).
+
+    python scripts/torch_wim_inversion_study.py                # bfloat16
+    python scripts/torch_wim_inversion_study.py --dtype float32 bfloat16
+    python scripts/torch_wim_inversion_study.py --device cpu --epochs 1 \\
+        --train-size 1024 --test-size 256 --ft-size 512 --ft-epochs 1 \\
+        --out /tmp/wi.json                                     # a rehearsal
+
+Each dtype's record goes under its name into
+``docs/WIM_INVERSION_TORCH.json`` (a CPU run writes only where ``--out``
+says): the JAX record's keys, the seconds, images/s and launches of each
+family's pretraining and of each fine-tune, and the band (``BAND``) with
+whether it was met.
+"""
+
+import os
+import sys
+import tempfile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+
+from scripts.torch_evidence import (cut, parser, pretrain, run_dtypes,
+                                    timed_finetune)
+
+from joint_vae_tpu_torch.data.loaders import get_dataset
+from joint_vae_tpu_torch.device import to_device
+from joint_vae_tpu_torch.ft.datasets import MixtureDataset
+from joint_vae_tpu_torch.ft.job import finetune
+from joint_vae_tpu_torch.ft.wim import K_SIGN, WIMJob
+from joint_vae_tpu_torch.models.cvnet import CVNetConfig
+from joint_vae_tpu_torch.ops.priors import PriorConfig
+from joint_vae_tpu_torch.ops.sigma import SigmaConfig
+from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
+from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+from joint_vae_tpu_torch.train.state import fold_in, make_generator
+
+IND, OOD = 'shapes32-8-9', 'shapes32+8+9'
+METHODS = ['elbo', 'elbo@', 'zdist', 'zdist@', 'kl']
+SCORES = ('elbo', 'zdist', 'kl')
+CONDITIONS = {
+    'A_reference_point': dict(mix=0.5, alpha=0.3, ft_epochs=1),
+    'B_strong_dose': dict(mix=1.0, alpha=1.0, ft_epochs=8),
+}
+MOVING_SIZE, FT_BATCH, TEST_BATCH, EVAL_SIZE = 512, 128, 512, 2000
+# the band, fixed before the first run on the card against the JAX record
+# (docs/WIM_INVERSION.json): in the gaussian family the three LLR AUROCs
+# (elbo@, zdist@, kl@) equal within gaussian_llr_equal at both operating
+# points (the identity); in the tilted family each auc_llr at least
+# tilted_llr_min[point] (JAX 0.9576 at A, 1.0 at B)
+BAND = {'gaussian_llr_equal': 1e-6,
+        'tilted_llr_min': {'A_reference_point': 0.95,
+                           'B_strong_dose': 0.99}}
+
+
+def families(dtype: str) -> dict:
+    """{family: {'cfg', 'alt'}} (``wim_inversion_study.py:143-171``)."""
+    common = dict(input_shape=(3, 32, 32), num_labels=10, type='vae',
+                  features='conv32', upsampler='deconv32',
+                  encoder=(512,), decoder=(512,), latent_dim=64,
+                  latent_sampling=1, test_latent_sampling=16, gamma=0.0,
+                  compute_dtype=dtype)
+    return {
+        'gaussian': dict(
+            cfg=CVNetConfig(beta=0.05, sigma=SigmaConfig(value=0.2),
+                            prior=PriorConfig(dim=64), **common),
+            alt=dict(init_mean=6.0, num_priors=1)),
+        'tilted': dict(
+            cfg=CVNetConfig(beta=1.0, sigma=SigmaConfig(value=0.7071),
+                            encoder_forced_variance=1.0,
+                            prior=PriorConfig(dim=64, distribution='tilted',
+                                              tau=20.0, init_mean=20.0),
+                            **common),
+            alt=dict(distribution='tilted', tau=20.0, init_mean=0.0,
+                     num_priors=1)),
+    }
+
+
+def rank_auc(pos, neg):
+    """P(pos > neg) + 0.5 P(pos == neg) via ranks (ind = positive)."""
+    pos, neg = np.asarray(pos, np.float64), np.asarray(neg, np.float64)
+    allv = np.concatenate([pos, neg])
+    order = np.argsort(allv, kind='mergesort')
+    ranks = np.empty(len(allv))
+    ranks[order] = np.arange(1, len(allv) + 1)
+    # midranks for ties
+    sv = allv[order]
+    i = 0
+    while i < len(sv):
+        j = i
+        while j + 1 < len(sv) and sv[j + 1] == sv[i]:
+            j += 1
+        if j > i:
+            ranks[order[i:j + 1]] = 0.5 * (i + j) + 1
+        i = j + 1
+    rp = ranks[:len(pos)].sum()
+    return float((rp - len(pos) * (len(pos) + 1) / 2)
+                 / (len(pos) * len(neg)))
+
+
+def collect_twins(wim, data, batch_size=TEST_BATCH, L=16, seed=0):
+    """Per-input losses on both priors over host images ``data`` ->
+    {k: np(N,)}; batch ``i``'s latent noise from ``fold_in(seed, i)``."""
+    job = wim.job
+    outs = []
+    with torch.no_grad():
+        for i in range(0, len(data), batch_size):
+            xb = to_device(np.asarray(data[i:i + batch_size], np.float32),
+                           job.device)
+            _, _, losses, _ = wim.evaluate_on_both_priors(
+                xb, sigma_state=job.sigma_state, L=L,
+                generator=make_generator(job.device, fold_in(seed, i)))
+            outs.append({k: v.float().cpu().numpy()
+                         for k, v in losses.items() if v.ndim == 1})
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def decompose(ind, ood, digits=4):
+    """Per-score plain/alt/LLR AUROCs + component correlations (rounded
+    to ``digits``, as the JAX record; ``None`` keeps them whole)."""
+    r = (lambda v: v) if digits is None else (lambda v: round(v, digits))
+    rows = {}
+    for k in SCORES:
+        key = 'total' if k == 'elbo' else k
+        sgn = K_SIGN[k] * (-1.0 if k == 'elbo' else 1.0)  # elbo = -total
+        p_main = sgn * ind[key]
+        n_main = sgn * ood[key]
+        p_alt = sgn * ind[key + '@']
+        n_alt = sgn * ood[key + '@']
+        rows[k] = {
+            'auc_plain': r(rank_auc(p_main, n_main)),
+            'auc_alt': r(rank_auc(p_alt, n_alt)),
+            'auc_llr': r(rank_auc(p_main - p_alt, n_main - n_alt)),
+            'r_ind': r(float(np.corrcoef(p_main, p_alt)[0, 1])),
+            'r_ood': r(float(np.corrcoef(n_main, n_alt)[0, 1])),
+        }
+    return rows
+
+
+def band_met(raw: dict) -> dict:
+    """``raw``: {'<family>/<point>': decompose(..., digits=None)}."""
+    met = {}
+    for key, rows in raw.items():
+        fam, point = key.split('/')
+        llr = [rows[k]['auc_llr'] for k in SCORES]
+        if fam == 'gaussian':
+            met[key] = max(llr) - min(llr) <= BAND['gaussian_llr_equal']
+        elif fam == 'tilted':
+            met[key] = min(llr) >= BAND['tilted_llr_min'][point]
+    return met
+
+
+def run(dtype: str, args) -> dict:
+    tr, test = get_dataset(IND)
+    tr, te = cut(tr, args.train_size), cut(test, args.test_size)
+    eval_n = args.test_size or EVAL_SIZE
+    ood = get_dataset(OOD, splits=['test'], size=EVAL_SIZE)[1]
+    ood_eval = cut(ood, args.test_size)
+    te_eval = np.asarray(te.data)[:min(len(te), eval_n)]
+    report = {'ind': IND, 'ood': OOD, 'pretrain_epochs': args.epochs,
+              'conditions': {}, 'pretrain': {}, 'finetunes': {}}
+    raw = {}
+    for fam, f in families(dtype).items():
+        job = new_job(f['cfg'], OptimizerConfig(lr=3e-4), seed=0,
+                      device=args.device)
+        job.training_parameters['set'] = IND
+        report['pretrain'][fam] = pretrain(job, tr, args.epochs)
+        with tempfile.TemporaryDirectory(prefix='wim_inv_{}_'.format(fam)) \
+                as snap:
+            save_job(job, snap)
+            for name, c in CONDITIONS.items():
+                c = dict(c, ft_epochs=args.ft_epochs or c['ft_epochs'])
+                jb = load_job(snap, device=args.device)
+                wim = WIMJob(job=jb)
+                wim.set_alternate_prior(seed=7, **f['alt'])
+                # the moving set from the whole sets (a cut only shrinks
+                # evaluation)
+                moving = MixtureDataset(
+                    mix={'ood': c['mix'], 'ind': 1 - c['mix']},
+                    length=MOVING_SIZE, ood=ood, ind=test)
+                key = '{}/{}'.format(fam, name)
+                report['finetunes'][key] = timed_finetune(
+                    finetune, wim, tr, moving, te, [ood_eval],
+                    epochs=c['ft_epochs'], alpha=c['alpha'],
+                    train_size=args.ft_size, batch_size=FT_BATCH,
+                    test_batch_size=TEST_BATCH, ood_methods=METHODS, seed=0)
+                ind_tw = collect_twins(wim, te_eval)
+                ood_tw = collect_twins(wim, np.asarray(ood_eval.data))
+                raw[key] = decompose(ind_tw, ood_tw, digits=None)
+                rows = decompose(ind_tw, ood_tw)
+                report['conditions'][key] = {'operating_point': c,
+                                             'scores': rows}
+                print(key, rows, flush=True)
+    report.update({'test_images': len(te_eval), 'ood_images': len(ood_eval),
+                   'train_images': len(tr), 'scores_unrounded': raw,
+                   'band': BAND, 'band_met': band_met(raw)})
+    return report
+
+
+def main(argv=None):
+    p = parser(__doc__, dtypes=('bfloat16',), ft_epochs=None)
+    args = p.parse_args(argv)
+    run_dtypes(args, 'WIM_INVERSION_TORCH.json',
+               'scripts/torch_wim_inversion_study.py',
+               'docs/WIM_INVERSION.json (the JAX package)',
+               lambda dtype: run(dtype, args))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -3,8 +3,13 @@
 the reference-layout writer and the stub reference checkout that
 ``chip_smoke.py`` shares with the tests (``tests/torch_reference_layout.py``,
 ``tests/torch_reference_stub.py``) and nothing in the port's quality run
-(``scripts/torch_quality_run.py``) or its conv timer
-(``scripts/time_torch_conv.py``) imports jax,
+(``scripts/torch_quality_run.py``), its conv timer
+(``scripts/time_torch_conv.py``) or its evidence scripts
+(``scripts/torch_wim_quality.py``, ``torch_wim_study.py``,
+``torch_poscod_quality.py``, ``torch_wim_inversion_study.py``,
+``torch_reproduce_sota.py``, ``torch_prepare_data.py``, what they
+share, ``torch_evidence.py``, and ``torch_determinism_probe.py``) imports
+jax,
 flax, optax, the JAX package or pandas (the card machine has no pandas:
 the port's result tables are its own), and importing them in a clean
 interpreter loads none of them."""
@@ -18,6 +23,11 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'flax', 'optax', 'joint_vae_tpu', 'pandas')
+EVIDENCE_SCRIPTS = ('torch_evidence.py', 'torch_wim_quality.py',
+                    'torch_wim_study.py', 'torch_poscod_quality.py',
+                    'torch_wim_inversion_study.py',
+                    'torch_reproduce_sota.py', 'torch_prepare_data.py',
+                    'torch_determinism_probe.py')
 
 
 def _port_sources():
@@ -28,6 +38,7 @@ def _port_sources():
            os.path.join(ROOT, 'tests', 'torch_reference_stub.py'),
            os.path.join(ROOT, 'scripts', 'torch_quality_run.py'),
            os.path.join(ROOT, 'scripts', 'time_torch_conv.py')]
+    out += [os.path.join(ROOT, 'scripts', f) for f in EVIDENCE_SCRIPTS]
     for dirpath, _, files in os.walk(pkg):
         out += [os.path.join(dirpath, f) for f in sorted(files)
                 if f.endswith('.py')]
@@ -87,7 +98,12 @@ def test_clean_import_loads_no_jax():
             'joint_vae_tpu_torch.cli.export_ref, '
             'joint_vae_tpu_torch.save_load.tv_resnet, '
             'joint_vae_tpu_torch.utils.device, '
-            'joint_vae_tpu_torch.utils.profiling; '
+            'joint_vae_tpu_torch.utils.profiling, '
+            'scripts.torch_evidence, scripts.torch_wim_quality, '
+            'scripts.torch_wim_study, scripts.torch_poscod_quality, '
+            'scripts.torch_wim_inversion_study, '
+            'scripts.torch_reproduce_sota, scripts.torch_prepare_data, '
+            'scripts.torch_determinism_probe; '
             'bad = [m for m in sys.modules if m.split(".")[0] in {bad!r}]; '
             'print(bad); sys.exit(1 if bad else 0)').format(
                 root=ROOT, tests=os.path.join(ROOT, 'tests'), bad=FORBIDDEN)
