@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py
 
-Phases, any failure raising (nonzero exit):
+Phases, any failure raising (nonzero exit).  A train or fine-tune step
+runs as a CUDA graph (``train/graphs.py``): a graph's first step eager,
+its second captured, every later one a replay.  A wrapper counts a
+launch where it calls its kernel, which a replay does not: a check below
+of launches "per step" counts them per eager or captured step (the
+graphs' ``steps_run``); what a replay launches is its graph's kernel
+nodes, held at capture against the capture's launches by function name,
+and phase 15 counts them on the card in profiled replays.
 
 1. require a CUDA card; print ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``joint_vae_tpu_torch/csrc`` (one nvcc per
@@ -55,8 +62,8 @@ Phases, any failure raising (nonzero exit):
    validation split and a test set, then ``save_job`` / ``load_job``,
    weights and optimizer state compared exactly; the launches of that
    run checked (8 forward and 7 dx per step, 8 forward per eval batch,
-   no IWAE combine); 10 steps timed after 3 warm-up steps (8 forward and
-   7 dx launches each), fed as ``train_model`` feeds them, the loader's
+   no IWAE combine); 10 steps timed after 3 warm-up steps (replays: no
+   wrapper launch), fed as ``train_model`` feeds them, the loader's
    and the copy's host time apart, then the same 10 batches again from
    the card; one step profiled by kernel; and the card against
    the CPU on a batch of 8 from one init with injected noise: the first
@@ -100,7 +107,8 @@ Phases, any failure raising (nonzero exit):
    device-fed steps of each and one profiled (``bench_train_bf16``
    lines); the float32
    step fed from the card beside phase 5's host-fed one; one device-fed
-   epoch profiled (one gather of the set, no per-step copy); the
+   epoch profiled (two gathers a step, x's and y's rows into the step
+   graph's input buffers, none of the whole set); the
    bfloat16 gate on training (card bf16 against CPU float32 on a batch
    of 8, its reconstruction checked to be bfloat16; first-step gradients
    per tensor and every metric of 3 steps)
@@ -228,7 +236,7 @@ Phases, any failure raising (nonzero exit):
    1024 on a (1, 1) mesh against the same steps without one, run twice,
    all under PyTorch's deterministic algorithms (the loss components
    within 1e-6 relative, or within twice the spread between the two
-   plain runs where one is left), 8 forward and 7 dx launches per step; the step's ms with and without the mesh in turns
+   plain runs where one is left), 8 forward and 7 dx launches per step; the eager step's ms with and without the mesh in turns
    and the gradient all-reduce's own ms (CUDA events); the job saved as
    a sharded checkpoint with and without ``AsyncCheckpointer`` (seconds
    and bytes) and restored into a run with no mesh, arrays and optimizer
@@ -288,13 +296,40 @@ Phases, any failure raising (nonzero exit):
    ``torch_prepare_data.py verify`` on the fixtures (every fixture set
    read back as real) (``evidence`` line: each script's seconds and
    launches);
-15. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+15. the JAX package's one-program steps as CUDA graphs
+   (``train/graphs.py``; every earlier phase already trains through
+   them): the flagship's graphed train step against
+   its eager step from one state (``new_job`` seed 4 twice), 3 host-fed
+   steps of 1024 (the first the graph's eager warm-up, the second
+   captured and replayed, the third replayed), bit for bit in float32
+   under cuDNN's deterministic algorithms and in bfloat16: every metric,
+   parameter, BatchNorm buffer, Adam moment, the sigma state, the
+   generator's state and the host counts; 8 forward and 7 dx launches
+   per eager or captured step, and the capture's graph holding 15
+   same-grid kernel nodes by function name; the same for phase 9's
+   fine-tune step (64 + 64, 16 and 14 a step, 30 nodes); then graphed
+   against eager in one process, in turns
+   eager, graph, graph, eager: the bf16 device-fed step at 1024 on a
+   50,000-image uint8 set, the float32 host-fed step at 1024 and the
+   fine-tune step at 128 + 128 (10 timed steps after 3 warm-up ones each,
+   one step of each profiled after a traced warm-up step: device time,
+   busy share, and the step's same-grid kernel records on the card, 15
+   a train step and 30 a fine-tune step in either mode), one bf16 fused
+   epoch at 512 over the 50,000 images (wall seconds; a 4-batch epoch
+   profiled); each graph's capture seconds, launches, kernel nodes and
+   pool bytes (``graphs`` line);
+16. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
    ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
    ``launches_mesh_*``: phase 12's; ``launches_export``: phase 13's;
-   ``launches_evidence``: phase 14's);
-16. print ``{"ok": true, "device": {...}}`` as the last line.
+   ``launches_evidence``: phase 14's; ``launches_graphs``: phase 15's,
+   the wrapper's launches in the graphed bit-gate runs and the kernel
+   records of the source in each timed case's profiled replay);
+17. print ``{"ok": true, "device": {...}}`` as the last line.
+
+``python3 chip_smoke.py --graphs`` builds the kernels and runs phase 15
+alone.
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -699,7 +734,7 @@ def graph_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1171,8 +1206,9 @@ def check_library_convs(model, n: int) -> list:
 
 
 def _bucket(name: str) -> str:
+    from joint_vae_tpu_torch.ops.cuda_lib import source_of
     low = name.lower()
-    if 'tc_conv_kernel' in low or 'simt_conv_kernel' in low:
+    if source_of(name) == 'same_grid_conv':
         return 'same_grid_kernel'
     # cuDNN's convolution kernels before cuBLAS's: both hold 'xmma', and
     # cuDNN's forward is an implicit GEMM by name
@@ -1196,11 +1232,20 @@ def profile_train_step(step, state, xb, yb) -> dict:
     and reductions); the busy share; and the host's time by operator.
     The same-grid kernel's own launches come from outside PyTorch's
     operators (ctypes), so its forward and dx launches both land in the
-    'same_grid_kernel' group; phase 5's per-site times split them."""
-    from torch.profiler import ProfilerActivity, profile
-    step(state, xb, yb)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    'same_grid_kernel' group; phase 5's per-site times split them.
+    ``kernel_records``: the step's kernel records of each CUDA source of
+    the port, by function name (a graph's replay included).  Two steps
+    run under the profiler: the first traced and dropped (its warm-up:
+    a session's first kernel records can be lost late in a long
+    process), the second kept."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from joint_vae_tpu_torch.ops.cuda_lib import KERNEL_FUNCTIONS, source_of
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        step(state, xb, yb)
+        torch.cuda.synchronize()
+        prof.step()                     # the kept step's trace ends at exit
         t0 = time.perf_counter()
         step(state, xb, yb)
         torch.cuda.synchronize()
@@ -1223,20 +1268,28 @@ def profile_train_step(step, state, xb, yb) -> dict:
         dev_self = getattr(ev, 'self_device_time_total',
                            getattr(ev, 'self_cuda_time_total', 0)) / 1e3
         if (ev.device_type == torch.autograd.DeviceType.CUDA and dev_self > 0
-                and ev.key not in SPANS):
+                and ev.key not in SPANS
+                and not ev.key.startswith('ProfilerStep')):
             kernels.append((dev_self, ev.key[:80], ev.count))
     kernels.sort(reverse=True)
     by_name = {}
     for ms, key, _ in kernels:
         by_name[_bucket(key)] = by_name.get(_bucket(key), 0.0) + ms
     busy = sum(k[0] for k in kernels)
+    records = dict.fromkeys(KERNEL_FUNCTIONS, 0)
+    for ev in prof.key_averages():
+        src = source_of(ev.key)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and src:
+            records[src] += ev.count
     host = sorted(((ev.self_cpu_time_total / 1e3, ev.key[:60], ev.count)
                    for ev in prof.key_averages()
-                   if ev.device_type != torch.autograd.DeviceType.CUDA),
+                   if ev.device_type != torch.autograd.DeviceType.CUDA
+                   and not ev.key.startswith('ProfilerStep')),
                   reverse=True)
     return {'wall_ms': wall_ms, 'device_ms': busy,
             'device_busy_share': busy / wall_ms if wall_ms else None,
             'by_span_ms': by_span, 'by_name_ms': by_name,
+            'kernel_records': records,
             'top': [{'ms': ms, 'kernel': k, 'calls': c}
                     for ms, k, c in kernels[:16]],
             'host_self_ms': sum(h[0] for h in host),
@@ -1309,6 +1362,9 @@ def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False) -> dict:
             with torch.no_grad():
                 relu0_min = job.model.features_stack.conv_0(
                     xt.permute(0, 2, 3, 1).contiguous()).abs().min().item()
+        # the eager forward's autograd graph goes before the step graph is
+        # captured (train/graphs.py: the parameters' gradient accumulators)
+        del out, got
         step = make_train_step(job.model, job.opt_cfg)
         state, seq = job.state, []
         for _ in range(GATE_STEPS):
@@ -1386,9 +1442,7 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
     job_dir = os.path.join(WORK, name + '_job')
     job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=0)   # on the card
 
-    same_grid_conv.launches = 0
-    same_grid_conv_dx.launches = 0
-    iws_combine.launches = 0
+    _count_reset()
     # --- the main path: train_model, one epoch ---
     t0 = time.perf_counter()
     train_model(job, trainset, testset, epochs=1, batch_size=TRAIN_BATCH,
@@ -1402,8 +1456,9 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
                 'iws_combine': iws_combine.launches}
     # --- end of the main path ---
     eval_batches = 2 * (TRAIN_TEST // TRAIN_TEST_BATCH)   # validation + test
-    want = {'same_grid_conv': sites * (TRAIN_BATCHES + eval_batches),
-            'same_grid_conv_dx': dx * TRAIN_BATCHES,
+    body = _body_steps(TRAIN_BATCHES, 'train epoch')
+    want = {'same_grid_conv': sites * (body + eval_batches),
+            'same_grid_conv_dx': dx * body,
             'iws_combine': 0}
     if launches != want:
         raise AssertionError('train launch counts {}, expected {}'.format(
@@ -1447,8 +1502,7 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
         xb, yb = next(batches)
         state, m = step(state, to_device(xb, dev), to_device(yb, dev))
     torch.cuda.synchronize()
-    same_grid_conv.launches = 0
-    same_grid_conv_dx.launches = 0
+    _count_reset()
     pending, staged = [], []
     loader_s = copy_s = 0.0
     t0 = time.perf_counter()
@@ -1466,8 +1520,9 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
     timed_s = time.perf_counter() - t0
     timed_launches = {'same_grid_conv': same_grid_conv.launches,
                       'same_grid_conv_dx': same_grid_conv_dx.launches}
-    if timed_launches != {'same_grid_conv': sites * TRAIN_TIMED,
-                          'same_grid_conv_dx': dx * TRAIN_TIMED}:
+    body = _body_steps(TRAIN_TIMED, 'timed steps')
+    if timed_launches != {'same_grid_conv': sites * body,
+                          'same_grid_conv_dx': dx * body}:
         raise AssertionError('timed steps launched {}'.format(timed_launches))
     got = pull_metrics(pending)
     if not all(np.isfinite(list(r.values())).all() for r in got):
@@ -1967,14 +2022,32 @@ def bf16_gate(card, cpu_bf16, cpu_f32, what) -> float:
 
 
 def _count_reset():
+    """Every launch counter and the step graphs' ``steps_run`` to 0."""
     from joint_vae_tpu_torch.ops.iws import iws_combine
     from joint_vae_tpu_torch.ops.same_grid_conv import (
         bf16_launches, same_grid_conv, same_grid_conv_dx)
+    from joint_vae_tpu_torch.train.graphs import reset_steps_run
     same_grid_conv.launches = 0
     same_grid_conv_dx.launches = 0
     iws_combine.launches = 0
     for k in bf16_launches:
         bf16_launches[k] = 0
+    reset_steps_run()
+
+
+def _body_steps(steps: int, what: str, run: dict = None) -> int:
+    """Of ``steps`` train or fine-tune steps since ``_count_reset`` (or in
+    ``run``, a ``steps_run`` record), those whose launches the wrappers
+    counted: the eager ones and the captures.  A replay calls no wrapper;
+    its launches are its graph's kernel nodes, held at capture against
+    the capture's count (``train/graphs.py``) and counted on the card in
+    phase 15's profiled replays.  Every one of ``steps`` must have run."""
+    from joint_vae_tpu_torch.train.graphs import steps_run
+    run = steps_run if run is None else run
+    if run['eager'] + run['replayed'] != steps:
+        raise AssertionError('{}: steps run {}, want {} steps'.format(
+            what, run, steps))
+    return run['eager'] + run['captured']
 
 
 def _check_bf16_counts(launches: dict, bf16: bool, what: str):
@@ -2005,30 +2078,28 @@ def _want(steps: int, batches: int = 0) -> dict:
 
 
 def time_device_steps(job, dd, batch: int) -> dict:
-    """The epoch's gather and 10 device-fed steps after 3 warm-up ones,
-    from a DeviceDataset, with their launches; then one step profiled
-    (phase 5's breakdown)."""
+    """10 device-fed steps after 3 warm-up ones, each gathering its rows of
+    a DeviceDataset in the epoch's order, with their launches; then one
+    step profiled (phase 5's breakdown)."""
     from joint_vae_tpu_torch.train.device_data import (epoch_permutation,
                                                        make_device_train_step)
     from joint_vae_tpu_torch.train.steps import pull_metrics
     step = make_device_train_step(job.model, job.opt_cfg, batch)
     state = job.state
     perm = epoch_permutation(dd.n, 1, 0, dd.x.device)
-    shuffle_ms = time_ms(lambda: dd.shuffled(perm), 3, 1)
-    ex, ey = dd.shuffled(perm)
     for i in range(TRAIN_WARMUP):
-        state, m = step(state, ex, ey, i)
+        state, m = step(state, dd.x, dd.y, i, perm=perm)
     torch.cuda.synchronize()
     _count_reset()
     pending = []
     t0 = time.perf_counter()
     for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
-        state, m = step(state, ex, ey, i)
+        state, m = step(state, dd.x, dd.y, i, perm=perm)
         pending.append(m)
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
     launches = _counts()
-    if launches != _want(TRAIN_TIMED):
+    if launches != _want(_body_steps(TRAIN_TIMED, 'device-fed steps')):
         raise AssertionError('device-fed steps launched {}'.format(launches))
     _check_bf16_counts(launches, job.model.cfg.compute_dtype == 'bfloat16',
                        'device-fed steps')
@@ -2036,18 +2107,17 @@ def time_device_steps(job, dd, batch: int) -> dict:
     if not all(np.isfinite(list(r.values())).all() for r in got):
         raise AssertionError('non-finite device-fed metrics')
     i = TRAIN_WARMUP + TRAIN_TIMED
-    breakdown = profile_train_step(lambda st, a, b: step(st, a, b, i),
-                                   state, ex, ey)
+    breakdown = profile_train_step(
+        lambda st, a, b: step(st, a, b, i, perm=perm), state, dd.x, dd.y)
     return {'batch': batch, 'ms_per_step': s * 1e3 / TRAIN_TIMED,
-            'images_per_s': batch * TRAIN_TIMED / s,
-            'shuffle_ms': shuffle_ms, 'launches': launches,
+            'images_per_s': batch * TRAIN_TIMED / s, 'launches': launches,
             'last_total': got[-1]['total'], 'profile': breakdown}
 
 
 def profile_device_epoch(cfg, trainset, batch: int) -> dict:
     """One fused ``train_epochs_on_device`` epoch over 4 batches under
-    torch.profiler: the gathers of the set counted (one per epoch: x and
-    y; none per step)."""
+    torch.profiler: the gathers counted (per step two, x's and y's rows
+    into the step graph's buffers; none of the whole set)."""
     from torch.profiler import ProfilerActivity, profile
     from joint_vae_tpu_torch.data.loaders import ArrayDataset
     from joint_vae_tpu_torch.save_load.jobs import new_job
@@ -2063,10 +2133,11 @@ def profile_device_epoch(cfg, trainset, batch: int) -> dict:
         torch.cuda.synchronize()
     ops = {ev.key: ev.count for ev in prof.key_averages()}
     gathers = ops.get('aten::index_select', 0)
-    if gathers != 2:
-        raise AssertionError('{} gathers in one device-fed epoch, want 2 '
-                             '(x and y)'.format(gathers))
-    return {'steps': 4, 'index_select': gathers}
+    if gathers != 2 * 4:
+        raise AssertionError('{} gathers in a device-fed epoch of 4 steps, '
+                             'want 8 (x and y per step)'.format(gathers))
+    return {'steps': 4, 'index_select': gathers,
+            'graph_launches': ops.get('cudaGraphLaunch', 0)}
 
 
 def bf16_train_gate(cfg16) -> dict:
@@ -2104,6 +2175,7 @@ def bf16_train_gate(cfg16) -> dict:
                                   list(params.values()), allow_unused=True)
         grads = {k: (torch.zeros_like(p) if g is None else g).double().cpu()
                  for (k, p), g in zip(params.items(), got)}
+        del out, got                # before the step graph's capture
         step = make_train_step(job.model, job.opt_cfg)
         state, seq = job.state, []
         for _ in range(GATE_STEPS):
@@ -2248,7 +2320,7 @@ def bench_train(card: str, host_fed: dict):
     device_data=True)`` at batch 1024 and ``train_epochs_on_device`` at
     512, one epoch each, with their launches and images/s, then 10 timed
     steps of each; the float32 step fed from the card beside phase 5's
-    host-fed one; one device-fed epoch profiled (one gather per epoch);
+    host-fed one; one device-fed epoch profiled (two gathers a step);
     the bfloat16 gates (training, Scorer); the bfloat16 CLI."""
     from joint_vae_tpu_torch.data.loaders import ArrayDataset
     from joint_vae_tpu_torch.models.cvnet import flagship_config
@@ -2286,9 +2358,10 @@ def bench_train(card: str, host_fed: dict):
         epoch_s = time.perf_counter() - t0
         launches = _counts()
         # --- end of the main path ---
-        if launches != _want(steps):
+        want = _want(_body_steps(steps, 'bf16 {} epoch'.format(mode)))
+        if launches != want:
             raise AssertionError('bf16 {} epoch launched {}, want {}'.format(
-                mode, launches, _want(steps)))
+                mode, launches, want))
         _check_bf16_counts(launches, True, 'bf16 {} epoch'.format(mode))
         if job.state.step != steps or not np.isfinite(total):
             raise AssertionError('bf16 {} epoch: {} steps, total {}'.format(
@@ -2829,7 +2902,8 @@ def time_finetune_steps(job_dir: str) -> dict:
     torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
     launches = _counts()
-    if launches != _ft_want(WIM_TIMED_STEPS, 0, 0):
+    if launches != _ft_want(_body_steps(WIM_TIMED_STEPS, 'fine-tune steps'),
+                            0, 0):
         raise AssertionError('timed fine-tune steps launched {}'.format(
             launches))
     if not all(np.isfinite(list(r.values())).all()
@@ -2922,16 +2996,14 @@ def wim_finetune(card: str) -> tuple:
         os.chdir(cwd)
         for m, n in patched:
             setattr(m, n, timed(n, real[(m, n)]))
-        for name, argv, want in (
+        for name, argv, steps, evals in (
                 ('ft', ['0', '--train-size', str(WIM_TRAIN_SIZE),
-                        '--inspection'],
-                 _ft_want(WIM_TRAIN_SIZE // WIM_BATCH, n_sets * batches,
-                          n_sets * batches,
-                          2 * n_sets * WIM_LATENT_BATCHES)),
+                        '--inspection'], WIM_TRAIN_SIZE // WIM_BATCH,
+                 (n_sets * batches, n_sets * batches,
+                  2 * n_sets * WIM_LATENT_BATCHES)),
                 ('ft_task1', ['0', '--train-size', str(WIM_TRAIN_SIZE_2),
-                              '--task', '1'],
-                 _ft_want(WIM_TRAIN_SIZE_2 // WIM_BATCH, n_sets * batches,
-                          n_sets * batches))):
+                              '--task', '1'], WIM_TRAIN_SIZE_2 // WIM_BATCH,
+                 (n_sets * batches, n_sets * batches))):
             spent.clear()
             seen = set(_job_dirs(os.path.join(root, 'wim')))
             _count_reset()
@@ -2944,6 +3016,7 @@ def wim_finetune(card: str) -> tuple:
             wall = time.perf_counter() - t0
             launches = _counts()
             # --- end of the main path ---
+            want = _ft_want(_body_steps(steps, name), *evals)
             if rc != 0 or launches != want:
                 raise AssertionError('{}: exit {}, launches {}, want {}'
                                      .format(name, rc, launches, want))
@@ -3901,7 +3974,8 @@ def interop(card: str) -> tuple:
     # --- end of the main path ---
     first_s = t1 - t0
     imp.state = state
-    if resume_launches != _want(INTEROP_RESUME_STEPS):
+    if resume_launches != _want(_body_steps(INTEROP_RESUME_STEPS,
+                                            'resumed steps')):
         raise AssertionError('resumed steps launched {}'.format(
             resume_launches))
     _, src_first = step(src.state, xt, yt, eps=eps_t)
@@ -4138,12 +4212,12 @@ def mesh_world1(card: str, trainset, backend: str = 'nccl',
         worst = _steps_gate(got, want, again, meshed.model_cfg,
                             MESH_WORLD1_RTOL, 'world-1 mesh')
 
-        # the step with and without the mesh, in turns; the all-reduce
+        # the eager step with and without the mesh, in turns; the all-reduce
         x, y = trainset[:MESH_BATCH]
         xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
         yd = torch.from_numpy(np.ascontiguousarray(y)).to(device)
         steps = {'plain': (plain.state, make_train_step(
-                     plain.model, plain.opt_cfg)),
+                     plain.model, plain.opt_cfg, graphed=False)),
                  'mesh': (meshed.state, make_train_step(
                      meshed.model, meshed.opt_cfg, mesh=mesh))}
 
@@ -4883,17 +4957,20 @@ def evidence_conv_checks() -> list:
 
 def _evidence_want(rec: dict) -> dict:
     """The WIM quality rehearsal's launches by stage, worked out from the
-    code and its record's sizes: pretraining 8 forward and 7 dx per step of
-    256; the pre-tuning engines 8 forward per batch of 512 of the test set
-    and of each OOD set; the fine-tune 8 forward and 7 dx per half per step
-    (``_ft_want``) and 16 forward per both-prior batch of its post-tuning
+    code and its record's sizes: pretraining 8 forward and 7 dx per eager
+    or captured step of 256 (``_body_steps`` of its ``steps_run``); the
+    pre-tuning engines 8 forward per batch of 512 of the test set and of
+    each OOD set; the fine-tune 8 forward and 7 dx per half per eager or
+    captured step (``_ft_want``) and 16 forward per both-prior batch of its post-tuning
     evaluation of the same sets; no combine anywhere (the plain VAE's
     prior is unconditional, ``models/evaluate.py``)."""
     def batches(n):
         return -(-n // EVIDENCE_EVAL_BATCH)
     evals = batches(rec['test_images']) + sum(
         batches(n) for n in rec['ood_images'].values())
-    pt, ft = rec['pretrain']['steps'], rec['finetune']['steps']
+    pt, ft = (_body_steps(rec[k]['steps'], 'wim_quality ' + k,
+                          rec[k]['steps_run'])
+              for k in ('pretrain', 'finetune'))
     return {'pretrain': _want(pt), 'pre_eval': _want(0) | {
                 'same_grid_conv': SITES_PER_BATCH * evals},
             'finetune': _ft_want(ft, 0, evals) | {'iws_combine': 0}}
@@ -5004,6 +5081,407 @@ def evidence(card: str) -> tuple:
     return launches, line
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the JAX package's one-program steps as CUDA graphs
+# (``joint_vae_tpu_torch/train/graphs.py``): the graphed train step and the
+# graphed fine-tune step held bit for bit to their eager steps from one
+# state, then graphed against eager timings in one process
+# ---------------------------------------------------------------------------
+GRAPH_STEPS = 3                  # steps held bit for bit, graph vs eager
+GRAPH_FT_BATCH = 128             # the timed fine-tune step: 128 + 128
+GRAPH_EPOCH_BATCH = BENCH_BATCHES['pipeline']    # phase 7's fused epoch
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    """cuDNN's deterministic algorithms: its float32 data gradient at
+    features conv_4 otherwise sums with atomics in no fixed order
+    (scripts/torch_determinism_probe.py)."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on or was
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _run_tensors(job) -> dict:
+    """Every tensor a step moves: parameters and buffers, the optimizer's
+    moments, the sigma state, the generator's state."""
+    o = job.state.opt_state
+    out = {'p/' + k: v for k, v in job.model.state_dict().items()}
+    for kind in ('mu', 'nu', 'trace'):
+        out.update({kind + '/' + k: v for k, v in getattr(o, kind).items()})
+    out['sigma'] = job.state.sigma_state.data
+    out['rmse'] = job.state.sigma_state.rmse
+    out['generator'] = job.state.generator.get_state()
+    return out
+
+
+def _bit_gate(runs: dict, what: str) -> dict:
+    """Graph against eager: every metric and every tensor of
+    :func:`_run_tensors` equal bit for bit, the host counts equal."""
+    e, g = runs[False], runs[True]
+    diff = [k for k in e['tensors'] if not torch.equal(e['tensors'][k],
+                                                       g['tensors'][k])]
+    if not torch.equal(e['metrics'], g['metrics']):
+        diff.append('metrics')
+    if e['counts'] != g['counts']:
+        diff.append('counts {} {}'.format(e['counts'], g['counts']))
+    if diff:
+        raise AssertionError('{}: graph and eager differ at {}'.format(
+            what, diff[:12]))
+    return {'tensors_equal': len(e['tensors']),
+            'metrics_equal': int(e['metrics'].numel()),
+            'counts': list(e['counts'])}
+
+
+def graph_train_bits(dtype: str) -> dict:
+    """The flagship's graphed train step against its eager step from one
+    state (``new_job`` seed 4 twice), GRAPH_STEPS host-fed steps of 1024:
+    the first eager (the warm-up), the second captured and replayed, the
+    third replayed; launches 8 forward and 7 dx per step either way."""
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.graphs import steps_run
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    cfg = flagship_config(compute_dtype=dtype)
+    rng = np.random.default_rng(21)
+    xs = rng.uniform(0, 1, (GRAPH_STEPS, TRAIN_BATCH) + cfg.input_shape
+                     ).astype(np.float32)
+    ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, TRAIN_BATCH))
+    dev = torch.device('cuda')
+    runs = {}
+    with _cudnn_deterministic(dtype == 'float32'):
+        for graphed in (False, True):
+            job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=4)
+            step = make_train_step(job.model, job.opt_cfg, graphed=graphed)
+            _count_reset()
+            st, ms = job.state, []
+            for i in range(GRAPH_STEPS):
+                st, m = step(st, to_device(xs[i], dev), to_device(ys[i], dev))
+                ms.append(m.vector)
+            torch.cuda.synchronize()
+            o = st.opt_state
+            runs[graphed] = {
+                'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
+                'steps_run': dict(steps_run),
+                'tensors': {k: v.detach().cpu()
+                            for k, v in _run_tensors(job).items()},
+                'counts': (o.count, o.adam_count, st.step),
+                'captures': step.graph.captures}
+            del job, step, st
+    out = _bit_gate(runs, 'train step ' + dtype)
+    out.update({'dtype': dtype, 'batch': TRAIN_BATCH, 'steps': GRAPH_STEPS,
+                'cudnn_deterministic': dtype == 'float32'})
+    out.update(_graph_launch_gate(runs, _want, '{} train steps'.format(dtype)))
+    return out
+
+
+def _graph_launch_gate(runs: dict, want, what: str) -> dict:
+    """The launches of GRAPH_STEPS steps, eager and graphed: the wrappers
+    count every eager step's (``want(steps)``) and, graphed, the warm-up's
+    and the capture's; the one capture's graph holds as many same-grid
+    kernel nodes, by function name, as the capture launched (a step's
+    forward and dx launches, which run the same kernels)."""
+    per_step = want(1)
+    for graphed, r in runs.items():
+        body = _body_steps(GRAPH_STEPS, what, r['steps_run'])
+        if body != (2 if graphed else GRAPH_STEPS) or r['launches'] != want(
+                body):
+            raise AssertionError('{} (graphed {}): {} launched, steps run '
+                                 '{}'.format(what, graphed, r['launches'],
+                                             r['steps_run']))
+    caps = runs[True]['captures']
+    nodes = {'same_grid_conv': per_step['same_grid_conv']
+             + per_step['same_grid_conv_dx'],
+             'iws_combine': per_step['iws_combine']}
+    if len(caps) != 1 or caps[0]['kernel_nodes_by_source'] != nodes:
+        raise AssertionError('{}: captures {}, want one holding {} kernel '
+                             'nodes'.format(what, caps, nodes))
+    return {'launches': {'eager': runs[False]['launches'],
+                         'graphed': runs[True]['launches']},
+            'steps_run': {'eager': runs[False]['steps_run'],
+                          'graphed': runs[True]['steps_run']},
+            'capture': caps[0]}
+
+
+def _flagship_dir() -> str:
+    """Phase 6's flagship job, or a fresh one saved there when phase 15
+    runs alone."""
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job, save_job
+    job_dir = os.path.join(WORK, 'flagship_job')
+    if not os.path.exists(os.path.join(job_dir, 'params.json')):
+        save_job(new_job(flagship_config(), seed=0), job_dir)
+    return job_dir
+
+
+def _wim_pair(job_dir: str, graphed: bool):
+    """A WIM job on phase 9's alternate prior, a fresh optimizer state and
+    the loop's generator, and its fine-tune step."""
+    from joint_vae_tpu_torch.ft.job import load_wim_job
+    from joint_vae_tpu_torch.train.optimizers import build_optimizer
+    from joint_vae_tpu_torch.train.state import make_generator, named_params
+    wim = load_wim_job(job_dir, seed=7, **WIM_PRIOR)
+    job = wim.job
+    tx = build_optimizer(job.opt_cfg)
+    job.state.opt_state = tx.init(named_params(job.model))
+    job.state.generator = make_generator(job.device, 3)
+    step = wim.make_finetune_step(WIM_ALPHA, tx=tx,
+                                  train_L=job.model_cfg.latent_sampling,
+                                  graphed=graphed)
+    return job, step
+
+
+def graph_ft_bits(job_dir: str) -> dict:
+    """Phase 9's fine-tune step (64 + 64, host-fed) graphed against eager
+    from one state, GRAPH_STEPS steps; 16 forward and 14 dx launches per
+    step either way."""
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.train.graphs import steps_run
+    cfg = flagship_config()
+    rng = np.random.default_rng(23)
+    xs = rng.uniform(0, 1, (GRAPH_STEPS, 2, WIM_BATCH) + cfg.input_shape
+                     ).astype(np.float32)
+    ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, WIM_BATCH))
+    dev = torch.device('cuda')
+    runs = {}
+    with _cudnn_deterministic(True):
+        for graphed in (False, True):
+            job, step = _wim_pair(job_dir, graphed)
+            _count_reset()
+            st, ms = job.state, []
+            for i in range(GRAPH_STEPS):
+                st, m = step(st, to_device(xs[i, 0], dev),
+                             to_device(ys[i], dev), to_device(xs[i, 1], dev))
+                ms.append(m.vector)
+            torch.cuda.synchronize()
+            o = st.opt_state
+            runs[graphed] = {
+                'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
+                'steps_run': dict(steps_run),
+                'tensors': {k: v.detach().cpu()
+                            for k, v in _run_tensors(job).items()},
+                'counts': (o.count, o.adam_count, st.step),
+                'captures': step.graph.captures}
+            del job, step, st
+    out = _bit_gate(runs, 'fine-tune step')
+    out.update({'batch_in': WIM_BATCH, 'batch_mix': WIM_BATCH,
+                'steps': GRAPH_STEPS})
+    out.update(_graph_launch_gate(runs, lambda n: _ft_want(n, 0, 0),
+                                  'fine-tune steps'))
+    return out
+
+
+def _turns(steps: dict, run, n: int) -> dict:
+    """ms per step of ``run(mode)`` (n steps, synchronised) for the modes
+    of ``steps``, in turns eager, graph, graph, eager."""
+    got = {m: [] for m in steps}
+    for mode in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(mode, n)
+        torch.cuda.synchronize()
+        got[mode].append((time.perf_counter() - t0) * 1e3 / n)
+    return {('graph' if m else 'eager'): float(np.mean(v))
+            for m, v in got.items()}
+
+
+def _timed_case(name: str, steps: dict, states: dict, feed, batch: int,
+                images_per_step: int, records: dict) -> dict:
+    """Warm-up, timing in turns and one profiled step of each mode, with
+    the graph's capture record.  The profiled step's kernel records of the
+    port's kernels, counted on the card by function name, must be
+    ``records`` in either mode: a replay runs every launch its capture
+    made."""
+    i = [0]
+
+    def run(mode, n):
+        for _ in range(n):
+            states[mode], _ = steps[mode](states[mode], *feed(i[0]))
+            i[0] += 1
+    run(False, TRAIN_WARMUP)
+    run(True, TRAIN_WARMUP)
+    ms = _turns(steps, run, TRAIN_TIMED)
+    prof = {}
+    for mode in (False, True):
+        args = feed(i[0])
+        i[0] += 1
+        p = profile_train_step(lambda st, _a, _b: steps[mode](st, *args),
+                               states[mode], None, None)
+        prof['graph' if mode else 'eager'] = {
+            k: p[k] for k in ('wall_ms', 'device_ms', 'device_busy_share',
+                              'by_name_ms', 'kernel_records', 'host_self_ms')}
+        if p['kernel_records'] != records:
+            raise AssertionError('{} (graphed {}): kernel records {} in a '
+                                 'step, want {}'.format(name, mode,
+                                                        p['kernel_records'],
+                                                        records))
+    caps = steps[True].graph.captures
+    return {'case': name, 'batch': batch, 'ms_per_step': ms,
+            'images_per_s': {m: images_per_step * 1e3 / v
+                             for m, v in ms.items()},
+            'profile': prof, 'capture': caps[0] if caps else None}
+
+
+def _records(want: dict) -> dict:
+    """A step's launches by wrapper -> its kernel records by CUDA source."""
+    return {'same_grid_conv': want['same_grid_conv']
+            + want['same_grid_conv_dx'], 'iws_combine': want['iws_combine']}
+
+
+def graph_timings(job_dir: str) -> dict:
+    """Graphed against eager in one process: the bf16 device-fed step at
+    1024 on a 50,000-image uint8 set, the float32 host-fed step at 1024,
+    one bf16 fused epoch at 512 over the same set (the epoch's wall time,
+    a 4-batch epoch profiled), the fine-tune step at 128 + 128."""
+    from torch.profiler import ProfilerActivity, profile
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.device_data import (
+        DeviceDataset, epoch_permutation, make_device_train_step,
+        train_epochs_on_device)
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    cfg16 = flagship_config(compute_dtype='bfloat16')
+    cfg32 = flagship_config()
+    rng = np.random.default_rng(9)
+    trainset = ArrayDataset(
+        rng.integers(0, 256, (BENCH_SET,) + cfg16.input_shape, dtype=np.uint8),
+        rng.integers(0, cfg16.num_labels, BENCH_SET).astype(np.int32),
+        'synthetic')
+    dev = torch.device('cuda')
+    cases = []
+
+    # bf16 device-fed step at 1024
+    dd = DeviceDataset(trainset)
+    perm = epoch_permutation(dd.n, 1, 0, dev)
+    jobs = {m: new_job(cfg16, OptimizerConfig(lr=TRAIN_LR), seed=0)
+            for m in (False, True)}
+    steps = {m: make_device_train_step(jobs[m].model, jobs[m].opt_cfg,
+                                       TRAIN_BATCH, graphed=m)
+             for m in (False, True)}
+    n_batches = dd.n // TRAIN_BATCH
+    cases.append(_timed_case(
+        'bf16_device_fed', steps, {m: jobs[m].state for m in jobs},
+        lambda i: (dd.x, dd.y, i % n_batches, None, perm), TRAIN_BATCH,
+        TRAIN_BATCH, _records(_want(1))))
+    del jobs, steps
+
+    # float32 host-fed step at 1024
+    hx = rng.uniform(0, 1, (4, TRAIN_BATCH) + cfg32.input_shape
+                     ).astype(np.float32)
+    hy = rng.integers(0, cfg32.num_labels, (4, TRAIN_BATCH))
+    jobs = {m: new_job(cfg32, OptimizerConfig(lr=TRAIN_LR), seed=0)
+            for m in (False, True)}
+    steps = {m: make_train_step(jobs[m].model, jobs[m].opt_cfg, graphed=m)
+             for m in (False, True)}
+    cases.append(_timed_case(
+        'f32_host_fed', steps, {m: jobs[m].state for m in jobs},
+        lambda i: (to_device(hx[i % 4], dev), to_device(hy[i % 4], dev)),
+        TRAIN_BATCH, TRAIN_BATCH, _records(_want(1))))
+    del jobs, steps
+
+    # one bf16 fused epoch at 512 over the 50,000 images
+    epoch_s = {False: [], True: []}
+    jobs = {m: new_job(cfg16, OptimizerConfig(lr=TRAIN_LR), seed=0)
+            for m in (False, True)}
+    for mode in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = train_epochs_on_device(jobs[mode], trainset, 1,
+                                      GRAPH_EPOCH_BATCH, fused=True,
+                                      graphed=mode)
+        torch.cuda.synchronize()
+        epoch_s[mode].append(time.perf_counter() - t0)
+        if not np.isfinite(last['total']):
+            raise AssertionError('fused epoch total {}'.format(last))
+    small = ArrayDataset(trainset.data[:4 * GRAPH_EPOCH_BATCH],
+                         trainset.targets[:4 * GRAPH_EPOCH_BATCH], 'small')
+    eprof = {}
+    for mode in (False, True):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_epochs_on_device(jobs[mode], small, 1, GRAPH_EPOCH_BATCH,
+                                   fused=True, graphed=mode)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_ms = sum(getattr(ev, 'self_device_time_total',
+                             getattr(ev, 'self_cuda_time_total', 0))
+                     for ev in prof.key_averages()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     ) / 1e3
+        ops = {ev.key: ev.count for ev in prof.key_averages()}
+        eprof['graph' if mode else 'eager'] = {
+            'steps': 4, 'wall_ms': wall, 'device_ms': dev_ms,
+            'device_busy_share': dev_ms / wall,
+            'index_select': ops.get('aten::index_select', 0),
+            'graph_launches': ops.get('cudaGraphLaunch', 0)}
+    steps_per_epoch = BENCH_SET // GRAPH_EPOCH_BATCH
+    cases.append({
+        'case': 'bf16_fused_epoch', 'batch': GRAPH_EPOCH_BATCH,
+        'steps': steps_per_epoch,
+        'epoch_s': {('graph' if m else 'eager'): float(np.mean(v))
+                    for m, v in epoch_s.items()},
+        'images_per_s': {('graph' if m else 'eager'):
+                         steps_per_epoch * GRAPH_EPOCH_BATCH / float(np.mean(v))
+                         for m, v in epoch_s.items()},
+        'profile_4_batches': eprof})
+    del jobs, dd
+    torch.cuda.empty_cache()
+
+    # the fine-tune step at 128 + 128
+    fx = rng.uniform(0, 1, (4, 2, GRAPH_FT_BATCH) + cfg32.input_shape
+                     ).astype(np.float32)
+    fy = rng.integers(0, cfg32.num_labels, (4, GRAPH_FT_BATCH))
+    pairs = {m: _wim_pair(job_dir, m) for m in (False, True)}
+    steps = {m: p[1] for m, p in pairs.items()}
+    cases.append(_timed_case(
+        'finetune', steps, {m: p[0].state for m, p in pairs.items()},
+        lambda i: (to_device(fx[i % 4, 0], dev), to_device(fy[i % 4], dev),
+                   to_device(fx[i % 4, 1], dev)),
+        GRAPH_FT_BATCH, 2 * GRAPH_FT_BATCH, _records(_ft_want(1, 0, 0))))
+    del pairs, steps
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _graph_launch_keys(launches: dict, records: dict, kernel: str,
+                       source: str) -> dict:
+    """The kernels line's ``launches_graphs``: the wrapper's launches in
+    each graphed bit-gate run (the warm-up's and the capture's), and the
+    kernel records of ``source`` in each timed case's profiled replay
+    (the forward's and dx's together: they run the same kernels)."""
+    return {'wrapper': {k: c[kernel] for k, c in launches.items()},
+            'replay_records_per_step': {k: r[source]
+                                        for k, r in records.items()}}
+
+
+def graphs_phase(card: str) -> tuple:
+    """Phase 15: the bit gates, then the timings; returns the graphed
+    runs' launches and the ``graphs`` line."""
+    t0 = time.perf_counter()
+    job_dir = _flagship_dir()
+    bits = {'train_float32': graph_train_bits('float32'),
+            'train_bfloat16': graph_train_bits('bfloat16'),
+            'finetune': graph_ft_bits(job_dir)}
+    timings = graph_timings(job_dir)
+    line = {'bits': bits, 'timings': timings,
+            'seconds': time.perf_counter() - t0, 'card': card}
+    print('graphs', json.dumps(line), flush=True)
+    launches = {k: v['launches']['graphed'] for k, v in bits.items()}
+    records = {c['case']: c['profile']['graph']['kernel_records']
+               for c in timings if 'profile' in c}
+    return launches, records, line
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -5081,6 +5559,8 @@ def main():
     mesh_launches, mesh_line = timed('12 mesh', mesh_phase, card)
     export_launches, export_line = timed('13 export', export_phase, card)
     evidence_launches, evidence_line = timed('14 evidence', evidence, card)
+    graph_launches, graph_records, graphs_line = timed('15 graphs',
+                                                       graphs_phase, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -5107,6 +5587,8 @@ def main():
          **_mesh_launch_keys(mesh_launches, 'same_grid_conv'),
          'launches_export': export_launches['same_grid_conv'],
          'launches_evidence': evidence_launches['same_grid_conv'],
+         'launches_graphs': _graph_launch_keys(graph_launches,
+                                               graph_records, 'same_grid_conv', 'same_grid_conv'),
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -5157,6 +5639,8 @@ def main():
          'launches_interop_resume': interop_resume['same_grid_conv_dx'],
          **_mesh_launch_keys(mesh_launches, 'same_grid_conv_dx'),
          'launches_evidence': evidence_launches['same_grid_conv_dx'],
+         'launches_graphs': _graph_launch_keys(graph_launches,
+                                               graph_records, 'same_grid_conv_dx', 'same_grid_conv'),
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -5211,6 +5695,8 @@ def main():
          **_mesh_launch_keys(mesh_launches, 'iws_combine'),
          'launches_export': export_launches['iws_combine'],
          'launches_evidence': evidence_launches['iws_combine'],
+         'launches_graphs': _graph_launch_keys(graph_launches,
+                                               graph_records, 'iws_combine', 'iws_combine'),
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -5228,14 +5714,32 @@ def main():
                       'resnet': resnet, 'drivers': driver_line,
                       'interop': interop_line, 'mesh': mesh_line,
                       'export': export_line, 'evidence': evidence_line,
+                      'graphs': graphs_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
 
 
+def graphs_only():
+    """``--graphs``: build the kernels and run phase 15 alone (its
+    ``graphs`` line), for work on the step graphs."""
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
+    from joint_vae_tpu_torch.device import set_float32_math
+    from joint_vae_tpu_torch.ops import cuda_lib
+    set_float32_math()
+    card = card_line()
+    print(card, flush=True)
+    print('build seconds', round(cuda_lib.build(), 3), flush=True)
+    os.makedirs(WORK, exist_ok=True)
+    graphs_phase(card)
+
+
 if __name__ == '__main__':
     if len(sys.argv) > 1 and sys.argv[1] == '--mesh-rank':
         mesh_rank(sys.argv[2:])
+    elif sys.argv[1:] == ['--graphs']:
+        graphs_only()
     else:
         main()

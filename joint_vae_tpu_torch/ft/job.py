@@ -17,6 +17,11 @@ is placed with the sharding rules, the fine-tune batches are each rank's
 rows of the same global batches (the one-process data order), the
 evaluations are mesh-fed and gathered on every rank, and rank 0 writes
 the files.  A multi-process run needs a mesh.
+
+The fine-tune step is replayed as a CUDA graph on the card (its inputs
+copied into the graph's buffers); the both-prior evaluation replays the
+generator's state for its second half (``get_state``/``set_state``,
+which a graph cannot capture) and stays eager.
 """
 
 import dataclasses
@@ -237,10 +242,13 @@ def finetune(wim: WIMJob,
              save_dir: Optional[str] = None,
              seed: int = 0,
              mesh=None,
-             outputs=None) -> WIMJob:
+             outputs=None,
+             graphed: Optional[bool] = None) -> WIMJob:
     """Run the WIM fine-tuning flow on the job's device; updates wim.job
     in place (its model, optimizer, sigma state and results).  ``mesh``:
-    the trainer's contract (module docstring)."""
+    the trainer's contract (module docstring).  ``graphed`` (default: True
+    off a mesh) replays the fine-tune step as a CUDA graph on the card
+    (``WIMJob.make_finetune_step``), False runs it eagerly."""
     cfg = wim.cfg
     assert wim.alternate_prior_cfg is not None, 'set_alternate_prior first'
     moving_batch_size = moving_batch_size or batch_size
@@ -298,6 +306,8 @@ def finetune(wim: WIMJob,
     moving_loader = DataLoader(moving_set, moving_batch_size, shuffle=True,
                                seed=seed + 1, drop_last=True)
     state.generator = make_generator(dev, seed)
+    step = wim.make_finetune_step(alpha, tx=tx, train_L=cfg.latent_sampling,
+                                  mesh=mesh, graphed=graphed)
 
     # metrics pulled in windows on a card, as the trainer does
     me = 1 if dev.type == 'cpu' else 8
@@ -314,9 +324,7 @@ def finetune(wim: WIMJob,
             except StopIteration:
                 mov_iter = iter(moving_loader)
                 xm, _ = next(mov_iter)
-            state, metrics = wim.finetune_batch(
-                state, put_x(x), put_y(y), put_x(xm), alpha, tx=tx,
-                train_L=cfg.latent_sampling, mesh=mesh)
+            state, metrics = step(state, put_x(x), put_y(y), put_x(xm))
             step_i += 1
             pending.append(metrics)
             if len(pending) < me and i != per_epoch - 1:

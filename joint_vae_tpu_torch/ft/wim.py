@@ -16,7 +16,9 @@ Port of ``joint_vae_tpu/ft/wim.py`` (ref ``ft/wim.py``):
     softk~ = softmax_c(sign_k * losses[k])[y-hat]
 - ``finetune_batch`` (ref :215-259): L = ELBO(train x, original prior)
   + alpha * ELBO(moving x, alternate prior with y = 0), one backward
-  through both evaluations.
+  through both evaluations; ``make_finetune_step`` is the same step as a
+  CUDA graph on the card (``train/graphs.py``, the counterpart of the
+  JAX package's jitted fine-tune step), alpha its constant.
 
 The alternate prior's mean is drawn from ``numpy.random.default_rng``
 (``ops/priors.py::init_prior_arrays``); the JAX package draws it from
@@ -30,14 +32,18 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import module_device
 from ..models.cvnet import CVNet, CVNetConfig
 from ..models.evaluate import evaluate
 from ..ops.priors import PriorConfig, build_prior_config, init_prior_arrays
 from ..parallel.mesh import mesh_scope, split_names
 from ..parallel.shard_steps import global_grad_norm, reduce_step
 from ..save_load.jobs import Job
-from ..train.optimizers import Optimizer
+from ..train.graphs import StepGraph
+from ..train.optimizers import (Optimizer, advance_counts,
+                                sync_device_scalars)
 from ..train.state import TrainState, named_params
+from ..train.steps import copy_sigma_state, graph_mode
 
 WIM_OOD_METHODS_PER_TYPE = {
     'vae': ['zdist', 'elbo', 'kl'],
@@ -173,26 +179,63 @@ class WIMJob:
                        eps: Optional[torch.Tensor] = None,
                        mesh=None):
         """One fine-tuning step (ref ft/wim.py:215-259) on
-        :meth:`finetune_grads`, updating the model and ``state`` in place;
-        returns (state, metrics).  The prior's updates are zeroed too, so
-        that weight decay does not move it either; BatchNorm's running
-        statistics do not move; the sigma state follows the
+        :meth:`finetune_grads`, eager, updating the model and ``state`` in
+        place; returns (state, metrics).  The prior's updates are zeroed
+        too, so that weight decay does not move it either; BatchNorm's
+        running statistics do not move; the sigma state follows the
         in-distribution half.  ``mesh``: this rank's rows, the global
         batch's step (the clipping norm sums the class-split blocks over
         'model')."""
-        params = named_params(self.model)
-        grads, metrics, sigma_state = self.finetune_grads(
-            state, x_in, y_in, x_mix, alpha, train_L=train_L, eps=eps,
-            mesh=mesh)
-        norm = (global_grad_norm(grads, mesh, split_names(self.model))
+        step = self.make_finetune_step(alpha, tx=tx, train_L=train_L,
+                                       mesh=mesh, graphed=False)
+        return step(state, x_in, y_in, x_mix, eps)
+
+    def make_finetune_step(self, alpha: float = 0.1, *, tx: Optimizer,
+                           train_L: Optional[int] = None, mesh=None,
+                           graphed: Optional[bool] = None):
+        """:meth:`finetune_batch` as a step ``step(state, x_in, y_in,
+        x_mix, eps=None) -> (state, metrics)``, replayed as a CUDA graph
+        on the card unless ``graphed=False`` (a mesh step is eager)."""
+        return FinetuneStep(self, alpha, tx, train_L, mesh, graphed)
+
+
+class FinetuneStep:
+    """The WIM fine-tuning step of :meth:`WIMJob.make_finetune_step`: the
+    body that a graph captures, the optimizer's device scalars synced
+    before it and the host counts advanced after it, once per real
+    step."""
+
+    def __init__(self, wim: WIMJob, alpha: float, tx: Optimizer,
+                 train_L: Optional[int], mesh, graphed: Optional[bool]):
+        self.wim, self.alpha, self.tx = wim, alpha, tx
+        self.train_L, self.mesh = train_L, mesh
+        self.graph = StepGraph(self._body, name='finetune_step',
+                               graphed=graph_mode(graphed, mesh))
+
+    def _body(self, state: TrainState, x_in, y_in, x_mix, eps=None) -> dict:
+        model, mesh = self.wim.model, self.mesh
+        params = named_params(model)
+        grads, metrics, sigma_state = self.wim.finetune_grads(
+            state, x_in, y_in, x_mix, self.alpha, train_L=self.train_L,
+            eps=eps, mesh=mesh)
+        norm = (global_grad_norm(grads, mesh, split_names(model))
                 if mesh is not None else None)
-        updates, state.opt_state = tx.update(grads, state.opt_state, params,
-                                             norm=norm)
+        updates, state.opt_state = self.tx.update(
+            grads, state.opt_state, params, norm=norm, capturable=True)
         updates = _zero_prior_grads(updates)
         with torch.no_grad():
             torch._foreach_add_(list(params.values()),
                                 [updates[k] for k in params])
-        state.sigma_state = sigma_state
+        copy_sigma_state(state.sigma_state, sigma_state)
+        return metrics
+
+    def __call__(self, state: TrainState, x_in: torch.Tensor,
+                 y_in: torch.Tensor, x_mix: torch.Tensor,
+                 eps: Optional[torch.Tensor] = None):
+        sync_device_scalars(state.opt_state, module_device(self.wim.model))
+        metrics = self.graph(state, x_in=x_in, y_in=y_in, x_mix=x_mix,
+                             eps=eps)
+        advance_counts(state.opt_state, self.tx.cfg.optim_type == 'adam')
         state.step += 1
         return state, metrics
 

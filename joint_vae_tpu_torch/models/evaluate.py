@@ -22,7 +22,7 @@ Loss shapes: per-class (C, N); per-input (N,); 'total' broadcasts.
 import dataclasses
 import math
 import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,8 +57,8 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
              *, sigma_state: SigmaState,
              train: bool = False,
              with_beta: bool = False,
-             kl_var_weighting: float = 1.0,
-             gamma_weighting: float = 1.0,
+             kl_var_weighting: Union[float, torch.Tensor] = 1.0,
+             gamma_weighting: Union[float, torch.Tensor] = 1.0,
              L: Optional[int] = None,
              compute_iws: Optional[bool] = None,
              return_bn_updates: bool = False,
@@ -75,6 +75,10 @@ def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,
     x (N, *input_shape); y (N,) int labels or None (per-class evaluation).
     ``eps`` (L+1, *mu.shape) injects the latent noise (row 0 zeros);
     otherwise it is drawn from ``generator``, as is the dropout mask.
+    ``kl_var_weighting`` / ``gamma_weighting`` (the warmup ramps) are
+    floats or 0-dim float64 tensors on the device, which a captured train
+    step reads as the epochs move (``train/steps.py``); a float64 ramp
+    scales a float32 tensor as the same Python float does.
     ``decode_mean=False`` skips decoding the mean sample (scoring-only
     callers; training never decodes it).  ``compute_iws`` defaults to
     ``not train``.  ``bn_eval`` keeps BatchNorm on its running statistics

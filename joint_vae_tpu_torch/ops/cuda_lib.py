@@ -6,6 +6,13 @@ under ``build/torch_kernels/`` at the repository root, named by a hash of
 its source so an edited kernel rebuilds.  The library is loaded with
 ``ctypes``; callers pass device pointers and the CUDA stream as
 ``c_void_p``.  Nothing here runs at import time.
+
+Each wrapper counts its launches on the host where it calls its kernel
+and registers the counter here with the kernel source it launches from
+(:func:`register_counter`, :func:`launch_counts`).  A CUDA graph's replay
+calls no wrapper and counts nothing: ``train/graphs.py`` holds the
+launches a capture counted against the kernel nodes the graph holds,
+told apart by their functions' names (:data:`KERNEL_FUNCTIONS`).
 """
 
 import contextlib
@@ -16,7 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -39,7 +46,16 @@ SIGNATURES = {
     },
 }
 
+# each source's __global__ functions (a graph's kernel nodes by name)
+KERNEL_FUNCTIONS = {
+    'same_grid_conv': ('tc_conv_kernel', 'mma_conv_kernel',
+                       'head_conv_kernel'),
+    'iws_combine': ('iws_combine_kernel',),
+}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+# counter name -> (the kernel source it launches, its read)
+_COUNTERS: Dict[str, Tuple[str, Callable[[], int]]] = {}
 BUILD_LOG: Dict[str, str] = {}      # name -> nvcc output (ptxas -v report)
 
 
@@ -135,3 +151,32 @@ def launch_span(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name + '.launch')
     return contextlib.nullcontext()
+
+
+def register_counter(name: str, source: str,
+                     read: Callable[[], int]) -> None:
+    """Register a wrapper's launch counter ``name`` of ``source``'s
+    kernels."""
+    _COUNTERS[name] = (source, read)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every registered launch counter's value."""
+    return {name: read() for name, (_, read) in _COUNTERS.items()}
+
+
+def by_source(counts: Dict[str, int]) -> Dict[str, int]:
+    """Launch counts by counter name -> by kernel source."""
+    out = dict.fromkeys(KERNEL_FUNCTIONS, 0)
+    for name, n in counts.items():
+        out[_COUNTERS[name][0]] += n
+    return out
+
+
+def source_of(function: str) -> Optional[str]:
+    """The kernel source whose __global__ function ``function`` (a mangled
+    name) is, or None for another library's kernel."""
+    for source, names in KERNEL_FUNCTIONS.items():
+        if any(n in function for n in names):
+            return source
+    return None

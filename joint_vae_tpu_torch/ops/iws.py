@@ -86,6 +86,10 @@ def iws_combine(z: torch.Tensor, log_pxq: torch.Tensor, mean: torch.Tensor,
 iws_combine.launches = 0
 
 
+cuda_lib.register_counter('iws_combine', 'iws_combine',
+                          lambda: iws_combine.launches)
+
+
 def kernel_splits(L: int, N: int, K: int, C: int) -> int:
     """How many blocks of a cluster the kernel splits l across at this
     shape on the current card (one launch whatever the split)."""

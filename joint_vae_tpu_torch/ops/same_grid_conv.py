@@ -260,3 +260,8 @@ same_grid_conv.launches = 0
 same_grid_conv_dx.launches = 0
 # the launches of the bfloat16 build, by wrapper
 bf16_launches = {'same_grid_conv': 0, 'same_grid_conv_dx': 0}
+
+cuda_lib.register_counter('same_grid_conv', 'same_grid_conv',
+                          lambda: same_grid_conv.launches)
+cuda_lib.register_counter('same_grid_conv_dx', 'same_grid_conv',
+                          lambda: same_grid_conv_dx.launches)

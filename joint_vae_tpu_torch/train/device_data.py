@@ -1,10 +1,10 @@
 """Training from a dataset that lives on the card.
 
 Port of ``joint_vae_tpu/train/device_data.py``.  The whole training set is
-copied to the card once; each epoch shuffles it there once (one gather of
-the set into a new array, from a permutation drawn on the card), and each
-step reads its batch as a contiguous slice of the shuffled arrays (a
-view, no copy), so the loop moves no image from the host.
+copied to the card once; each epoch draws a permutation there, and each
+step gathers its batch's rows of the set straight into the step graph's
+input buffers (``train/graphs.py``: two gathers, x and y, outside the
+graph), so the loop moves no image from the host.
 
 8-bit data (uint8 sets, and float sets in [0, 1] that are exactly k/255,
 as MNIST, CIFAR and ImageNet files are) stays uint8 on the card: a
@@ -14,9 +14,12 @@ as in the JAX package, which can differ by one ulp from the host loader's
 ``k / 255``: a run fed from the card is compared with a run fed from the
 card.
 
-The train step is ``train/steps.py``'s.  ``fused=True`` runs each epoch as
-one loop whose metrics are summed on the card and pulled once at its end
-(the JAX package compiles the same loop into one program).  The
+The train step is ``train/steps.py``'s, a CUDA graph on the card.
+``fused=True`` is the port of the JAX package's fused whole-epoch
+program (its ``fori_loop`` over the steps): per epoch the permutation,
+the metric sums zeroed, then per step the batch's gather and one replay,
+the step's metrics summed inside the graph as JAX's loop carry sums
+them, pulled once at the epoch's end.  The
 permutation comes from a generator on the card seeded with (seed, epoch):
 ``jax.random.permutation`` cannot be reproduced in torch, and the tests
 inject JAX's through :func:`epoch_permutation`.
@@ -32,7 +35,7 @@ from ..data.loaders import ArrayDataset
 from ..device import DeviceLike, resolve_device
 from ..models.cvnet import CVNet
 from .optimizers import OptimizerConfig, set_learning_rate
-from .steps import make_train_step, pull_metrics
+from .steps import TrainStep, pull_metrics
 
 _ROWS = 4096              # images per host-to-card copy while uploading
 
@@ -88,13 +91,6 @@ class DeviceDataset:
     def __len__(self):
         return self.n
 
-    def shuffled(self, perm: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The arrays gathered in ``perm``'s order: one copy of the set per
-        epoch, after which every batch is a contiguous slice."""
-        return (torch.index_select(self.x, 0, perm),
-                torch.index_select(self.y, 0, perm))
-
 
 def epoch_permutation(n: int, seed: int, epoch: int,
                       device: torch.device) -> torch.Tensor:
@@ -106,34 +102,30 @@ def epoch_permutation(n: int, seed: int, epoch: int,
     return torch.randperm(n, generator=gen, device=device)
 
 
-def batch_slice(data_x: torch.Tensor, data_y: torch.Tensor, i: int,
-                batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batch ``i`` of the shuffled arrays, a view; uint8 images become
-    float32 as ``x * float32(1/255)`` (torch takes the Python scalar in
-    the tensor's float32, as JAX takes its weakly typed one)."""
-    x = data_x[i * batch_size:(i + 1) * batch_size]
-    y = data_y[i * batch_size:(i + 1) * batch_size]
-    if x.dtype == torch.uint8:
-        x = x.float() * (1.0 / 255.0)
-    return x, y
-
-
 def make_device_train_step(model: CVNet, opt_cfg: OptimizerConfig,
                            batch_size: int,
                            warmup: Tuple[int, int] = (0, 0),
                            warmup_gamma: Tuple[int, int] = (0, 0),
-                           frozen_modules: Tuple[str, ...] = ()):
-    """``step(state, data_x, data_y, i, eps=None) -> (state, metrics)``:
-    ``train/steps.py``'s step (with its warmup ramps) on batch ``i`` of
-    the shuffled arrays."""
-    step = make_train_step(model, opt_cfg, tuple(warmup), tuple(warmup_gamma),
-                           frozen_modules=frozen_modules)
+                           frozen_modules: Tuple[str, ...] = (),
+                           graphed: Optional[bool] = None):
+    """``step(state, data_x, data_y, i, eps=None, perm=None) -> (state,
+    metrics)``: ``train/steps.py``'s step (with its warmup ramps) on batch
+    ``i``: rows ``perm[i * batch_size:(i + 1) * batch_size]`` of the
+    arrays, or with no ``perm`` that slice of arrays already shuffled,
+    gathered into the step's input buffers.  The step sums its metrics
+    into ``step.graph.sums`` (:func:`make_device_epoch_fn`)."""
+    step = TrainStep(model, opt_cfg, warmup, warmup_gamma, frozen_modules,
+                     graphed=graphed)
 
     def device_step(state, data_x, data_y, i: int,
-                    eps: Optional[torch.Tensor] = None):
-        x, y = batch_slice(data_x, data_y, i, batch_size)
-        return step(state, x, y, eps)
+                    eps: Optional[torch.Tensor] = None,
+                    perm: Optional[torch.Tensor] = None):
+        rows = slice(i * batch_size, (i + 1) * batch_size)
+        if perm is not None:
+            rows = perm[rows]
+        return step.gather(state, data_x, data_y, rows, eps)
 
+    device_step.graph = step.graph
     return device_step
 
 
@@ -142,23 +134,28 @@ def make_device_epoch_fn(model: CVNet, opt_cfg: OptimizerConfig,
                          warmup: Tuple[int, int] = (0, 0),
                          warmup_gamma: Tuple[int, int] = (0, 0),
                          frozen_modules: Tuple[str, ...] = ()):
-    """``epoch(state, x, y, perm) -> (state, mean metrics)``: shuffles the
-    arrays on the card, runs ``n_batches`` steps and returns the metrics'
-    means over the epoch as tensors on the card (summed there in step
-    order, as JAX's loop carry sums them; nothing waits for the card)."""
+    """``epoch(state, x, y, perm) -> (state, mean metrics)``: the fused
+    whole-epoch program — ``n_batches`` steps over the rows of the arrays
+    in ``perm``'s order, each step's metrics summed on the card inside the
+    step (as JAX's loop carry sums them, in step order); returns their
+    means over the epoch as tensors on the card (nothing waits for it)."""
     step = make_device_train_step(model, opt_cfg, batch_size, warmup,
                                   warmup_gamma, frozen_modules)
 
     def epoch(state, data_x, data_y, perm):
-        ex = torch.index_select(data_x, 0, perm)
-        ey = torch.index_select(data_y, 0, perm)
-        state, sums = step(state, ex, ey, 0)
-        for i in range(1, n_batches):
-            state, m = step(state, ex, ey, i)
-            sums = {k: sums[k] + m[k] for k in sums}
-        return state, {k: v / n_batches for k, v in sums.items()}
+        return _fused_epoch(step, state, data_x, data_y, perm, n_batches)
 
+    epoch.graph = step.graph
     return epoch
+
+
+def _fused_epoch(step, state, data_x, data_y, perm, n_batches: int):
+    """``n_batches`` device-fed steps in ``perm``'s order, their metrics
+    summed inside the step; -> (state, the means)."""
+    step.graph.reset_sums()
+    for i in range(n_batches):
+        state, _ = step(state, data_x, data_y, i, perm=perm)
+    return state, step.graph.metrics(step.graph.sums / n_batches)
 
 
 def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
@@ -166,14 +163,17 @@ def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
                            warmup=(0, 0), warmup_gamma=(0, 0),
                            seed: int = 0,
                            log_every: Optional[int] = None,
-                           fused: bool = True) -> Dict[str, float]:
+                           fused: bool = True,
+                           graphed: Optional[bool] = None
+                           ) -> Dict[str, float]:
     """Train ``job.state`` for ``epochs`` epochs after ``job.trained`` over
     ``dataset`` held on the job's device; returns the last epoch's
     metrics.  ``warmup`` / ``warmup_gamma`` are the KL and cross-entropy
     ramps ``(start, length)`` in epochs (``train/steps.py``); every
     ``log_every`` epochs the epoch's total is printed.  ``fused=True``
-    records epoch means; ``fused=False`` the last batch's.  A set smaller
-    than one batch trains nothing and returns {}."""
+    records epoch means; ``fused=False`` the last batch's (the same step
+    graph either way; ``graphed=False`` runs the steps eagerly).  A set
+    smaller than one batch trains nothing and returns {}."""
     state = job.state
     model = state.model
     dev = state.device
@@ -182,13 +182,8 @@ def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
     steps_per_epoch = dd.n // batch_size
     if steps_per_epoch == 0:
         return {}
-    if fused:
-        epoch_fn = make_device_epoch_fn(model, job.opt_cfg, batch_size,
-                                        steps_per_epoch, warmup, warmup_gamma,
-                                        frozen)
-    else:
-        step = make_device_train_step(model, job.opt_cfg, batch_size, warmup,
-                                      warmup_gamma, frozen)
+    step = make_device_train_step(model, job.opt_cfg, batch_size, warmup,
+                                  warmup_gamma, frozen, graphed)
     last: Dict[str, float] = {}
     first_epoch = job.trained
     for epoch in range(first_epoch, first_epoch + epochs):
@@ -196,11 +191,11 @@ def train_epochs_on_device(job, dataset: ArrayDataset, epochs: int,
         set_learning_rate(state.opt_state, job.opt_cfg.lr_at_epoch(epoch))
         perm = epoch_permutation(dd.n, seed, epoch, dev)
         if fused:
-            state, metrics = epoch_fn(state, dd.x, dd.y, perm)
+            state, metrics = _fused_epoch(step, state, dd.x, dd.y, perm,
+                                          steps_per_epoch)
         else:
-            ex, ey = dd.shuffled(perm)
             for i in range(steps_per_epoch):
-                state, metrics = step(state, ex, ey, i)
+                state, metrics = step(state, dd.x, dd.y, i, perm=perm)
         last = pull_metrics([metrics])[0]
         job.train_history[epoch + 1] = {
             'train_loss': {k: v for k, v in last.items()

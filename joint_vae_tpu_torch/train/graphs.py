@@ -1,0 +1,311 @@
+"""CUDA graphs of the port's steps: the counterpart of ``jax.jit`` for a
+step.
+
+The JAX package runs each hot step as one compiled program that the host
+dispatches once: the train step (``joint_vae_tpu/train/steps.py:80``,
+``jax.jit(step, donate_argnums=(0,))``), the device-fed step and the fused
+whole-epoch program (``train/device_data.py:150-191``) and the WIM
+fine-tune step (``ft/job.py:314-316``).  On the card the counterpart is a
+CUDA graph: the step captured once, replayed by one host call per step.
+
+A :class:`StepGraph` holds a step body ``body(state, **inputs) -> {name:
+0-dim tensor}`` that updates the state's tensors in place and reads every
+value that moves between steps (learning rate, Adam's count, the warmup
+ramps, the prior-mean thaw) from 0-dim device tensors, so that a replay
+computes what the eager body computes.  It owns the static input buffers
+(one set per input shapes: the loaders drop their last batch, so a run
+has one), packs the metrics into one float32 vector (its output), and on
+the card:
+
+- runs the first step of each buffer set eagerly on its side stream as a
+  real step (it moves the parameters, the moments, sigma and the
+  generator; nothing is restored), so that every library handle, plan
+  and kernel library is made before the capture;
+- then captures the body on that stream in the default
+  ``capture_error_mode``, with the run's generator registered
+  (``register_generator_state``: each replay draws the numbers the eager
+  step would), into a private memory pool, and replays it from then on.
+  A capture that fails raises; nothing falls back to eager steps.
+
+The kernel wrappers count their launches where they call their kernels:
+in eager steps, in the warm-up and in the capture, never in a replay,
+which calls no wrapper.  What a replay launches is read from the graph
+instead: at capture the graph's kernel nodes are counted by their
+functions' names, per kernel source of ``ops/cuda_lib.py``, and must
+equal the launches the wrappers counted while capturing, or the capture
+raises.  ``captures`` records each capture's seconds, launches, kernel
+nodes and pool bytes; :data:`steps_run` counts every graph's steps by how
+they ran.
+
+The backward of a captured step accumulates each parameter's gradient on
+the stream its gradient accumulator was made on: the side stream, when
+the warm-up step makes them.  An autograd graph through the parameters
+built eagerly on the default stream and still alive at the capture
+(an eager forward's output kept) holds accumulators on that stream, and
+the capture then fails; drop it first.
+
+On the CPU, which only a caller's explicit ``device='cpu'`` reaches, the
+same body runs eagerly on the same static buffers.  ``graphed=False``
+runs the body eagerly on the inputs as given (the mesh step, and the eager
+reference that ``chip_smoke.py`` holds a graph against).
+"""
+
+import ctypes
+import dataclasses
+import time
+import weakref
+from typing import Callable, Dict, List, Optional, Union
+
+import torch
+
+from ..ops import cuda_lib
+
+
+# every graph's steps since :func:`reset_steps_run`, by how they ran:
+# 'eager' (the body called: an eager step, a warm-up, a step on the CPU),
+# 'captured' (the body recorded into a graph; that step then runs as a
+# replay) and 'replayed'.  The wrappers count the launches of the eager and
+# captured ones.
+steps_run = {'eager': 0, 'captured': 0, 'replayed': 0}
+
+
+def reset_steps_run() -> None:
+    for k in steps_run:
+        steps_run[k] = 0
+
+
+@dataclasses.dataclass
+class Rows:
+    """Rows ``rows`` (an index tensor, or a slice) of ``src``: a batch that
+    a step gathers straight into its static buffer."""
+    src: torch.Tensor
+    rows: Union[torch.Tensor, slice]
+
+    @property
+    def shape(self) -> tuple:
+        if isinstance(self.rows, slice):
+            n = len(range(*self.rows.indices(self.src.shape[0])))
+        else:
+            n = self.rows.shape[0]
+        return (n,) + tuple(self.src.shape[1:])
+
+    def into(self, out: torch.Tensor) -> None:
+        if isinstance(self.rows, slice):
+            out.copy_(self.src[self.rows])
+        else:
+            torch.index_select(self.src, 0, self.rows, out=out)
+
+    def value(self) -> torch.Tensor:
+        if isinstance(self.rows, slice):
+            return self.src[self.rows]
+        return torch.index_select(self.src, 0, self.rows)
+
+
+class PackedMetrics(dict):
+    """name -> 0-dim view of ``vector``, the step's packed metrics (a copy
+    of a graph's output, which the next replay overwrites)."""
+
+    def __init__(self, names: List[str], vector: torch.Tensor):
+        super().__init__(zip(names, vector.unbind(0)))
+        self.vector = vector
+
+
+@dataclasses.dataclass
+class _Entry:
+    buffers: Dict[str, torch.Tensor]
+    warm: bool = False               # its eager warm-up step has run
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    out: Optional[torch.Tensor] = None
+
+
+class StepGraph:
+    """One step body, captured per input shapes and replayed (module
+    docstring).  Each step adds its packed metrics into :attr:`sums`
+    inside the step (the fused epoch's carry)."""
+
+    def __init__(self, body: Callable, *, name: str, graphed: bool = True):
+        # a step object's own method is held weakly: the object owns this
+        # graph, and the graph's memory goes with the object
+        self._body = (weakref.WeakMethod(body) if hasattr(body, '__self__')
+                      else lambda: body)
+        self.name = name
+        self.graphed = graphed
+        self.names: Optional[List[str]] = None
+        self.sums: Optional[torch.Tensor] = None
+        self.captures: List[dict] = []
+        self._entries: Dict[tuple, _Entry] = {}
+        self._owner: tuple = ()
+        self._stream = None
+
+    # ---- the body, packed ----------------------------------------------
+    def _packed(self, state, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        m = self._body()(state, **inputs)
+        names = list(m)
+        if self.names is None:
+            self.names = names
+        elif names != self.names:
+            raise RuntimeError('{}: the step\'s metrics changed from {} to '
+                               '{}'.format(self.name, self.names, names))
+        vec = torch.stack([v.detach().float().reshape(()) for v in m.values()])
+        if self.sums is None:
+            self.sums = torch.zeros_like(vec)
+        self.sums.add_(vec)
+        return vec
+
+    def reset_sums(self) -> None:
+        """Zero :attr:`sums` (before an epoch)."""
+        if self.sums is not None:
+            self.sums.zero_()
+
+    def metrics(self, vector: torch.Tensor) -> PackedMetrics:
+        return PackedMetrics(self.names, vector)
+
+    # ---- one real step ---------------------------------------------------
+    def __call__(self, state, **inputs) -> PackedMetrics:
+        """One real step on ``inputs`` (tensors, :class:`Rows`, or None for
+        an input not given); returns its metrics, a copy of the graph's
+        output on the card."""
+        given = {k: v for k, v in inputs.items() if v is not None}
+        if not self.graphed:
+            steps_run['eager'] += 1
+            return self.metrics(self._packed(state, {
+                k: v.value() if isinstance(v, Rows) else v
+                for k, v in given.items()}))
+        entry = self._entry(state, given)
+        for k, v in given.items():
+            if isinstance(v, Rows):
+                v.into(entry.buffers[k])
+            else:
+                entry.buffers[k].copy_(v)
+        out = self._run(state, entry)
+        return self.metrics(out.clone() if entry.graph is not None else out)
+
+    def _entry(self, state, given) -> _Entry:
+        # a new generator, optimizer or sigma state means new captures; the
+        # ones captured are held, so that no other object takes their place
+        owner = (state.generator, state.opt_state, state.sigma_state.data,
+                 state.sigma_state.rmse)
+        if (len(owner) != len(self._owner)
+                or any(a is not b for a, b in zip(owner, self._owner))):
+            self._entries.clear()
+            self._owner = owner
+        key = tuple((k, tuple(v.shape), v.src.dtype if isinstance(v, Rows)
+                     else v.dtype, (v.src if isinstance(v, Rows) else v).device)
+                    for k, v in sorted(given.items()))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = _Entry(buffers={
+                k: torch.empty(shape, dtype=dt, device=dev)
+                for k, shape, dt, dev in key})
+        return entry
+
+    def _run(self, state, entry: _Entry) -> torch.Tensor:
+        dev = next(iter(entry.buffers.values())).device
+        if dev.type != 'cuda':
+            steps_run['eager'] += 1
+            return self._packed(state, entry.buffers)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        if not entry.warm:
+            entry.warm = True
+            steps_run['eager'] += 1
+            cur = torch.cuda.current_stream(dev)
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                out = self._packed(state, entry.buffers)
+            cur.wait_stream(self._stream)
+            return out
+        if entry.graph is None:
+            self._capture(state, entry, dev)
+        entry.graph.replay()
+        steps_run['replayed'] += 1
+        return entry.out
+
+    def _capture(self, state, entry: _Entry, dev: torch.device) -> None:
+        # kept, to count its kernel nodes before it is instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(state.generator)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = cuda_lib.launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._stream):
+            entry.out = self._packed(state, entry.buffers)
+        nodes = kernel_nodes(graph.raw_cuda_graph())
+        graph.instantiate()
+        capture_s = time.perf_counter() - t0
+        after = cuda_lib.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        if nodes is not None and nodes['by_source'] != cuda_lib.by_source(
+                launches):
+            raise RuntimeError(
+                '{}: the graph holds {} kernel nodes of the port\'s kernels, '
+                'its capture launched {}'.format(self.name, nodes['by_source'],
+                                                 launches))
+        steps_run['captured'] += 1
+        entry.graph = graph
+        self.captures.append({
+            'name': self.name,
+            'inputs': {k: list(v.shape) for k, v in entry.buffers.items()},
+            'capture_s': capture_s,
+            'launches': {k: v for k, v in launches.items() if v},
+            'kernel_nodes': None if nodes is None else nodes['total'],
+            'kernel_nodes_by_source': None if nodes is None
+            else nodes['by_source'],
+            'pool_bytes': torch.cuda.memory_reserved(dev) - reserved})
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """libcuda's ``CUDA_KERNEL_NODE_PARAMS_v2``."""
+    _fields_ = [('func', ctypes.c_void_p), ('grid', ctypes.c_uint * 3),
+                ('block', ctypes.c_uint * 3), ('shared_bytes', ctypes.c_uint),
+                ('params', ctypes.c_void_p), ('extra', ctypes.c_void_p),
+                ('kern', ctypes.c_void_p), ('ctx', ctypes.c_void_p)]
+
+
+def kernel_nodes(raw_graph: int) -> Optional[dict]:
+    """The kernel nodes of a ``cudaGraph_t``: ``{'total': n, 'by_source':
+    {source: n}}``, those of each kernel source of ``ops/cuda_lib.py``
+    told apart by their functions' names (libcuda's ``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``, ``cuGraphKernelNodeGetParams``,
+    ``cuFuncGetName``); None where libcuda cannot be loaded.  A call that
+    fails raises."""
+    try:
+        cu = ctypes.CDLL('libcuda.so.1')
+    except OSError:
+        return None
+
+    def check(rc: int, what: str) -> None:
+        if rc:
+            raise RuntimeError('{} returned CUresult {}'.format(what, rc))
+    graph = ctypes.c_void_p(raw_graph)
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), 'cuGraphGetNodes')
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
+    kind = ctypes.c_int(0)
+    params = _KernelNodeParams()
+    name = ctypes.c_char_p()
+    total, by_source = 0, dict.fromkeys(cuda_lib.KERNEL_FUNCTIONS, 0)
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+              'cuGraphNodeGetType')
+        if kind.value != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        total += 1
+        check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+              'cuGraphKernelNodeGetParams')
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params.func)),
+                  'cuFuncGetName')
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params.kern)),
+                  'cuKernelGetName')
+        source = cuda_lib.source_of(name.value.decode())
+        if source is not None:
+            by_source[source] += 1
+    return {'total': total, 'by_source': by_source}

@@ -18,6 +18,16 @@ that a mask can stop frozen parameters after the optimizer, which
 place (``torch._foreach_*``) and the state is returned.  Its counts and
 tensors map one to one onto the optax state's leaves
 (``save_load/from_jax.py``).
+
+The counts and the learning rate are host values (what a checkpoint
+holds); the update reads device mirrors of them (:class:`DeviceScalars`:
+the float32 learning rate and Adam's count as float64, from which the
+bias corrections are computed on the device in float64, as the host
+computed them), so that a CUDA graph of a step (``train/graphs.py``)
+replays with the current values.  ``update(..., capturable=True)`` only
+touches device tensors: its caller syncs the mirrors before the step
+(:func:`sync_device_scalars`) and advances the host counts after it
+(:func:`advance_counts`), once per real step.
 """
 
 import dataclasses
@@ -70,6 +80,50 @@ class OptState:
     mu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     trace: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    scalars: Optional['DeviceScalars'] = None
+
+
+@dataclasses.dataclass
+class DeviceScalars:
+    """0-dim device mirrors of an :class:`OptState`'s host values, and the
+    host values they were last filled from: ``neg_lr`` (-learning_rate,
+    float32) and ``adam_t`` (adam_count, float64; the update adds 1 to
+    it on the device)."""
+    neg_lr: torch.Tensor
+    adam_t: torch.Tensor
+    lr: float
+    adam_count: int
+
+
+def sync_device_scalars(state: OptState, device: torch.device
+                        ) -> DeviceScalars:
+    """Fill the device mirrors where the host values moved since the last
+    fill (made on ``device`` the first time).  Never inside a capture."""
+    sc = state.scalars
+    if sc is None or sc.neg_lr.device != torch.device(device):
+        sc = state.scalars = DeviceScalars(
+            neg_lr=torch.full((), -state.learning_rate, dtype=torch.float32,
+                              device=device),
+            adam_t=torch.full((), float(state.adam_count),
+                              dtype=torch.float64, device=device),
+            lr=state.learning_rate, adam_count=state.adam_count)
+    if sc.lr != state.learning_rate:
+        sc.neg_lr.fill_(-state.learning_rate)
+        sc.lr = state.learning_rate
+    if sc.adam_count != state.adam_count:
+        sc.adam_t.fill_(float(state.adam_count))
+        sc.adam_count = state.adam_count
+    return sc
+
+
+def advance_counts(state: OptState, adam: bool) -> None:
+    """One real step's host counts (the device's Adam count moved in the
+    update itself)."""
+    state.count += 1
+    if adam:
+        state.adam_count += 1
+        if state.scalars is not None:
+            state.scalars.adam_count += 1
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -95,50 +149,67 @@ class Optimizer:
 
     def update(self, grads: Dict[str, torch.Tensor], state: OptState,
                params: Dict[str, torch.Tensor],
-               norm: Optional[torch.Tensor] = None
+               norm: Optional[torch.Tensor] = None,
+               capturable: bool = False
                ) -> Tuple[Dict[str, torch.Tensor], OptState]:
         """-> (updates to add to the parameters, the new state).  ``grads``
         and ``params`` share their keys; ``grads`` is not modified.
         ``norm`` gives the gradients' global norm for the clipping (a mesh
-        step sums the squares of the class-split blocks over 'model')."""
+        step sums the squares of the class-split blocks over 'model').
+        ``capturable``: read the device mirrors as they stand and leave
+        the host counts to the caller (module docstring)."""
         cfg = self.cfg
         names = list(grads)
         g = [grads[k] for k in names]
-        if cfg.grad_clipping:
-            if norm is None:
-                norm = global_norm(g)
-            scale = torch.where(norm < cfg.grad_clipping,
-                                torch.ones_like(norm),
-                                cfg.grad_clipping / norm)
-            g = torch._foreach_mul(g, scale)
-        if cfg.weight_decay:
-            g = torch._foreach_add(g, [params[k] for k in names],
-                                   alpha=cfg.weight_decay)
-        if cfg.optim_type == 'adam':
-            b1, b2 = cfg.betas
-            mu = [state.mu[k] for k in names]
-            nu = [state.nu[k] for k in names]
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, g, alpha=1.0 - b1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-            state.adam_count += 1
-            t = state.adam_count
-            den = torch._foreach_div(nu, 1.0 - b2 ** t)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, ADAM_EPS)
-            u = torch._foreach_div(mu, 1.0 - b1 ** t)
-            torch._foreach_div_(u, den)
-        elif cfg.momentum:
-            tr = [state.trace[k] for k in names]
-            torch._foreach_mul_(tr, cfg.momentum)
-            torch._foreach_add_(tr, g)
-            u = (torch._foreach_add(g, tr, alpha=cfg.momentum)
-                 if cfg.nesterov else [x.clone() for x in tr])
-        else:
-            u = [x.clone() for x in g]
-        torch._foreach_mul_(u, -state.learning_rate)
-        state.count += 1
+        adam = cfg.optim_type == 'adam'
+        if not g:
+            if not capturable:
+                advance_counts(state, adam)
+            return {}, state
+        if not capturable:
+            sync_device_scalars(state, g[0].device)
+        sc = state.scalars
+        # no autograd record: weight decay adds the parameters themselves
+        with torch.no_grad():
+            if cfg.grad_clipping:
+                if norm is None:
+                    norm = global_norm(g)
+                scale = torch.where(norm < cfg.grad_clipping,
+                                    torch.ones_like(norm),
+                                    cfg.grad_clipping / norm)
+                g = torch._foreach_mul(g, scale)
+            if cfg.weight_decay:
+                g = torch._foreach_add(g, [params[k] for k in names],
+                                       alpha=cfg.weight_decay)
+            if adam:
+                b1, b2 = cfg.betas
+                mu = [state.mu[k] for k in names]
+                nu = [state.nu[k] for k in names]
+                torch._foreach_mul_(mu, b1)
+                torch._foreach_add_(mu, g, alpha=1.0 - b1)
+                torch._foreach_mul_(nu, b2)
+                torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+                # the bias corrections 1 - b^t in float64, rounded to float32
+                # as a float64 host scalar is when it scales a float32 tensor
+                sc.adam_t.add_(1.0)
+                c2 = (1.0 - torch.pow(b2, sc.adam_t)).float()
+                c1 = (1.0 - torch.pow(b1, sc.adam_t)).float()
+                den = torch._foreach_div(nu, c2)
+                torch._foreach_sqrt_(den)
+                torch._foreach_add_(den, ADAM_EPS)
+                u = torch._foreach_div(mu, c1)
+                torch._foreach_div_(u, den)
+            elif cfg.momentum:
+                tr = [state.trace[k] for k in names]
+                torch._foreach_mul_(tr, cfg.momentum)
+                torch._foreach_add_(tr, g)
+                u = (torch._foreach_add(g, tr, alpha=cfg.momentum)
+                     if cfg.nesterov else [x.clone() for x in tr])
+            else:
+                u = [x.clone() for x in g]
+            torch._foreach_mul_(u, sc.neg_lr)
+        if not capturable:
+            advance_counts(state, adam)
         return dict(zip(names, u)), state
 
 

@@ -94,19 +94,34 @@ def grad_mask(model: CVNet, frozen_modules: Sequence[str] = ()
     return mask
 
 
+def thaw_factor(model: CVNet, epoch: int) -> Optional[float]:
+    """The prior means' thaw factor at ``epoch`` (``epoch >=
+    freeze_means``; ref thaw_means, module/priors.py:134-140), or None
+    when the means never freeze."""
+    cfg = model.cfg
+    if cfg.prior.learned_means and cfg.prior.freeze_means:
+        return float(epoch >= cfg.prior.freeze_means)
+    return None
+
+
 def apply_grad_mask(model: CVNet, tensors: Dict[str, torch.Tensor],
-                    mask: Dict[str, float], epoch: int
+                    mask: Dict[str, float], epoch: int,
+                    thaw: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """mask * tensors, the prior means also times the thaw factor
-    (``epoch >= freeze_means``; ref thaw_means, module/priors.py:134-140).
-    Tensors whose factor is 1 pass through as they are."""
-    cfg = model.cfg
-    thaw = 1.0
-    if cfg.prior.learned_means and cfg.prior.freeze_means:
-        thaw = float(epoch >= cfg.prior.freeze_means)
+    (:func:`thaw_factor` at ``epoch``, or ``thaw``, a 0-dim device tensor
+    holding it, which a captured step reads as the epochs move).  Tensors
+    whose factor is 1 pass through as they are."""
+    if thaw is None:
+        thaw = thaw_factor(model, epoch)
+        thaw = 1.0 if thaw is None else thaw
     out = {}
     for name, t in tensors.items():
-        s = mask[name] * (thaw if name == 'prior.mean' else 1.0)
+        s = mask[name]                  # a float: never read from the card
+        if name == 'prior.mean' and s != 0.0:
+            if isinstance(thaw, torch.Tensor):
+                out[name] = t * (thaw if s == 1.0 else s * thaw)
+                continue
+            s = s * thaw
         out[name] = t if s == 1.0 else t * s
     return out
-

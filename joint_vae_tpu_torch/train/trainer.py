@@ -9,14 +9,18 @@ cvae.py:2081-2547):
   dir 'derailed'), live EpochOutput rows, validation/test loss history,
   per-epoch checkpoint save
 - graceful stops on signal levels (ref :2377-2542)
-- the hot loop is one eager train step (train/steps.py); host batches go
-  to the card through pinned memory, and the step metrics stay on the
-  card until they are pulled together every ``metrics_every`` steps (8 on
-  the card, 1 on the CPU), so the host does not wait for each step;
+- the hot loop is one train step (train/steps.py), replayed as a CUDA
+  graph on the card (``graphed=False``: eager steps); host batches go
+  to the card through pinned memory and are copied into the graph's
+  input buffers, and the step metrics (a copy of the graph's packed
+  output each step) stay on the card until they are pulled together
+  every ``metrics_every`` steps (8 on the card, 1 on the CPU), so the
+  host does not wait for each step;
 - ``device_data=True`` holds the training set on the card instead
-  (``train/device_data.py``): one shuffle there per epoch, each batch a
-  slice of it, no host batch in the loop.  Host augmentation needs the
-  host loader and turns it off, as in the JAX package.
+  (``train/device_data.py``): one permutation there per epoch, each
+  batch's rows gathered into the graph's input buffers, no host batch in
+  the loop.  Host augmentation needs the host loader and turns it off, as
+  in the JAX package.
 
 Per epoch, every ``ood_detection_every`` and ``full_test_every`` epochs,
 and once at the end, it runs the evaluation engines (``evals/engines.py``:
@@ -50,7 +54,7 @@ from ..parallel.sharded_data import aligned_global_batch
 from ..save_load.jobs import Job, mark, save_job
 from ..utils.print_log import EpochOutput
 from ..utils.signaling import SIGHandler
-from .device_data import DeviceDataset, batch_slice, epoch_permutation
+from .device_data import DeviceDataset, epoch_permutation
 from .optimizers import set_learning_rate
 from .state import TrainState, make_generator
 from .steps import make_train_step, pull_metrics
@@ -88,12 +92,15 @@ def train_model(job: Job,
                 final_ood: bool = True,
                 metrics_every: int = 0,
                 device_data: bool = False,
-                mesh=None) -> Job:
+                mesh=None,
+                graphed: Optional[bool] = None) -> Job:
     """Train ``job.state`` in place on the job's device; returns the job.
     Without a trainset, the job's set comes from the registry
     (``get_dataset``), its test split as the testset.  ``device_data``
     feeds the steps from a copy of the training set on the device;
-    ``mesh`` trains on a device mesh (module docstring)."""
+    ``mesh`` trains on a device mesh (module docstring); ``graphed``
+    (default: True off a mesh) replays the step as a CUDA graph on the
+    card, False runs it eagerly."""
     if trainset is None:
         name = job.training_parameters.get('set') or 'cifar10'
         trainset, ts = get_dataset(name)
@@ -133,7 +140,8 @@ def train_model(job: Job,
     eng_mesh = mesh if multiprocess else None
     if mesh is not None:
         job.state = state = ensure_placed(state, mesh)
-    step = make_train_step(model, job.opt_cfg, *ramps, mesh=mesh)
+    step = make_train_step(model, job.opt_cfg, *ramps, mesh=mesh,
+                           graphed=graphed)
     device_data = device_data and not data_augmentation and mesh is None
     if device_data:
         dd = DeviceDataset(trainset, device=dev)
@@ -186,18 +194,21 @@ def train_model(job: Job,
         me = metrics_every or (1 if dev.type == 'cpu' else 8)
         pending = []
         if device_data:
-            ex, ey = dd.shuffled(epoch_permutation(dd.n, seed or 1, epoch,
-                                                   dev))
-            batches = (batch_slice(ex, ey, i, batch_size)
+            perm = epoch_permutation(dd.n, seed or 1, epoch, dev)
+            batches = (perm[i * batch_size:(i + 1) * batch_size]
                        for i in range(per_epoch))
-        elif mesh is not None:
-            # every rank runs the same full loader and keeps its rows
-            batches = (aligned_global_batch(mesh, x, y) for x, y in loader)
+            run = lambda st, rows: step.gather(st, dd.x, dd.y, rows)
         else:
-            batches = ((to_device(x, dev), to_device(y, dev))
-                       for x, y in loader)
-        for i, (x, y) in enumerate(batches):
-            state, m = step(state, x, y)
+            if mesh is not None:
+                # every rank runs the same full loader and keeps its rows
+                batches = (aligned_global_batch(mesh, x, y)
+                           for x, y in loader)
+            else:
+                batches = ((to_device(x, dev), to_device(y, dev))
+                           for x, y in loader)
+            run = lambda st, xy: step(st, *xy)
+        for i, batch in enumerate(batches):
+            state, m = run(state, batch)
             batches_run += 1
             pending.append(m)
             if (len(pending) < me and i != per_epoch - 1

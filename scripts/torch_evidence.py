@@ -78,10 +78,19 @@ def cut(ds, n):
     return ds.subset(slice(0, n)) if n else ds
 
 
+def steps_run() -> dict:
+    """The step graphs' steps by how they ran (``train/graphs.py``): the
+    wrappers count the launches of the eager and captured ones; a replay
+    runs its graph's kernel nodes and calls no wrapper."""
+    from joint_vae_tpu_torch.train.graphs import steps_run as run
+    return dict(run)
+
+
 class Stopwatch:
-    """Seconds and launches of a stretch of device work: synchronised at
-    both ends, the launches counted as the difference of the wrappers'
-    counts (which it leaves running)."""
+    """Seconds, launches and steps of a stretch of device work:
+    synchronised at both ends, the launches and steps counted as the
+    difference of the wrappers' counts and of :func:`steps_run` (which it
+    leaves running)."""
 
     def __init__(self, device):
         self.device = device
@@ -89,6 +98,7 @@ class Stopwatch:
     def __enter__(self):
         sync(self.device)
         self.before = launches()
+        self.before_steps = steps_run()
         self.t0 = time.perf_counter()
         return self
 
@@ -96,6 +106,8 @@ class Stopwatch:
         sync(self.device)
         self.seconds = time.perf_counter() - self.t0
         self.launches = {k: v - self.before[k] for k, v in launches().items()}
+        self.steps_run = {k: v - self.before_steps[k]
+                          for k, v in steps_run().items()}
 
 
 def pretrain(job, trainset, epochs: int, batch_size: int = PRETRAIN_BATCH,
@@ -110,7 +122,7 @@ def pretrain(job, trainset, epochs: int, batch_size: int = PRETRAIN_BATCH,
           flush=True)
     return {'seconds': sw.seconds, 'steps': steps, 'batch_size': batch_size,
             'images_per_s': steps * batch_size / sw.seconds,
-            'launches': sw.launches}
+            'launches': sw.launches, 'steps_run': sw.steps_run}
 
 
 class LoopClock:
@@ -140,7 +152,8 @@ def timed_finetune(finetune, wim, *args, batch_size: int,
     images = clock.steps * (batch_size + (moving_batch_size or batch_size))
     return {'seconds': sw.seconds, 'loop_seconds': loop_s,
             'eval_seconds': sw.seconds - loop_s, 'steps': clock.steps,
-            'images_per_s': images / loop_s, 'launches': sw.launches}
+            'images_per_s': images / loop_s, 'launches': sw.launches,
+            'steps_run': sw.steps_run}
 
 
 def best(results: dict) -> dict:

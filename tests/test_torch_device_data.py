@@ -4,9 +4,11 @@ JAX package's, on the CPU and the tiny flagship.
 - ``DeviceDataset``: the storage it picks and its bytes equal JAX's on an
   8-bit float set, a float set that is not 8-bit, and a uint8 set; no
   float copy of an 8-bit set is made; the in-step normalisation is JAX's
-  ``x * float32(1/255)``; a batch is a view of the shuffled arrays;
+  ``x * float32(1/255)``; a step's batch is gathered into its one input
+  buffer;
 - with JAX's permutation injected (``jax.random.permutation`` has no
-  torch counterpart), ``shuffled`` equals JAX's ``_shuffle``, and 12
+  torch counterpart), the rows gathered in its order equal JAX's
+  ``_shuffle``, and 12
   device-fed steps equal JAX's ``make_device_train_step`` within 1e-4
   (noise injected, L+1 layout, eps_0 = 0);
 - ``train_epochs_on_device``, fused and per step: the history's keys and
@@ -45,8 +47,10 @@ from joint_vae_tpu_torch.save_load import jobs as tjobs
 from joint_vae_tpu_torch.save_load.from_jax import state_dict_to_jax
 from joint_vae_tpu_torch.train import device_data as tdd
 from joint_vae_tpu_torch.train import trainer as ttrainer
+from joint_vae_tpu_torch.train.graphs import Rows, StepGraph
 from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
 from joint_vae_tpu_torch.train.state import create_train_state
+from joint_vae_tpu_torch.train.steps import as_input
 from joint_vae_tpu_torch.utils.print_log import EpochOutput
 
 from torch_port_util import (close, inject_jax_eps, jax_arrays, make_eps,
@@ -114,37 +118,59 @@ def test_storage_matches_jax(kind):
 
 
 def test_normalisation_and_views():
-    """Every uint8 value restores as JAX's step restores it; a batch of the
-    shuffled arrays is a view; an 8-bit set is never held as float."""
+    """Every uint8 value restores as JAX's step restores it; a step's batch
+    is gathered from the set into the step's one input buffer (uint8 for an
+    8-bit set: no float copy of it is ever made) and restored there."""
     k = np.arange(256, dtype=np.uint8).reshape(4, 1, 8, 8)
     want = np.asarray(jnp.asarray(k).astype(jnp.float32) * (1.0 / 255.0))
-    got, _ = tdd.batch_slice(torch.from_numpy(k), torch.zeros(4), 0, 4)
+    got = as_input(torch.from_numpy(k))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
     # k * (1/255) is not k / 255 for every k: the ulp the docstring names
     assert not np.array_equal(want, k.astype(np.float32) / np.float32(255))
 
-    x, y = _data(24, 2, 'float')
-    td = tdd.DeviceDataset(tloaders.ArrayDataset(x, y, 's'), device='cpu')
-    ex, ey = td.shuffled(torch.randperm(24))
-    xb, yb = tdd.batch_slice(ex, ey, 2, BATCH)
-    assert xb.data_ptr() == ex.data_ptr() + 2 * BATCH * xb[0].numel() * 4
-    assert yb._base is ey
-    x8, _ = _data(24, 2, '8bit')
+    x8, y = _data(24, 2, '8bit')
     t8 = tdd.DeviceDataset(tloaders.ArrayDataset(x8, y, 's'), device='cpu')
     assert t8.x.dtype == torch.uint8
-    assert t8.shuffled(torch.arange(24))[0].dtype == torch.uint8
+    jd = jdd.DeviceDataset(jloaders.ArrayDataset(x8, y, 's'))
+    perm = torch.randperm(24)
+    jx, jy = jdd._shuffle(jd.x, jd.y, jnp.asarray(perm.numpy()))
+    seen = []
+
+    def body(state, x, y):
+        seen.append((x.data_ptr(), x.dtype, as_input(x), y.clone()))
+        return {'m': as_input(x).mean()}
+
+    class State:
+        generator = torch.Generator()
+        opt_state = object()
+        sigma_state = type('S', (), {'data': torch.zeros(1),
+                                     'rmse': torch.zeros(())})()
+    g = StepGraph(body, name='t')
+    for i in range(3):
+        rows = perm[i * BATCH:(i + 1) * BATCH]
+        g(State, x=Rows(t8.x, rows), y=Rows(t8.y, rows))
+    assert len({ptr for ptr, *_ in seen}) == 1
+    for i, (_, dtype, xb, yb) in enumerate(seen):
+        assert dtype == torch.uint8
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        np.testing.assert_array_equal(xb.numpy(), np.asarray(
+            jx[sl].astype(jnp.float32) * (1.0 / 255.0)))
+        np.testing.assert_array_equal(yb.numpy(), np.asarray(jy[sl]))
 
 
 def test_shuffled_matches_jax_and_permutation_is_seeded():
+    """The rows a device-fed epoch gathers in ``perm``'s order equal JAX's
+    ``_shuffle`` of the set; the permutation is seeded by (seed, epoch)."""
     x, y = _data(30, 3)
     jd = jdd.DeviceDataset(jloaders.ArrayDataset(x, y, 's'))
     td = tdd.DeviceDataset(tloaders.ArrayDataset(x, y, 's'), device='cpu')
     perm = jax_permutation(30, 5, 2)
     jx, jy = jdd._shuffle(jd.x, jd.y, jnp.asarray(perm.numpy()))
-    tx, ty = td.shuffled(perm)
-    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
-    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(Rows(td.x, perm).value().numpy(),
+                                  np.asarray(jx))
+    np.testing.assert_array_equal(Rows(td.y, perm).value().numpy(),
+                                  np.asarray(jy))
     dev = torch.device('cpu')
     p1 = tdd.epoch_permutation(30, 5, 2, dev)
     assert torch.equal(p1, tdd.epoch_permutation(30, 5, 2, dev))
@@ -176,12 +202,12 @@ def test_device_steps_match_jax_over_12_steps(monkeypatch):
     state = create_train_state(model, OptimizerConfig(lr=2e-3),
                                sigma_state=port_sigma_state(jjob.state))
     td = tdd.DeviceDataset(tloaders.ArrayDataset(x, y, 's'), device='cpu')
-    tx, ty = td.shuffled(perm)
     step = tdd.make_device_train_step(model, OptimizerConfig(lr=2e-3), BATCH)
     jst = jjob.state
     for i in range(12):
         jst, jm = jstep(jst, jx, jy, i)
-        state, m = step(state, tx, ty, i, eps=torch.from_numpy(eps))
+        state, m = step(state, td.x, td.y, i, eps=torch.from_numpy(eps),
+                        perm=perm)
         assert set(m) == set(jm)
         for k, v in jm.items():
             close(m[k], v, TOL, 'step {} {}'.format(i, k))

@@ -8,7 +8,8 @@ the reference-layout writer and the stub reference checkout that
 (``scripts/torch_wim_quality.py``, ``torch_wim_study.py``,
 ``torch_poscod_quality.py``, ``torch_wim_inversion_study.py``,
 ``torch_reproduce_sota.py``, ``torch_prepare_data.py``, what they
-share, ``torch_evidence.py``, and ``torch_determinism_probe.py``) imports
+share, ``torch_evidence.py``, and ``torch_determinism_probe.py``), the
+card-only step-graph tests and ``scripts/torch_graph_probe.py`` imports
 jax,
 flax, optax, the JAX package or pandas (the card machine has no pandas:
 the port's result tables are its own), and importing them in a clean
@@ -27,13 +28,14 @@ EVIDENCE_SCRIPTS = ('torch_evidence.py', 'torch_wim_quality.py',
                     'torch_wim_study.py', 'torch_poscod_quality.py',
                     'torch_wim_inversion_study.py',
                     'torch_reproduce_sota.py', 'torch_prepare_data.py',
-                    'torch_determinism_probe.py')
+                    'torch_determinism_probe.py', 'torch_graph_probe.py')
 
 
 def _port_sources():
     pkg = os.path.join(ROOT, 'joint_vae_tpu_torch')
     out = [os.path.join(ROOT, 'chip_smoke.py'),
            os.path.join(ROOT, 'tests', 'test_torch_kernels_cuda.py'),
+           os.path.join(ROOT, 'tests', 'test_torch_graphs_cuda.py'),
            os.path.join(ROOT, 'tests', 'torch_reference_layout.py'),
            os.path.join(ROOT, 'tests', 'torch_reference_stub.py'),
            os.path.join(ROOT, 'scripts', 'torch_quality_run.py'),
@@ -103,7 +105,8 @@ def test_clean_import_loads_no_jax():
             'scripts.torch_wim_study, scripts.torch_poscod_quality, '
             'scripts.torch_wim_inversion_study, '
             'scripts.torch_reproduce_sota, scripts.torch_prepare_data, '
-            'scripts.torch_determinism_probe; '
+            'scripts.torch_determinism_probe, scripts.torch_graph_probe, '
+            'joint_vae_tpu_torch.train.graphs; '
             'bad = [m for m in sys.modules if m.split(".")[0] in {bad!r}]; '
             'print(bad); sys.exit(1 if bad else 0)').format(
                 root=ROOT, tests=os.path.join(ROOT, 'tests'), bad=FORBIDDEN)
