@@ -42,8 +42,9 @@ and phase 15 counts them on the card in profiled replays.
    decoder), float32, against its plain version (``conv_tail`` lines);
 4. serve the full-width flagship CVAE (random weights from a numpy seed)
    through the entry points: ``save_job``, the serve CLI on ``.npy``
-   inputs, ``Scorer`` on 4 batches of 512 at L=16; check that the conv
-   kernel was launched 8 times and the IWAE kernel once per batch on that
+   inputs, ``Scorer`` on 4 timed batches of 512 at L=16 after its
+   graph's warm-up and capture; check that the conv kernel was launched 8
+   times and the IWAE kernel once per eager or captured batch on that
    run, that outputs are finite; then 2 ``Scorer`` batches of 64 at the
    reference's eval point L=128, with the same launch check; 8 inputs with
    injected noise agree between the card and the CPU (where the plain
@@ -302,7 +303,7 @@ and phase 15 counts them on the card in profiled replays.
    its eager step from one state (``new_job`` seed 4 twice), 3 host-fed
    steps of 1024 (the first the graph's eager warm-up, the second
    captured and replayed, the third replayed), bit for bit in float32
-   under cuDNN's deterministic algorithms and in bfloat16: every metric,
+   and in bfloat16 under the port's defaults: every metric,
    parameter, BatchNorm buffer, Adam moment, the sigma state, the
    generator's state and the host counts; 8 forward and 7 dx launches
    per eager or captured step, and the capture's graph holding 15
@@ -318,18 +319,47 @@ and phase 15 counts them on the card in profiled replays.
    epoch at 512 over the 50,000 images (wall seconds; a 4-batch epoch
    profiled); each graph's capture seconds, launches, kernel nodes and
    pool bytes (``graphs`` line);
-16. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+16. the JAX package's scoring programs as CUDA graphs
+   (``train/graphs.py::ScoreGraph``; every earlier phase already scores
+   through them): bit gates, graph against eager from one job, on every
+   output and on the generator's state after them: (a) the flagship
+   ``Scorer`` at 512 / L=16, 64 / L=128 and on the 272-image tail, in
+   float32 and bfloat16, three batches from a caller's generator and
+   three with the default noise (two captures a Scorer); (b)
+   ``ood_detection_rates`` in phase 6's setup: every score, ROC entry and
+   record file's bytes; (c) ``ft/job.py::_both_prior_losses`` on phase
+   9's WIM job over cifar10's test set at 256; each capture's graph
+   holding 8 same-grid and 1 combine kernel nodes by function name (16
+   and 1 a both-prior batch) and the wrappers counting them per eager or
+   captured batch; then graphed against eager in one process: the
+   Scorer at 512 and 64 (L=16), the OOD evaluation (its engine graphs
+   held on the job across calls), ``cli.test --compute rehard`` (phase
+   8's recompute; each call loads the job and captures anew) and one
+   set's both-prior batches: the first calls' ms (the captures among
+   them), then ms in turns eager, graph, graph, eager, wall ms, device
+   ms and busy share of a profiled call (after a dropped traced one, its
+   kernel records held to the batches' launches, but for ``cli.test``),
+   capture seconds and the bytes each capture added to its graph's pool
+   (``score_graphs`` line);
+17. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
    ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
    ``launches_mesh_*``: phase 12's; ``launches_export``: phase 13's;
    ``launches_evidence``: phase 14's; ``launches_graphs``: phase 15's,
    the wrapper's launches in the graphed bit-gate runs and the kernel
-   records of the source in each timed case's profiled replay);
-17. print ``{"ok": true, "device": {...}}`` as the last line.
+   records of the source in each timed case's profiled replay;
+   ``launches_score_graphs``: phase 16's, the same of its scoring
+   graphs);
+18. print ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --graphs`` builds the kernels and runs phase 15
-alone.
+alone; ``--score-graphs`` phase 16.  A Scorer, engine or both-prior
+batch runs as a scoring graph (``train/graphs.py::ScoreGraph``): a
+graph's first batch eager, its second captured, every later one a
+replay (the engines' graphs are held on the job across calls); a check
+of launches "per batch" counts them per eager or captured batch
+(``batches_run``: ``_scored``).
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -435,6 +465,7 @@ GRAD_FLIP_TOL, GRAD_FLIP_SHARE = 5e-2, 1.0 / 16
 BN_STATS_RTOL = 1e-5
 # the backward spans of SameGridConvFn (record_function)
 SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw')
+PROFILE_GAP_S = 0.05     # the card idle around a profiled step
 METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
 # phase 6: the flagship's test set and three same-size companions, as
 # the registry gives them (10,000 images each), at test batch 512
@@ -846,6 +877,17 @@ def check_iws():
     return rows, main
 
 
+def _device_record(ev) -> bool:
+    """A profiler event that is a kernel's or a copy's record on the card,
+    not a span the trace also draws on the card's timeline (the wrappers'
+    ``<kernel>.launch`` spans, SPANS, the profiler's steps): those would
+    count the kernels under them twice."""
+    return (ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, 'is_user_annotation', False)
+            and ev.key not in SPANS and not ev.key.endswith('.launch')
+            and not ev.key.startswith('ProfilerStep'))
+
+
 def profile_batch(scorer, x) -> dict:
     """Device time of one Scorer batch by kernel (torch.profiler), and the
     device's busy share of the batch's wall time."""
@@ -859,7 +901,7 @@ def profile_batch(scorer, x) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if not _device_record(ev):
             continue                # operators: their kernels are listed too
         dev_us = getattr(ev, 'self_device_time_total',
                          getattr(ev, 'self_cuda_time_total', 0))
@@ -898,8 +940,7 @@ def serve(card: str):
     np.save(npy, xs[0, :64])
     cli_out = os.path.join(WORK, 'cli.jsonl')
 
-    same_grid_conv.launches = 0
-    iws_combine.launches = 0
+    _count_reset()
     # --- the main path: CLI then Scorer ---
     t0 = time.perf_counter()
     rc = cli_main([job_dir, npy, '--batch-size', '64', '--methods', 'iws',
@@ -924,6 +965,8 @@ def serve(card: str):
         thresholds[m] = ((float(np.quantile(s, 0.05)), float(np.quantile(s, 0.95)))
                          if m.endswith('-2s') else float(np.quantile(s, 0.05)))
     scorer = Scorer(job, methods=METHODS, thresholds=thresholds)
+    scorer(xs[0])                   # its graph's warm-up, then its capture
+    scorer(xs[0])
     torch.cuda.synchronize()
     outs, batch_ms = [], []
     for b in range(BATCHES):        # Scorer returns host arrays: synchronous
@@ -934,7 +977,9 @@ def serve(card: str):
     launches = {'same_grid_conv': same_grid_conv.launches,
                 'iws_combine': iws_combine.launches}
     # --- end of the main path ---
-    batches = 1 + 1 + BATCHES                # CLI (64 inputs), calibration, timed
+    # CLI (64 inputs), calibration, warm-up and capture, timed: a
+    # Scorer's first batch eager, its second captured, the rest replays
+    batches = _scored(1 + 1 + 2 + BATCHES, 'serve batches', ('scorer',))
     if (launches['same_grid_conv'] != SITES_PER_BATCH * batches
             or launches['iws_combine'] != batches):
         raise AssertionError('launch counts {} for {} serve batches'.format(
@@ -952,8 +997,7 @@ def serve(card: str):
 
     # --- the reference's eval point: Scorer batches of 64 at L=128 ---
     scorer128 = Scorer(job, methods=METHODS, thresholds=thresholds, L=L_EVAL)
-    same_grid_conv.launches = 0
-    iws_combine.launches = 0
+    _count_reset()
     outs128, ms128 = [], []
     for _ in range(2):              # the first one meets new shapes
         t0 = time.perf_counter()
@@ -962,7 +1006,9 @@ def serve(card: str):
     launches128 = {'same_grid_conv': same_grid_conv.launches,
                    'iws_combine': iws_combine.launches}
     # --- end of the L=128 path ---
-    if launches128 != {'same_grid_conv': 2 * SITES_PER_BATCH, 'iws_combine': 2}:
+    b128 = _scored(2, 'L={} batches'.format(L_EVAL), ('scorer',))
+    if launches128 != {'same_grid_conv': b128 * SITES_PER_BATCH,
+                       'iws_combine': b128}:
         raise AssertionError('launch counts {} for 2 batches at L={}'.format(
             launches128, L_EVAL))
     for o in outs128:
@@ -1237,7 +1283,9 @@ def profile_train_step(step, state, xb, yb) -> dict:
     the port, by function name (a graph's replay included).  Two steps
     run under the profiler: the first traced and dropped (its warm-up:
     a session's first kernel records can be lost late in a long
-    process), the second kept."""
+    process), the second kept, with the card idle for PROFILE_GAP_S on
+    either side of it, so that none of its records falls outside the
+    kept window by the skew between the host's and the card's clocks."""
     from torch.profiler import ProfilerActivity, profile, schedule
     from joint_vae_tpu_torch.ops.cuda_lib import KERNEL_FUNCTIONS, source_of
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1246,10 +1294,12 @@ def profile_train_step(step, state, xb, yb) -> dict:
         step(state, xb, yb)
         torch.cuda.synchronize()
         prof.step()                     # the kept step's trace ends at exit
+        time.sleep(PROFILE_GAP_S)
         t0 = time.perf_counter()
         step(state, xb, yb)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_GAP_S)
     by_span = {}
 
     def walk(ev, span):
@@ -1267,9 +1317,7 @@ def profile_train_step(step, state, xb, yb) -> dict:
     for ev in prof.key_averages():
         dev_self = getattr(ev, 'self_device_time_total',
                            getattr(ev, 'self_cuda_time_total', 0)) / 1e3
-        if (ev.device_type == torch.autograd.DeviceType.CUDA and dev_self > 0
-                and ev.key not in SPANS
-                and not ev.key.startswith('ProfilerStep')):
+        if _device_record(ev) and dev_self > 0:
             kernels.append((dev_self, ev.key[:80], ev.count))
     kernels.sort(reverse=True)
     by_name = {}
@@ -1581,7 +1629,7 @@ def profile_ood(ood_detection_rates, job, testset, oodsets) -> dict:
     for ev in prof.key_averages():
         dev = getattr(ev, 'self_device_time_total',
                       getattr(ev, 'self_cuda_time_total', 0)) / 1e3
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dev > 0:
+        if _device_record(ev) and dev > 0:
             kernels.append((dev, ev.key[:80], ev.count))
             by_name[_eval_bucket(ev.key)] = by_name.get(_eval_bucket(ev.key), 0.0) + dev
     kernels.sort(reverse=True)
@@ -1879,8 +1927,7 @@ def ood_eval(card: str):
     engines._collect_scores = timed_collect
     engines._save_recorder = timed_save
     try:
-        same_grid_conv.launches = 0
-        iws_combine.launches = 0
+        _count_reset()
         # --- the main path: the three engines, in order ---
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1890,6 +1937,7 @@ def ood_eval(card: str):
         ood_s = time.perf_counter() - t0
         launches = {'same_grid_conv': same_grid_conv.launches,
                     'iws_combine': iws_combine.launches}
+        ood_runs = _batches_run()
         t0 = time.perf_counter()
         acc = engines.accuracy(job, testset, batch_size=OOD_BATCH)
         mis = engines.misclassification_detection_rates(
@@ -1906,8 +1954,11 @@ def ood_eval(card: str):
     finally:
         engines._collect_scores = collect
         engines._save_recorder = save
-    want = {'same_grid_conv': SITES_PER_BATCH * batches * len(sets),
-            'iws_combine': batches * len(sets)}
+    # one graph for the full batches and one for the tail, held across the
+    # sets: their warm-ups and captures counted, their replays not
+    counted = _scored(batches * len(sets), 'OOD evaluation', runs=ood_runs)
+    want = {'same_grid_conv': SITES_PER_BATCH * counted,
+            'iws_combine': counted}
     if launches != want:
         raise AssertionError('OOD launches {}, expected {} ({} sets of {} '
                              'batches)'.format(launches, want, len(sets),
@@ -1988,6 +2039,7 @@ def ood_eval(card: str):
                'reuse_seconds': reuse_s,
                'roc_ms': roc_ms, 'roc_ms_total': sum(roc_ms.values()),
                'launches': launches, 'reuse_launches': reuse_launches,
+               'batches_run': ood_runs,
                'auc': {s: {m: res[s][m]['auc'] for m in ('iws', 'elbo')}
                        for s in res},
                'accuracy': acc,
@@ -2048,6 +2100,30 @@ def _body_steps(steps: int, what: str, run: dict = None) -> int:
         raise AssertionError('{}: steps run {}, want {} steps'.format(
             what, run, steps))
     return run['eager'] + run['captured']
+
+
+def _scored(batches: int, what: str, names=None, runs: dict = None) -> int:
+    """Of ``batches`` scored batches since ``_count_reset`` (or in
+    ``runs``, a ``batches_run`` record) of the scoring graphs ``names``
+    (every one by default), those whose launches the wrappers counted:
+    the eager ones (a graph's warm-up, a mesh or ungraphed batch) and the
+    captures.  A replay's launches are its graph's kernel nodes, held at
+    capture against the capture's count (``train/graphs.py``) and counted
+    on the card in phase 16's profiled replays.  Every one of
+    ``batches`` must have run."""
+    from joint_vae_tpu_torch.train.graphs import batches_run
+    runs = batches_run if runs is None else runs
+    picked = [r for n, r in runs.items() if names is None or n in names]
+    ran = sum(r['eager'] + r['replayed'] for r in picked)
+    if ran != batches:
+        raise AssertionError('{}: scored batches {}, want {}'.format(
+            what, runs, batches))
+    return sum(r['eager'] + r['captured'] for r in picked)
+
+
+def _batches_run() -> dict:
+    from joint_vae_tpu_torch.train.graphs import batches_run
+    return {n: dict(r) for n, r in batches_run.items()}
 
 
 def _check_bf16_counts(launches: dict, bf16: bool, what: str):
@@ -2230,6 +2306,7 @@ def bf16_serve(cfg16) -> dict:
             if launches != _want(0, 1):
                 raise AssertionError('bf16 Scorer launched {}'.format(launches))
             _check_bf16_counts(launches, True, 'bf16 Scorer')
+            scorer(x, eps=et)                 # captured: the next a replay
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             scorer(x, eps=et)
@@ -2552,7 +2629,6 @@ def fleet_eval(card: str, flagship):
     # misclassification engine over the test set; 8 conv launches and 1
     # combine launch per batch of 512 (the 272-image tail included)
     passes = 1 + len(TEST_CLI_SETS) + 1
-    want = _want(0, passes * batches)
     engine_s = {}
 
     def timed(name, fn):
@@ -2592,6 +2668,9 @@ def fleet_eval(card: str, flagship):
         cli_s = time.perf_counter() - t0
         launches = _counts()
         # --- end of the main path ---
+        # each engine's batches as scoring graphs: the warm-ups and
+        # captures counted, the replays not
+        want = _want(0, _scored(passes * batches, 'cli.test rehard'))
     finally:
         for n in names:
             setattr(test_cli, n, real[n])
@@ -3016,12 +3095,19 @@ def wim_finetune(card: str) -> tuple:
             wall = time.perf_counter() - t0
             launches = _counts()
             # --- end of the main path ---
-            want = _ft_want(_body_steps(steps, name), *evals)
+            # the pre-tuning engine's and the both-prior batches as
+            # scoring graphs: their warm-ups and captures counted
+            want = _ft_want(
+                _body_steps(steps, name),
+                _scored(evals[0], name + ' pre-tuning', ('score_batch',)),
+                _scored(evals[1], name + ' both-prior',
+                        ('both_prior_batch',)), *evals[2:])
             if rc != 0 or launches != want:
                 raise AssertionError('{}: exit {}, launches {}, want {}'
                                      .format(name, rc, launches, want))
             (d,) = set(_job_dirs(os.path.join(root, 'wim'))) - seen
             runs[name] = {'dir': d, 'wall_s': wall, 'launches': launches,
+                          'batches_run': _batches_run(),
                           'stages_s': dict(spent)}
     finally:
         os.chdir(old_cwd)
@@ -3245,8 +3331,9 @@ def resnet_scorer(job) -> dict:
     serve_s = time.perf_counter() - t0
     launches = _counts()
     # --- end of the main path ---
-    if launches != {'same_grid_conv': RESNET_SITES * BATCHES,
-                    'same_grid_conv_dx': 0, 'iws_combine': BATCHES}:
+    counted = _scored(BATCHES, 'ResNet Scorer', ('scorer',))
+    if launches != {'same_grid_conv': RESNET_SITES * counted,
+                    'same_grid_conv_dx': 0, 'iws_combine': counted}:
         raise AssertionError('ResNet Scorer launches {}'.format(launches))
     for o in outs:
         for m in METHODS:
@@ -3838,7 +3925,8 @@ def interop(card: str) -> tuple:
     eps[0] = 0.0
     lows = {m: float('-inf') for m in METHODS}
     want = Scorer(src, methods=METHODS, thresholds=lows)(x, eps=eps)
-    scorer = Scorer(imp, methods=METHODS, thresholds=lows)
+    # eager: the trace counts the wrappers' launch spans of the batch
+    scorer = Scorer(imp, methods=METHODS, thresholds=lows, graphed=False)
     scorer(x, eps=eps)                            # meets its shapes first
     trace_dir = os.path.join(root, 'traces')
     torch.cuda.synchronize()
@@ -3930,7 +4018,6 @@ def interop(card: str) -> tuple:
     # OOD set, misclassification over the test set: 8 conv and 1 combine
     # launches per batch of 512, the 272-image tail included
     passes = 1 + len(INTEROP_SETS) + 1
-    want_test = _want(0, passes * batches)
     _count_reset()
     t0 = time.perf_counter()
     # --- the main path: cli.test --compute rehard ---
@@ -3941,6 +4028,7 @@ def interop(card: str) -> tuple:
     test_s = time.perf_counter() - t0
     test_launches = _counts()
     # --- end of the main path ---
+    want_test = _want(0, _scored(passes * batches, 'imported cli.test'))
     recomputed = load_job(fdir, ghost=True)
     if rc != 0 or test_launches != want_test or 'cifar10' not in \
             recomputed.ood_results.get(INTEROP_EPOCH, {}):
@@ -4971,9 +5059,15 @@ def _evidence_want(rec: dict) -> dict:
     pt, ft = (_body_steps(rec[k]['steps'], 'wim_quality ' + k,
                           rec[k]['steps_run'])
               for k in ('pretrain', 'finetune'))
+    # the engine's and the both-prior batches as scoring graphs: their
+    # warm-ups and captures counted
+    pre = _scored(evals, 'wim_quality pre_eval', ('score_batch',),
+                  rec['pre_eval']['batches_run'])
+    both = _scored(evals, 'wim_quality finetune', ('both_prior_batch',),
+                   rec['finetune']['batches_run'])
     return {'pretrain': _want(pt), 'pre_eval': _want(0) | {
-                'same_grid_conv': SITES_PER_BATCH * evals},
-            'finetune': _ft_want(ft, 0, evals) | {'iws_combine': 0}}
+                'same_grid_conv': SITES_PER_BATCH * pre},
+            'finetune': _ft_want(ft, 0, both) | {'iws_combine': 0}}
 
 
 def evidence(card: str) -> tuple:
@@ -5092,19 +5186,6 @@ GRAPH_FT_BATCH = 128             # the timed fine-tune step: 128 + 128
 GRAPH_EPOCH_BATCH = BENCH_BATCHES['pipeline']    # phase 7's fused epoch
 
 
-@contextlib.contextmanager
-def _cudnn_deterministic(on: bool):
-    """cuDNN's deterministic algorithms: its float32 data gradient at
-    features conv_4 otherwise sums with atomics in no fixed order
-    (scripts/torch_determinism_probe.py)."""
-    was = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = on or was
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = was
-
-
 def _run_tensors(job) -> dict:
     """Every tensor a step moves: parameters and buffers, the optimizer's
     moments, the sigma state, the generator's state."""
@@ -5154,28 +5235,31 @@ def graph_train_bits(dtype: str) -> dict:
     ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, TRAIN_BATCH))
     dev = torch.device('cuda')
     runs = {}
-    with _cudnn_deterministic(dtype == 'float32'):
-        for graphed in (False, True):
-            job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=4)
-            step = make_train_step(job.model, job.opt_cfg, graphed=graphed)
-            _count_reset()
-            st, ms = job.state, []
-            for i in range(GRAPH_STEPS):
-                st, m = step(st, to_device(xs[i], dev), to_device(ys[i], dev))
-                ms.append(m.vector)
-            torch.cuda.synchronize()
-            o = st.opt_state
-            runs[graphed] = {
-                'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
-                'steps_run': dict(steps_run),
-                'tensors': {k: v.detach().cpu()
-                            for k, v in _run_tensors(job).items()},
-                'counts': (o.count, o.adam_count, st.step),
-                'captures': step.graph.captures}
-            del job, step, st
+    # under the port's defaults: the 'conv' route's backward runs cuDNN's
+    # deterministic algorithms itself (models/conv.py::DeterministicConvFn)
+    for graphed in (False, True):
+        job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=4)
+        step = make_train_step(job.model, job.opt_cfg, graphed=graphed)
+        _count_reset()
+        st, ms = job.state, []
+        for i in range(GRAPH_STEPS):
+            st, m = step(st, to_device(xs[i], dev), to_device(ys[i], dev))
+            ms.append(m.vector)
+        torch.cuda.synchronize()
+        o = st.opt_state
+        runs[graphed] = {
+            'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
+            'steps_run': dict(steps_run),
+            'tensors': {k: v.detach().cpu()
+                        for k, v in _run_tensors(job).items()},
+            'counts': (o.count, o.adam_count, st.step),
+            'captures': step.graph.captures}
+        del job, step, st
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError('cuDNN\'s deterministic switch was left on')
     out = _bit_gate(runs, 'train step ' + dtype)
     out.update({'dtype': dtype, 'batch': TRAIN_BATCH, 'steps': GRAPH_STEPS,
-                'cudnn_deterministic': dtype == 'float32'})
+                'cudnn_deterministic': False})
     out.update(_graph_launch_gate(runs, _want, '{} train steps'.format(dtype)))
     return out
 
@@ -5250,25 +5334,24 @@ def graph_ft_bits(job_dir: str) -> dict:
     ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, WIM_BATCH))
     dev = torch.device('cuda')
     runs = {}
-    with _cudnn_deterministic(True):
-        for graphed in (False, True):
-            job, step = _wim_pair(job_dir, graphed)
-            _count_reset()
-            st, ms = job.state, []
-            for i in range(GRAPH_STEPS):
-                st, m = step(st, to_device(xs[i, 0], dev),
-                             to_device(ys[i], dev), to_device(xs[i, 1], dev))
-                ms.append(m.vector)
-            torch.cuda.synchronize()
-            o = st.opt_state
-            runs[graphed] = {
-                'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
-                'steps_run': dict(steps_run),
-                'tensors': {k: v.detach().cpu()
-                            for k, v in _run_tensors(job).items()},
-                'counts': (o.count, o.adam_count, st.step),
-                'captures': step.graph.captures}
-            del job, step, st
+    for graphed in (False, True):
+        job, step = _wim_pair(job_dir, graphed)
+        _count_reset()
+        st, ms = job.state, []
+        for i in range(GRAPH_STEPS):
+            st, m = step(st, to_device(xs[i, 0], dev),
+                         to_device(ys[i], dev), to_device(xs[i, 1], dev))
+            ms.append(m.vector)
+        torch.cuda.synchronize()
+        o = st.opt_state
+        runs[graphed] = {
+            'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
+            'steps_run': dict(steps_run),
+            'tensors': {k: v.detach().cpu()
+                        for k, v in _run_tensors(job).items()},
+            'counts': (o.count, o.adam_count, st.step),
+            'captures': step.graph.captures}
+        del job, step, st
     out = _bit_gate(runs, 'fine-tune step')
     out.update({'batch_in': WIM_BATCH, 'batch_mix': WIM_BATCH,
                 'steps': GRAPH_STEPS})
@@ -5415,8 +5498,7 @@ def graph_timings(job_dir: str) -> dict:
             wall = (time.perf_counter() - t0) * 1e3
         dev_ms = sum(getattr(ev, 'self_device_time_total',
                              getattr(ev, 'self_cuda_time_total', 0))
-                     for ev in prof.key_averages()
-                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     for ev in prof.key_averages() if _device_record(ev)
                      ) / 1e3
         ops = {ev.key: ev.count for ev in prof.key_averages()}
         eprof['graph' if mode else 'eager'] = {
@@ -5480,6 +5562,490 @@ def graphs_phase(card: str) -> tuple:
     records = {c['case']: c['profile']['graph']['kernel_records']
                for c in timings if 'profile' in c}
     return launches, records, line
+
+
+# phase 16: the scoring programs as CUDA graphs.  The Scorer's bit gates
+# run at the serve batch, at the reference's eval point and on the OOD
+# evaluation's ragged tail; each Scorer graph runs SCORE_CALLS batches per
+# noise source (its warm-up, its capture and a replay)
+SCORE_CASES = ((BATCH, None), (BATCH_EVAL, L_EVAL), (OOD_SET_SIZE % OOD_BATCH,
+                                                    None))
+SCORE_CALLS = 3
+SCORE_SMALL = 64                 # the small timed Scorer batch, at L=16
+PROFILED = 10                    # a profiled engine call's batches a set
+SCORE_PER_BATCH = {'same_grid_conv': SITES_PER_BATCH, 'iws_combine': 1}
+BOTH_PER_BATCH = {'same_grid_conv': 2 * SITES_PER_BATCH, 'iws_combine': 1}
+
+
+def _capture_gate(captures: list, per_batch: dict, what: str) -> dict:
+    """Each capture's graph holds, by function name, ``per_batch`` kernel
+    nodes of the port's kernels: one scored batch's launches."""
+    bad = [c['kernel_nodes_by_source'] for c in captures
+           if c['kernel_nodes_by_source'] != per_batch]
+    if not captures or bad:
+        raise AssertionError('{}: {} captures, kernel nodes {}, want {} each'
+                             .format(what, len(captures), bad, per_batch))
+    return {'captures': len(captures),
+            'kernel_nodes': [c['kernel_nodes'] for c in captures],
+            'capture_s': [c['capture_s'] for c in captures],
+            'pool_bytes': [c['pool_bytes'] for c in captures]}
+
+
+def _scored_gate(run: dict, batches: int, per_batch: dict, what: str):
+    """The wrappers' launches of ``batches`` scored batches: per_batch for
+    each eager or captured one (``_scored`` of the run's record)."""
+    n = _scored(batches, what, runs=run['runs'])
+    want = {k: per_batch.get(k, 0) * n for k in run['launches']}
+    if run['launches'] != want:
+        raise AssertionError('{}: launched {}, want {} ({} batches run '
+                             'eager or captured)'.format(
+                                 what, run['launches'], want, n))
+
+
+def _host_equal(a, b) -> list:
+    """The keys of two nests of host arrays whose bytes differ."""
+    if isinstance(a, dict):
+        return [k + ('/' + d if d else '') for k in a
+                for d in (_host_equal(a[k], b[k]) if k in b else ['missing'])]
+    a, b = np.asarray(a), np.asarray(b)
+    same = (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+    return [] if same else ['']
+
+
+def scorer_bits(dtype: str) -> list:
+    """(a) The flagship Scorer graphed against eager from one job, in each
+    of SCORE_CASES: SCORE_CALLS batches with a caller's generator, then
+    SCORE_CALLS with the default noise (seed 0 every call: the registered
+    generator reseeded); every output and the generator's state after
+    them bit for bit; launches per eager or captured batch; each capture's
+    kernel nodes."""
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.serve import Scorer
+    cfg = flagship_config(compute_dtype=dtype)
+    job = new_job(cfg, seed=0)
+    rng = np.random.default_rng(31)
+    calib = Scorer(job, methods=METHODS, graphed=False,
+                   thresholds={m: float('-inf') for m in METHODS})(
+        rng.uniform(0, 1, (BATCH,) + cfg.input_shape).astype(np.float32))
+    # gates that split the batch, so that in_distribution carries bits
+    thresholds = {m: float(np.median(v)) for m, v in calib['scores'].items()}
+    rows = []
+    for n, L in SCORE_CASES:
+        xs = rng.uniform(0, 1, (SCORE_CALLS, n) + cfg.input_shape
+                         ).astype(np.float32)
+        got = {}
+        for graphed in (False, True):
+            scorer = Scorer(job, methods=METHODS, thresholds=thresholds, L=L,
+                            graphed=graphed)
+            gen = torch.Generator(device='cuda').manual_seed(5)
+            _count_reset()
+            outs = ([scorer(x, generator=gen) for x in xs]
+                    + [scorer(x) for x in xs])
+            torch.cuda.synchronize()
+            got[graphed] = {'outs': outs, 'gen': gen.get_state(),
+                            'launches': _counts(), 'runs': _batches_run(),
+                            'captures': list(scorer.graph.captures)}
+            del scorer
+        what = 'Scorer {} n={} L={}'.format(dtype, n, L or
+                                             cfg.test_latent_sampling)
+        diff = [str(i) + '/' + k for i, (e, g) in enumerate(zip(
+            got[False]['outs'], got[True]['outs'])) for k in _host_equal(e, g)]
+        if not torch.equal(got[False]['gen'], got[True]['gen']):
+            diff.append('generator state')
+        if diff:
+            raise AssertionError('{}: graph and eager differ at {}'.format(
+                what, diff[:12]))
+        for graphed, r in got.items():
+            _scored_gate(r, 2 * SCORE_CALLS, SCORE_PER_BATCH,
+                         '{} (graphed {})'.format(what, graphed))
+        row = {'dtype': dtype, 'batch': n,
+               'L': L or cfg.test_latent_sampling,
+               'batches_equal': 2 * SCORE_CALLS,
+               'runs': got[True]['runs']['scorer'],
+               'launches': {'eager': got[False]['launches'],
+                            'graphed': got[True]['launches']}}
+        row.update(_capture_gate(got[True]['captures'], SCORE_PER_BATCH,
+                                 what))
+        if row['captures'] != 2:            # the caller's generator, then
+            raise AssertionError('{}: {} captures'.format(   # the default
+                what, row['captures']))
+        rows.append(row)
+    return rows
+
+
+def _keep_engine_graphs(engines, graphs: list):
+    """``engines._engine_graph`` keeping each graph it hands out in
+    ``graphs`` (once); returns the original, to restore."""
+    real = engines._engine_graph
+
+    def keep(*a, **k):
+        g, gen = real(*a, **k)
+        if all(g is not h for h in graphs):
+            graphs.append(g)
+        return g, gen
+    engines._engine_graph = keep
+    return real
+
+
+def _ood_sets():
+    from joint_vae_tpu_torch.data.loaders import get_dataset
+    _, testset = get_dataset('cifar100', splits=['test'])
+    return testset, [get_dataset(n, splits=['test'])[1] for n in OOD_SETS]
+
+
+def ood_bits(job_dir: str) -> dict:
+    """(b) ``ood_detection_rates`` in phase 6's setup (its job, cifar100's
+    test set and the three OOD sets, batch 512, L=16, the compute tier
+    with record files), graphed against eager from one generator: every
+    score, ROC entry and record file's bytes, and the generator's state,
+    equal; launches per eager or captured batch; each capture's kernel
+    nodes."""
+    from joint_vae_tpu_torch.evals import engines
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.train.state import make_generator
+    job = load_job(job_dir)
+    testset, oodsets = _ood_sets()
+    batches = -(-OOD_SET_SIZE // OOD_BATCH) * (1 + len(oodsets))
+    got = {}
+    for graphed in (False, True):
+        rdir = os.path.join(WORK, 'score_graphs_ood_{}'.format(int(graphed)))
+        shutil.rmtree(rdir, ignore_errors=True)
+        os.makedirs(rdir)
+        scores = {}
+        collect = engines._collect_scores
+
+        def keep(job_, dataset, *a, **k):
+            out = collect(job_, dataset, *a, **k)
+            scores[dataset.name] = {m: v.cpu().numpy() for m, v in out.items()}
+            return out
+        engines._collect_scores = keep
+        try:
+            gen = make_generator(job.device, 0)
+            _count_reset()
+            res = engines.ood_detection_rates(
+                job, testset, oodsets, batch_size=OOD_BATCH,
+                from_where=('compute',), update_self_ood=False,
+                recording=True, record_dir=rdir, generator=gen,
+                graphed=graphed)
+            torch.cuda.synchronize()
+            launches, runs = _counts(), _batches_run()
+        finally:
+            engines._collect_scores = collect
+        files = {}
+        for f in sorted(os.listdir(rdir)):
+            with open(os.path.join(rdir, f), 'rb') as fh:
+                files[f] = fh.read()
+        got[graphed] = {'res': res, 'scores': scores, 'files': files,
+                        'gen': gen.get_state(), 'launches': launches,
+                        'runs': runs,
+                        'captures': [c for g in engines.held_score_graphs(
+                            job).values() for c in g.captures]}
+    e, g = got[False], got[True]
+    diff = ['scores/' + k for k in _host_equal(e['scores'], g['scores'])]
+    if json.dumps(e['res'], sort_keys=True) != json.dumps(g['res'],
+                                                          sort_keys=True):
+        diff.append('results')
+    if e['files'] != g['files'] or not e['files']:
+        diff.append('record files {} {}'.format(sorted(e['files']),
+                                                 sorted(g['files'])))
+    if not torch.equal(e['gen'], g['gen']):
+        diff.append('generator state')
+    if diff:
+        raise AssertionError('OOD evaluation: graph and eager differ at {}'
+                             .format(diff[:12]))
+    for graphed, r in got.items():
+        _scored_gate(r, batches, SCORE_PER_BATCH,
+                     'OOD evaluation (graphed {})'.format(graphed))
+    out = {'sets': 1 + len(oodsets), 'batches': batches,
+           'scores_equal': sum(len(v) for v in e['scores'].values()),
+           'roc_entries_equal': sum(len(v) for v in e['res'].values()),
+           'record_files_equal': sorted(e['files']),
+           'runs': g['runs'],
+           'launches': {'eager': e['launches'], 'graphed': g['launches']}}
+    out.update(_capture_gate(g['captures'], SCORE_PER_BATCH,
+                             'OOD evaluation'))
+    return out
+
+
+def _wim(job_dir: str):
+    from joint_vae_tpu_torch.ft.job import load_wim_job
+    return load_wim_job(job_dir, seed=7, **WIM_PRIOR)
+
+
+def both_prior_bits(job_dir: str) -> dict:
+    """(c) ``ft/job.py::_both_prior_losses`` on phase 9's WIM job (its
+    alternate prior on the flagship) over cifar10's test set at phase 9's
+    test batch (40 batches, a ragged tail), graphed against eager from one
+    generator: every array and the generator's state equal; 16 conv and 1
+    combine launches per eager or captured batch (the original prior's
+    combine: the alternate one is unconditional); each capture's kernel
+    nodes."""
+    from joint_vae_tpu_torch.data.loaders import get_dataset
+    from joint_vae_tpu_torch.ft import job as ft_job
+    from joint_vae_tpu_torch.train.state import make_generator
+    wim = _wim(job_dir)
+    _, ds = get_dataset('cifar10', splits=['test'])
+    batches = -(-len(ds) // WIM_TEST_BATCH)
+    got = {}
+    for graphed in (False, True):
+        graph = ft_job.both_prior_graph(wim, graphed=graphed)
+        gen = make_generator(wim.job.device, 10000)
+        _count_reset()
+        arrays = ft_job._both_prior_losses(wim, ds, WIM_TEST_BATCH, gen,
+                                           graph=graph)
+        torch.cuda.synchronize()
+        got[graphed] = {'arrays': arrays, 'gen': gen.get_state(),
+                        'launches': _counts(), 'runs': _batches_run(),
+                        'captures': list(graph.captures)}
+        del graph
+    e, g = got[False], got[True]
+    diff = _host_equal(e['arrays'], g['arrays'])
+    if not torch.equal(e['gen'], g['gen']):
+        diff.append('generator state')
+    if diff:
+        raise AssertionError('both-prior losses: graph and eager differ at '
+                             '{}'.format(diff[:12]))
+    for graphed, r in got.items():
+        _scored_gate(r, batches, BOTH_PER_BATCH,
+                     'both-prior losses (graphed {})'.format(graphed))
+    out = {'set': ds.name, 'batch': WIM_TEST_BATCH, 'batches': batches,
+           'arrays_equal': len(e['arrays']), 'runs': g['runs'],
+           'launches': {'eager': e['launches'], 'graphed': g['launches']}}
+    out.update(_capture_gate(g['captures'], BOTH_PER_BATCH,
+                             'both-prior losses'))
+    return out
+
+
+def _profile_once(run) -> dict:
+    """One call of ``run`` under torch.profiler: wall and device ms, the
+    busy share and the port's kernel records by source (no dropped
+    call before it: a long call's first records, if lost, are few)."""
+    from torch.profiler import ProfilerActivity, profile
+    from joint_vae_tpu_torch.ops.cuda_lib import KERNEL_FUNCTIONS, source_of
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, records = 0.0, dict.fromkeys(KERNEL_FUNCTIONS, 0)
+    for ev in prof.key_averages():
+        if not _device_record(ev):
+            continue
+        busy += getattr(ev, 'self_device_time_total',
+                        getattr(ev, 'self_cuda_time_total', 0)) / 1e3
+        if source_of(ev.key):
+            records[source_of(ev.key)] += ev.count
+    return {'wall_ms': wall_ms, 'device_ms': busy,
+            'device_busy_share': busy / wall_ms, 'kernel_records': records}
+
+
+def _score_case(name: str, run, per: int, records, make_graphs,
+                profile_run=None) -> dict:
+    """``run(mode)`` (one batch of a held Scorer, ``per`` calls a turn, or
+    one whole call) in each mode: its first calls timed (``first_ms``: a
+    Scorer's SCORE_CALLS calls, its warm-up and capture among them; one
+    engine call, whose held graphs it captures), then in turns eager,
+    graph, graph, eager (``ms``: per call); one call of each mode (of
+    ``profile_run``, by default ``run``) profiled, after a traced call
+    that is dropped where ``records`` is given (its kernel records by
+    source, which must be ``records`` in either mode); the graph mode's
+    captures (``make_graphs()``)."""
+    profile_run = profile_run or run
+    first = {}
+    for mode in (False, True):
+        n = SCORE_CALLS if per > 1 else 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run(mode)
+        torch.cuda.synchronize()
+        first['graph' if mode else 'eager'] = (time.perf_counter() - t0) * 1e3
+    ms = _turns({False: None, True: None}, lambda m, n: [
+        run(m) for _ in range(n)], per)
+    prof = {}
+    for mode in (False, True):
+        if records is not None:
+            p = profile_train_step(lambda _s, _a, _b: profile_run(mode),
+                                   None, None, None)
+            if p['kernel_records'] != records:
+                raise AssertionError('{} (graphed {}): kernel records {}, '
+                                     'want {}'.format(name, mode,
+                                                      p['kernel_records'],
+                                                      records))
+        else:
+            p = _profile_once(lambda: profile_run(mode))
+        prof['graph' if mode else 'eager'] = {
+            k: p[k] for k in ('wall_ms', 'device_ms', 'device_busy_share',
+                              'kernel_records')}
+    caps = make_graphs()
+    return {'case': name, 'first_ms': first, 'ms': ms, 'profile': prof,
+            'capture_s': [c['capture_s'] for c in caps],
+            'pool_bytes': [c['pool_bytes'] for c in caps],
+            'kernel_nodes': [c['kernel_nodes'] for c in caps]}
+
+
+def score_timings(job_dir: str) -> list:
+    """Graphed against eager in one process: the Scorer at 512 and at 64
+    (L=16; ms per batch), the OOD evaluation (phase 6's four sets, on one
+    job whose engine graphs are held across calls; ms per call; profiled
+    over PROFILED batches of the test set and of one OOD set),
+    ``cli.test --compute rehard``
+    (phase 8's recompute, its engines graphed or not; each call loads the
+    job and captures anew) and the both-prior batches of one set (phase
+    9's WIM job, cifar10 at 256, one graph and one generator held across
+    calls as the fine-tune flow holds them across sets; ms per set;
+    profiled over its first PROFILED batches)."""
+    import functools
+    from joint_vae_tpu_torch.cli import test as test_cli
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset, get_dataset
+    from joint_vae_tpu_torch.evals import engines
+    from joint_vae_tpu_torch.ft import job as ft_job
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.serve import Scorer
+    from joint_vae_tpu_torch.train.state import make_generator
+    job = load_job(job_dir)
+    cfg = job.model_cfg
+    rng = np.random.default_rng(33)
+    free = {m: float('-inf') for m in METHODS}
+    cases = []
+    for n in (BATCH, SCORE_SMALL):
+        x = rng.uniform(0, 1, (n,) + cfg.input_shape).astype(np.float32)
+        scorers = {m: Scorer(job, methods=METHODS, thresholds=free,
+                             graphed=m) for m in (False, True)}
+        cases.append(_score_case(
+            'scorer_{}'.format(n), lambda m: scorers[m](x), TRAIN_TIMED,
+            SCORE_PER_BATCH, lambda: scorers[True].graph.captures))
+        del scorers
+
+    testset, oodsets = _ood_sets()
+
+    def ood(mode, test=testset, sets=oodsets):
+        engines.ood_detection_rates(
+            job, test, sets, batch_size=OOD_BATCH,
+            from_where=('compute',), update_self_ood=False,
+            recording=False, graphed=mode)
+    # profiled over the first PROFILED batches of the test set and of one
+    # OOD set (replays of the held full-batch graph): late in the whole
+    # script a profiled call of some 16,000 kernel records lost a few
+    n = PROFILED * OOD_BATCH
+    ood_part = [ArrayDataset(d.data[:n], d.targets[:n], d.name)
+                for d in (testset, oodsets[0])]
+    c = _score_case('ood_evaluation', ood, 1,
+                    {k: v * 2 * PROFILED for k, v in SCORE_PER_BATCH.items()},
+                    lambda: [cap for g in engines.held_score_graphs(
+                        job).values() for cap in g.captures],
+                    lambda mode: ood(mode, ood_part[0], ood_part[1:]))
+    c['profile_batches'] = 2 * PROFILED
+    cases.append(c)
+
+    graphs = []
+    real = _keep_engine_graphs(engines, graphs)
+    try:
+        root = _score_store()
+        argv = ['--job-dir', root, '--job', '0', '--compute', 'rehard',
+                '--sets'] + list(TEST_CLI_SETS) + ['-M', str(OOD_BATCH)]
+        names = ('accuracy', 'ood_detection_rates',
+                 'misclassification_detection_rates')
+        engine = {n: getattr(test_cli, n) for n in names}
+
+        def rehard(mode):
+            graphs.clear()
+            for n in names:
+                setattr(test_cli, n, functools.partial(engine[n],
+                                                       graphed=mode))
+            try:
+                with open(os.path.join(WORK, 'score_graphs_rehard.out'),
+                          'w') as f, contextlib.redirect_stdout(f):
+                    if test_cli.main(argv) != 0:
+                        raise AssertionError('cli.test --compute rehard '
+                                             'failed (graphed {})'.format(mode))
+            finally:
+                for n in names:
+                    setattr(test_cli, n, engine[n])
+        cases.append(_score_case('cli_test_rehard', rehard, 1, None, lambda: [
+            cap for g in graphs for cap in g.captures]))
+    finally:
+        engines._engine_graph = real
+
+    wim = _wim(job_dir)
+    _, ds = get_dataset('cifar10', splits=['test'])
+    both = {m: (ft_job.both_prior_graph(wim, graphed=m),
+                make_generator(wim.job.device, 0)) for m in (False, True)}
+
+    def both_prior(mode, data=ds):
+        graph, gen = both[mode]
+        ft_job._both_prior_losses(wim, data, WIM_TEST_BATCH,
+                                  gen.manual_seed(10000), graph=graph)
+    # profiled over the set's first PROFILED batches, as the OOD
+    # evaluation
+    n = PROFILED * WIM_TEST_BATCH
+    both_part = ArrayDataset(ds.data[:n], ds.targets[:n], ds.name)
+    c = _score_case(
+        'both_prior', both_prior, 1,
+        {k: v * PROFILED for k, v in BOTH_PER_BATCH.items()},
+        lambda: both[True][0].captures,
+        lambda mode: both_prior(mode, both_part))
+    c['profile_batches'] = PROFILED
+    cases.append(c)
+    return cases
+
+
+def _score_store() -> str:
+    """Phase 8's fleet, or, when phase 16 runs alone, a store holding the
+    flagship's job alone (the test set cifar100's)."""
+    from joint_vae_tpu_torch.save_load.checkpoint import load_json, save_json
+    root = os.path.join(WORK, 'fleet')
+    if os.path.isdir(root):
+        return root
+    root = os.path.join(WORK, 'score_graphs_store')
+    shutil.rmtree(root, ignore_errors=True)
+    d = os.path.join(root, 'cifar100', 'flagship', '000000')
+    shutil.copytree(_flagship_dir(), d,
+                    ignore=shutil.ignore_patterns('samples'))
+    path = os.path.join(d, 'train_params.json')
+    tp = load_json(path)
+    tp['set'] = 'cifar100'
+    save_json(tp, path)
+    return root
+
+
+def score_graphs_phase(card: str) -> tuple:
+    """Phase 16: the bit gates, then the timings; returns the graphed
+    bit-gate runs' launches, the profiled replays' kernel records and the
+    ``score_graphs`` line."""
+    t0 = time.perf_counter()
+    job_dir = _flagship_dir()
+    bits = {'scorer_float32': scorer_bits('float32'),
+            'scorer_bfloat16': scorer_bits('bfloat16'),
+            'ood_evaluation': ood_bits(job_dir),
+            'both_prior': both_prior_bits(job_dir)}
+    timings = score_timings(job_dir)
+    line = {'bits': bits, 'timings': timings,
+            'seconds': time.perf_counter() - t0, 'card': card}
+    print('score_graphs', json.dumps(line), flush=True)
+    launches = {'scorer_{}_{}_L{}'.format(dt, r['batch'], r['L']):
+                r['launches']['graphed']
+                for dt in ('float32', 'bfloat16')
+                for r in bits['scorer_' + dt]}
+    launches['ood_evaluation'] = bits['ood_evaluation']['launches']['graphed']
+    launches['both_prior'] = bits['both_prior']['launches']['graphed']
+    records = {c['case']: c['profile']['graph']['kernel_records']
+               for c in timings}
+    return launches, records, line
+
+
+def _score_launch_keys(launches: dict, records: dict, kernel: str,
+                       source: str) -> dict:
+    """The kernels line's ``launches_score_graphs``: the wrapper's
+    launches in each graphed bit-gate run (the warm-ups and captures), and
+    the kernel records of ``source`` in each timed case's profiled
+    graphed call."""
+    return {'wrapper': {k: c.get(kernel, 0) for k, c in launches.items()},
+            'profiled_records': {k: r[source] for k, r in records.items()}}
 
 
 def main():
@@ -5551,6 +6117,7 @@ def main():
     f32_fed = bench['f32_device_fed']['launches']
     serve16 = bench['bf16_serve']['launches']
     test_cli_launches, fleet = timed('8 fleet', fleet_eval, card, ood_job)
+    del ood_job                     # and the engine graphs it holds
     wim_launches, poscod_launches, wim = timed('9 wim', wim_finetune, card)
     (resnet_step, resnet_serve, driver_launches, resnet,
      driver_line) = timed('10 trunks_and_drivers', trunks_and_drivers, card)
@@ -5561,6 +6128,8 @@ def main():
     evidence_launches, evidence_line = timed('14 evidence', evidence, card)
     graph_launches, graph_records, graphs_line = timed('15 graphs',
                                                        graphs_phase, card)
+    score_launches, score_records, score_line = timed(
+        '16 score_graphs', score_graphs_phase, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -5589,6 +6158,9 @@ def main():
          'launches_evidence': evidence_launches['same_grid_conv'],
          'launches_graphs': _graph_launch_keys(graph_launches,
                                                graph_records, 'same_grid_conv', 'same_grid_conv'),
+         'launches_score_graphs': _score_launch_keys(
+             score_launches, score_records, 'same_grid_conv',
+             'same_grid_conv'),
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -5641,6 +6213,9 @@ def main():
          'launches_evidence': evidence_launches['same_grid_conv_dx'],
          'launches_graphs': _graph_launch_keys(graph_launches,
                                                graph_records, 'same_grid_conv_dx', 'same_grid_conv'),
+         'launches_score_graphs': _score_launch_keys(
+             score_launches, score_records, 'same_grid_conv_dx',
+             'same_grid_conv'),
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -5697,6 +6272,8 @@ def main():
          'launches_evidence': evidence_launches['iws_combine'],
          'launches_graphs': _graph_launch_keys(graph_launches,
                                                graph_records, 'iws_combine', 'iws_combine'),
+         'launches_score_graphs': _score_launch_keys(
+             score_launches, score_records, 'iws_combine', 'iws_combine'),
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -5714,16 +6291,17 @@ def main():
                       'resnet': resnet, 'drivers': driver_line,
                       'interop': interop_line, 'mesh': mesh_line,
                       'export': export_line, 'evidence': evidence_line,
-                      'graphs': graphs_line,
+                      'graphs': graphs_line, 'score_graphs': score_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
 
 
-def graphs_only():
-    """``--graphs``: build the kernels and run phase 15 alone (its
-    ``graphs`` line), for work on the step graphs."""
+def phase_only(phase):
+    """``--graphs`` / ``--score-graphs``: build the kernels and run phase
+    15 or 16 alone (its ``graphs`` or ``score_graphs`` line), for work on
+    the graphs."""
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
     from joint_vae_tpu_torch.device import set_float32_math
@@ -5733,13 +6311,15 @@ def graphs_only():
     print(card, flush=True)
     print('build seconds', round(cuda_lib.build(), 3), flush=True)
     os.makedirs(WORK, exist_ok=True)
-    graphs_phase(card)
+    phase(card)
 
 
 if __name__ == '__main__':
     if len(sys.argv) > 1 and sys.argv[1] == '--mesh-rank':
         mesh_rank(sys.argv[2:])
     elif sys.argv[1:] == ['--graphs']:
-        graphs_only()
+        phase_only(graphs_phase)
+    elif sys.argv[1:] == ['--score-graphs']:
+        phase_only(score_graphs_phase)
     else:
         main()

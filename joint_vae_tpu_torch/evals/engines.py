@@ -21,29 +21,42 @@ stored json results with enough samples ('json'), record files under
 The compute tier is one loop over the set's batches under
 ``torch.no_grad()`` (ODIN takes its input gradient inside): the per-class
 evaluation without labels and without the mean sample's decode, then the
-score measures.  Scores and recorder tensors stay on the job's device and
-are pulled to the host once per set; the ROC runs on the device.  The
+score measures.  Each batch is one scoring graph on the card
+(``train/graphs.py::ScoreGraph``, the counterpart of the JAX engine's
+``eval_batch``): the evaluation, ODIN where the methods ask for it and
+the scores (``accuracy``: the predictions' correct counts), one graph for
+the full batch and one for a ragged tail, replayed per batch; the
+recorder gets copies of each batch's losses and logits.  The graphs and
+their generator are held on the job across engine calls, one scoring
+graph per engine (the OOD engine's scores the union of its sets'
+methods), so that a capture is paid once per job and batch shape; each
+call reseeds the generator.  Scores and
+recorder tensors stay on the job's device and are pulled to the host
+once per set; the ROC runs on the device.  The
 latent noise comes from a generator seeded with the epoch (+1 for
 accuracy, +2 for misclassification), as the JAX package keys its draws.
 A bfloat16 model scores with the 'bf16' loss epilogue
 (``models/evaluate.py`` ``native_scores``), the JAX engine's default for
 bfloat16 models, so that its per-class scores follow the JAX engine's.
-The JAX package's scan over stacked batches and its evaluation knobs (its
-``JVT_EVAL_*`` environment) are not ported.
+The JAX package's scan over stacks of 16 batches (one graph per batch
+here) and its evaluation knobs (its ``JVT_EVAL_*`` environment) are not
+ported.
 
 ``mesh=`` feeds the compute tier over a device mesh
 (``parallel/mesh.py``): each batch that divides the 'data' axis runs as
 this rank's rows (a tail goes in whole), the decode splits its samples
 over 'sample', the classes are split over 'model' as the state is placed,
 and the losses and logits are gathered back by rows, so that every rank
-scores the whole set as the one-process run does.  A multi-process run
+scores the whole set as the one-process run does; a mesh-fed batch runs
+eagerly (its collectives are not captured).  A multi-process run
 skips the recorder replay tier (one rank replaying while the others run
 collectives would hang them); rank 0 writes the record files.
 """
 
 import logging
 import os
-from typing import Dict, List, Optional, Sequence
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,7 +72,9 @@ from ..save_load.dictify import _fpr_at, needed_components
 from ..save_load.jobs import Job
 from ..save_load.checkpoint import is_write_process
 from ..save_load.recorders import LossRecorder, find_record, record_filename
+from ..train.graphs import ScoreGraph
 from ..train.state import make_generator
+from ..train.steps import graph_mode
 from .odin import make_odin_scores
 
 KEPT_TPR = DEFAULT_KEPT_TPR
@@ -90,14 +105,11 @@ def _rows(key: str, t: torch.Tensor) -> int:
     return t.ndim - 2 if key == _LOGITS else t.ndim - 1
 
 
-def _run_split(run, n, forward):
-    """(losses, logits) of ``forward`` through ``eval_feed``'s ``run``."""
-    def fn():
-        losses, logits = forward()
-        return {**losses, _LOGITS: logits}
-    out = run(n, fn, _rows)
-    logits = out.pop(_LOGITS)
-    return out, logits
+_LOSS, _SCORE, _CORRECT = 'loss/', 'score/', 'correct/'
+
+
+def _split_losses(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k[len(_LOSS):]: v for k, v in out.items() if k.startswith(_LOSS)}
 
 
 def _is_wim_method(m: str) -> bool:
@@ -164,14 +176,79 @@ def _fill_recorder(recorder: LossRecorder, batches):
         start += n
 
 
+def _score_graph(job: Job, methods: Sequence[str], mesh=None,
+                 graphed: bool = True) -> ScoreGraph:
+    """The compute tier's batch (the JAX engine's ``eval_batch``): the
+    evaluation, ODIN (if the methods ask for it) and, off a mesh, the
+    scores, as a scoring graph (``graphed=False``: eager); on a mesh the
+    callers score the gathered rows."""
+    cfg = job.model_cfg
+    # the JAX engine's default epilogue (engines.py:123-126)
+    native = 'bf16' if cfg.compute_dtype == 'bfloat16' else False
+    odin = _make_odin(job, methods)
+    ref = weakref.ref(job)          # the job holds the graph
+
+    def body(generator, x):
+        job = ref()
+        out = evaluate(job.model, x, None, sigma_state=job.sigma_state,
+                       train=False, decode_mean=False, native_scores=native,
+                       generator=generator)
+        losses = dict(out.losses)
+        if odin is not None:
+            losses.update(odin(x, generator))
+        res = {_LOSS + k: v for k, v in losses.items()}
+        res[_LOGITS] = out.logits
+        if mesh is None:
+            with torch.no_grad():
+                res.update({_SCORE + m: v for m, v in batch_dist_measures(
+                    cfg, out.logits, losses, methods).items()})
+        return res
+    return ScoreGraph(body, name='score_batch', graphed=graphed)
+
+
+def _engine_graph(job: Job, kind: str, methods: Sequence[str],
+                  make: Callable[[bool], ScoreGraph],
+                  generator: Optional[torch.Generator], seed: int, mesh,
+                  graphed: Optional[bool]):
+    """The scoring graph of engine ``kind`` for ``methods``
+    (``make(graphed)`` builds it) and the generator of its batches.
+    Graphed (the default off a mesh), both are held on the job across
+    calls, one graph per engine (a call with other methods, or on another
+    device, model or sigma state, replaces it), and the generator is
+    reseeded with ``seed`` (as a fresh generator of that seed draws); a
+    caller's ``generator`` means new captures.  Otherwise an eager graph
+    and a fresh generator."""
+    dev = job.device
+    if not graph_mode(graphed, mesh):
+        return make(False), (generator if generator is not None
+                             else make_generator(dev, seed))
+    held = vars(job).setdefault('_score_graphs', {})
+    key = (tuple(methods), dev)
+    reads = (job.model, job.sigma_state.data, job.sigma_state.rmse)
+    h = held.get(kind)
+    if h is None or h[0] != key or any(a is not b
+                                      for a, b in zip(h[1], reads)):
+        h = held[kind] = (key, reads, make(True),
+                          torch.Generator(device=dev))
+    graph, gen = h[2], h[3]
+    return graph, (generator if generator is not None
+                   else gen.manual_seed(int(seed)))
+
+
+def held_score_graphs(job: Job) -> Dict[str, ScoreGraph]:
+    """The scoring graphs held on ``job``, by engine."""
+    return {k: v[2] for k, v in vars(job).get('_score_graphs', {}).items()}
+
+
 def _collect_scores(job: Job, dataset: ArrayDataset, methods: Sequence[str],
                     batch_size: int, recorder: Optional[LossRecorder],
-                    odin, generator: torch.Generator,
+                    graph: ScoreGraph, generator: torch.Generator,
                     num_batch: Optional[int] = None,
                     mesh=None) -> Dict[str, torch.Tensor]:
-    """Run the model over a dataset; returns {method: (N,)} scores on the
-    job's device and fills ``recorder`` (if any) with the set's losses."""
-    model, cfg = job.model, job.model_cfg
+    """Run the model over a dataset through ``graph`` (:func:`_score_graph`
+    of these methods or more); returns {method: (N,)} scores on the job's
+    device and fills ``recorder`` (if any) with the set's losses."""
+    cfg = job.model_cfg
     put, run = eval_feed(mesh, job.device, 1 + len(dataset.shape))
     loader = DataLoader(dataset, batch_size, shuffle=False,
                         seed=((recorder.restore_seed() or 0)
@@ -179,24 +256,17 @@ def _collect_scores(job: Job, dataset: ArrayDataset, methods: Sequence[str],
                         drop_last=False)
     per_method: Dict[str, List[torch.Tensor]] = {m: [] for m in methods}
     rec_batches = []
-    # the JAX engine's default epilogue (engines.py:123-126)
-    native = 'bf16' if cfg.compute_dtype == 'bfloat16' else False
     for i, (x, y) in enumerate(loader):
         if num_batch is not None and i >= num_batch:
             break
         xt = put(x)
-
-        def forward():
-            out = evaluate(model, xt, None, sigma_state=job.sigma_state,
-                           train=False, decode_mean=False,
-                           native_scores=native, generator=generator)
-            losses = dict(out.losses)
-            if odin is not None:
-                losses.update(odin(xt, generator))
-            return losses, out.logits
-        losses, logits = _run_split(run, len(x), forward)
-        with torch.no_grad():
-            scores = batch_dist_measures(cfg, logits, losses, methods)
+        out = run(len(x), lambda: graph(generator, x=xt), _rows)
+        losses, logits = _split_losses(out), out[_LOGITS]
+        if mesh is None:
+            scores = {m: out[_SCORE + m] for m in methods}
+        else:
+            with torch.no_grad():
+                scores = batch_dist_measures(cfg, logits, losses, methods)
         for m in methods:
             per_method[m].append(scores[m])
         if recorder is not None:
@@ -298,7 +368,9 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
                         from_where: Sequence[str] = _ALL_TIERS,
                         generator: Optional[torch.Generator] = None,
                         outputs=None,
-                        mesh=None) -> Dict[str, Dict[str, dict]]:
+                        mesh=None,
+                        graphed: Optional[bool] = None
+                        ) -> Dict[str, Dict[str, dict]]:
     """OOD scores + ROC for the test set against each OOD set.
 
     Per-(set, method) 3-tier reuse (ref available_results dictify.py:215-382
@@ -306,7 +378,10 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
     the wanted sample count is returned as-is; one whose needed loss
     components sit in a recorder is re-scored without model forwards; only
     the remainder triggers fresh evaluation — and the in-distribution scores
-    are only computed for methods some OOD set still needs.
+    are only computed for methods some OOD set still needs.  ``graphed``
+    (default: True off a mesh) scores each batch as a CUDA graph on the
+    card, held on the job (module docstring); False runs the same body
+    eagerly.
     """
     cfg = job.model_cfg
     epoch = _epoch_of(job, epoch)
@@ -383,9 +458,9 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
     if to_compute:
         union = [m for m in methods
                  if any(m in ms for _, ms in to_compute)]
-        odin = _make_odin(job, union)
-        if generator is None:
-            generator = make_generator(job.device, epoch)
+        graph, generator = _engine_graph(
+            job, 'ood', union, lambda g: _score_graph(job, union, mesh, g),
+            generator, epoch, mesh, graphed)
         for s, ms in to_compute:
             rec = None
             # record_dir redirects fresh recordings (the WIM pre-tuning
@@ -396,7 +471,7 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
             if recording and rec_path:
                 rec = LossRecorder(batch_size)
                 rec.init_seed_for_dataloader(0)
-            scored = _collect_scores(job, s, ms, batch_size, rec, odin,
+            scored = _collect_scores(job, s, ms, batch_size, rec, graph,
                                      generator, num_batch, mesh=mesh)
             measures.setdefault(s.name, {}).update(scored)
             if rec is not None:
@@ -455,6 +530,28 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
     return results
 
 
+def _accuracy_graph(job: Job, pm: Sequence[str],
+                    graphed: bool = True) -> ScoreGraph:
+    """``accuracy``'s batch (the JAX engine's ``eval_batch``) with the
+    predictions' correct counts when given the labels (a mesh counts them
+    on the gathered rows), as a scoring graph."""
+    cfg = job.model_cfg
+    ref = weakref.ref(job)          # the job holds the graph
+
+    def body(generator, x, y=None):
+        job = ref()
+        out = evaluate(job.model, x, None, sigma_state=job.sigma_state,
+                       train=False, decode_mean=False, generator=generator)
+        res = {_LOSS + k: v for k, v in out.losses.items()}
+        res[_LOGITS] = out.logits
+        if y is not None:
+            for m in pm:
+                res[_CORRECT + m] = torch.sum(predict_after_evaluate(
+                    cfg, out.logits, out.losses, m) == y)
+        return res
+    return ScoreGraph(body, name='accuracy_batch', graphed=graphed)
+
+
 def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
              batch_size: int = 100,
              num_batch: Optional[int] = None,
@@ -465,13 +562,16 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
              generator: Optional[torch.Generator] = None,
              from_where: Sequence[str] = _ALL_TIERS,
              outputs=None,
-             mesh=None) -> Dict[str, float]:
+             mesh=None,
+             graphed: Optional[bool] = None) -> Dict[str, float]:
     """Classification accuracy per predict method (ref cvae.py:1187-1446).
 
     3-tier per-method reuse: stored json with enough samples is returned
     as-is; a recorder holding the needed loss components is replayed
     (predictions recomputed from recorded tensors, zero model forwards, ref
-    cvae.py:1268-1330); only the residue evaluates the model."""
+    cvae.py:1268-1330); only the residue evaluates the model, each batch a
+    CUDA graph on the card, held on the job (module docstring), unless
+    ``graphed=False`` or on a mesh."""
     cfg = job.model_cfg
     epoch = _epoch_of(job, epoch)
     from_where = _multiprocess_tiers(from_where)
@@ -526,10 +626,8 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
     if not remaining or 'compute' not in from_where:
         return acc
     predict_methods = remaining
-    if generator is None:
-        generator = make_generator(job.device, epoch + 1)
 
-    model, dev = job.model, job.device
+    dev = job.device
     put, run = eval_feed(mesh, dev, 1 + len(testset.shape))
     loader = DataLoader(testset, batch_size, shuffle=False, drop_last=False)
     n_total = 0
@@ -540,24 +638,24 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
     estimated = getattr(testset, 'estimated', None)
 
     pm = [m for m in predict_methods if m != 'already']
+    graph, generator = _engine_graph(
+        job, 'accuracy', pm, lambda g: _accuracy_graph(job, pm, g),
+        generator, epoch + 1, mesh, graphed)
     counts = torch.zeros(len(pm), dtype=torch.int64, device=dev)
     rec_batches = []
     for i, (x, y) in enumerate(loader):
         if num_batch is not None and i >= num_batch:
             break
         xt = put(x)
-
-        def forward():
-            out = evaluate(model, xt, None, sigma_state=job.sigma_state,
-                           train=False, decode_mean=False,
-                           generator=generator)
-            return out.losses, out.logits
-        losses, logits = _run_split(run, len(x), forward)
         yt = to_device(y, dev)
+        out = run(len(x), lambda: graph(
+            generator, x=xt, y=yt if mesh is None else None), _rows)
+        losses, logits = _split_losses(out), out[_LOGITS]
         with torch.no_grad():
             for j, m in enumerate(pm):
-                counts[j] += torch.sum(predict_after_evaluate(
-                    cfg, logits, losses, m) == yt)
+                counts[j] += (out[_CORRECT + m] if mesh is None
+                              else torch.sum(predict_after_evaluate(
+                                  cfg, logits, losses, m) == yt))
         n_total += len(y)
         if rec is not None:
             rec_batches.append((losses, logits, y))
@@ -601,11 +699,14 @@ def misclassification_detection_rates(job: Job,
                                       from_where: Sequence[str] = (
                                           'recorders', 'compute'),
                                       outputs=None,
-                                      mesh=None) -> Dict[str, dict]:
+                                      mesh=None,
+                                      graphed: Optional[bool] = None
+                                      ) -> Dict[str, dict]:
     """Detect misclassifications by thresholding confidence scores
     (ref cvae.py:1913-2080).  The recorder tier replays recorded tensors
     without model forwards (ref from_where=('json', 'recorders'));
-    ``mesh`` feeds the compute tier as in :func:`ood_detection_rates`."""
+    ``mesh`` and ``graphed`` feed the compute tier as in
+    :func:`ood_detection_rates`."""
     cfg = job.model_cfg
     from_where = _multiprocess_tiers(from_where)
     epoch = _epoch_of(job, epoch)
@@ -639,11 +740,12 @@ def misclassification_detection_rates(job: Job,
         if not mms:
             return {}
         rec = LossRecorder(batch_size)
-        if generator is None:
-            generator = make_generator(job.device, epoch + 2)
-        _collect_scores(job, testset, list(mms), batch_size, rec,
-                        _make_odin(job, mms), generator, num_batch,
-                        mesh=mesh)
+        graph, generator = _engine_graph(
+            job, 'misclassification', mms,
+            lambda g: _score_graph(job, mms, mesh, g), generator, epoch + 2,
+            mesh, graphed)
+        _collect_scores(job, testset, mms, batch_size, rec, graph, generator,
+                        num_batch, mesh=mesh)
         # persist the fresh recording even when no prior record file
         # existed (find_record only returns pre-existing files)
         if rec_path is None and sdir:

@@ -76,11 +76,19 @@ def make_odin_scores(model: CVNet, temps: Sequence[float] = None,
     if model.cfg.y_is_coded:
         raise ValueError('ODIN needs a model that does not code y')
 
+    grids = {}      # the epsilon grid on each (device, dtype, ndim) met
+
     def odin(x: torch.Tensor, generator: Optional[torch.Generator] = None,
              eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         n = x.shape[0]
-        e_grid = torch.tensor(eps_grid, dtype=x.dtype, device=x.device)
-        e_grid = e_grid.reshape((-1,) + (1,) * x.ndim)
+        key = (x.device, x.dtype, x.ndim)
+        if key not in grids:
+            # made at the first call, outside any graph capture (a copy
+            # from the host cannot be captured)
+            grids[key] = torch.tensor(eps_grid, dtype=x.dtype,
+                                      device=x.device).reshape(
+                                          (-1,) + (1,) * x.ndim)
+        e_grid = grids[key]
         eps_rep = None if eps is None else eps.repeat(1, len(eps_grid), 1)
         xg = x.detach().requires_grad_(True)
         with torch.enable_grad(), _no_param_grads(model):

@@ -19,9 +19,10 @@ evaluations are mesh-fed and gathered on every rank, and rank 0 writes
 the files.  A multi-process run needs a mesh.
 
 The fine-tune step is replayed as a CUDA graph on the card (its inputs
-copied into the graph's buffers); the both-prior evaluation replays the
-generator's state for its second half (``get_state``/``set_state``,
-which a graph cannot capture) and stays eager.
+copied into the graph's buffers), and so is each both-prior batch of
+the post-tuning evaluation (:func:`both_prior_graph`: one draw of the
+latent noise for both priors, one graph for every set, its generator
+reseeded per set); ``record_latents`` stays eager.
 """
 
 import dataclasses
@@ -45,9 +46,10 @@ from ..parallel.mesh import (batch_sharding, ensure_placed, eval_feed,
 from ..save_load.checkpoint import is_write_process, save_json
 from ..save_load.jobs import load_job, save_job
 from ..save_load.recorders import LossRecorder, SampleRecorder, record_filename
+from ..train.graphs import ScoreGraph
 from ..train.optimizers import build_optimizer
 from ..train.state import make_generator, named_params
-from ..train.steps import pull_metrics
+from ..train.steps import graph_mode, pull_metrics
 from .wim import (WIM_MISCLASS_METHODS_PER_TYPE, WIM_OOD_METHODS_PER_TYPE,
                   WIMJob, is_wim_method, wim_measures)
 
@@ -108,26 +110,42 @@ def load_wim_job(job_dir: str, device: DeviceLike = None,
     return wim
 
 
-def _both_prior_losses(wim: WIMJob, dataset: ArrayDataset, batch_size: int,
-                       generator: torch.Generator,
-                       mesh=None) -> Dict[str, np.ndarray]:
-    """Full-set losses with their '@' twins, the sample-mean logits and
-    the true labels, as host arrays; the device outputs are kept until
-    the set's end and pulled once per key.  ``mesh``: mesh-fed batches,
-    gathered on every rank."""
+def both_prior_graph(wim: WIMJob, mesh=None,
+                     graphed: Optional[bool] = None) -> ScoreGraph:
+    """The both-prior batch (the JAX flow's ``eval_batch``,
+    ``joint_vae_tpu/ft/job.py:101-105``) as a scoring graph: the losses,
+    their '@' twins and the sample-mean logits (``graphed=False``:
+    eager); eager on a mesh."""
     job = wim.job
+
+    def body(generator, x):
+        _, logits, losses, _ = wim.evaluate_on_both_priors(
+            x, sigma_state=job.sigma_state, decode_mean=False,
+            generator=generator)
+        return {**losses, _LOGITS: logits}
+    return ScoreGraph(body, name='both_prior_batch',
+                      graphed=graph_mode(graphed, mesh))
+
+
+def _both_prior_losses(wim: WIMJob, dataset: ArrayDataset, batch_size: int,
+                       generator: torch.Generator, mesh=None,
+                       graph: Optional[ScoreGraph] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Full-set losses with their '@' twins, the sample-mean logits and
+    the true labels, as host arrays; each batch's outputs (copies of the
+    graph's) are kept on the device until the set's end and pulled once
+    per key.  ``graph``: :func:`both_prior_graph`, held across sets (made
+    here when not given).  ``mesh``: mesh-fed batches, gathered on every
+    rank."""
+    job = wim.job
+    if graph is None:
+        graph = both_prior_graph(wim, mesh)
     put, run = eval_feed(mesh, job.device, 1 + len(dataset.shape))
     acc: Dict[str, list] = {}
     logits_l, ys = [], []
     for x, y in DataLoader(dataset, batch_size, shuffle=False):
         xt = put(x)
-
-        def forward():
-            _, logits, losses, _ = wim.evaluate_on_both_priors(
-                xt, sigma_state=job.sigma_state, decode_mean=False,
-                generator=generator)
-            return {**losses, _LOGITS: logits}
-        losses = run(len(x), forward,
+        losses = run(len(x), lambda: graph(generator, x=xt),
                      lambda k, v: v.ndim - (2 if k == _LOGITS else 1))
         logits = losses.pop(_LOGITS)
         for k, v in losses.items():
@@ -247,8 +265,9 @@ def finetune(wim: WIMJob,
     """Run the WIM fine-tuning flow on the job's device; updates wim.job
     in place (its model, optimizer, sigma state and results).  ``mesh``:
     the trainer's contract (module docstring).  ``graphed`` (default: True
-    off a mesh) replays the fine-tune step as a CUDA graph on the card
-    (``WIMJob.make_finetune_step``), False runs it eagerly."""
+    off a mesh) replays the fine-tune step and each both-prior batch as
+    CUDA graphs on the card (``WIMJob.make_finetune_step``,
+    :func:`both_prior_graph`), False runs them eagerly."""
     cfg = wim.cfg
     assert wim.alternate_prior_cfg is not None, 'set_alternate_prior first'
     moving_batch_size = moving_batch_size or batch_size
@@ -293,7 +312,8 @@ def finetune(wim: WIMJob,
                                           if not is_wim_method(m)],
                                   update_self_ood=False, recording=True,
                                   record_dir=init_dir,
-                                  from_where=('compute',), mesh=eng_mesh)
+                                  from_where=('compute',), mesh=eng_mesh,
+                                  graphed=graphed)
         save_json(pre, os.path.join(init_dir, 'ood.json'))
 
     # ---- fine-tune loop (ref ft/job.py:356-424)
@@ -357,10 +377,13 @@ def finetune(wim: WIMJob,
     job.training_parameters['wim'] = dict(wim.ft_params)
 
     # ---- post-tuning evaluation with WIM scores (ref ft/job.py:433-477)
+    # one graph and one generator for every set, reseeded per set (as a
+    # fresh generator of that seed draws), so that the captures carry over
     eval_seed = seed + EVAL_SEED_OFFSET
-    ind_losses = _both_prior_losses(wim, testset, test_batch_size,
-                                    make_generator(dev, eval_seed),
-                                    mesh=eng_mesh)
+    graph = both_prior_graph(wim, eng_mesh, graphed)
+    gen = make_generator(dev, eval_seed)
+    ind_losses = _both_prior_losses(wim, testset, test_batch_size, gen,
+                                    mesh=eng_mesh, graph=graph)
     ind_scores = wim_scores_for_set(wim, ind_losses, methods)
 
     epoch_key = job.trained
@@ -368,8 +391,8 @@ def finetune(wim: WIMJob,
     ood_loss_sets = {}
     for i, ood in enumerate(oodsets):
         ood_losses = _both_prior_losses(wim, ood, test_batch_size,
-                                        make_generator(dev, eval_seed + i + 1),
-                                        mesh=eng_mesh)
+                                        gen.manual_seed(eval_seed + i + 1),
+                                        mesh=eng_mesh, graph=graph)
         ood_loss_sets[ood.name] = ood_losses
         ood_scores = wim_scores_for_set(wim, ood_losses, methods)
         job.ood_results[epoch_key].setdefault(ood.name, {})

@@ -7,7 +7,7 @@ Port of ``joint_vae_tpu/ft/wim.py`` (ref ``ft/wim.py``):
   added (``set_alternate_prior``, ref :95-105);
 - evaluation on both priors produces '@'-suffixed loss twins
   (``evaluate_on_both_priors``, ref :114-130): a second ``evaluate`` call
-  with ``prior_override`` and the same latent noise;
+  with ``prior_override`` and the same latent noise, drawn once;
 - WIM score grammar (ref :132-201): for k in {kl: -1, zdist: -1/2,
   iws: +1, elbo (= -total): +1} with estimated labels y-hat,
     k~   = sign_k * losses[k][y-hat]
@@ -34,7 +34,7 @@ import torch
 
 from ..device import module_device
 from ..models.cvnet import CVNet, CVNetConfig
-from ..models.evaluate import evaluate
+from ..models.evaluate import draw_eval_epsilon, evaluate
 from ..ops.priors import PriorConfig, build_prior_config, init_prior_arrays
 from ..parallel.mesh import mesh_scope, split_names
 from ..parallel.shard_steps import global_grad_norm, reduce_step
@@ -107,22 +107,18 @@ class WIMJob:
                                 generator: Optional[torch.Generator] = None):
         """(x_reco, logits, losses + '@' twins, measures)
         (ref ft/wim.py:114-130).  Both evaluations take the same latent
-        noise: ``eps``, or the same draw from ``generator`` (its state is
-        replayed for the second call), as the JAX package gives both one
-        key."""
+        noise, as the JAX package gives both one key: ``eps``, or one draw
+        from ``generator`` (``models/evaluate.py::draw_eval_epsilon``, the
+        numbers the first evaluation would draw itself) passed to both."""
         model = self.model
-        replay = generator.get_state() if generator is not None else None
+        if eps is None:
+            eps = draw_eval_epsilon(self.cfg, x.shape[0], L,
+                                    generator=generator, device=x.device)
         out = evaluate(model, x, None, sigma_state=sigma_state, train=False,
-                       L=L, decode_mean=decode_mean, eps=eps,
-                       generator=generator)
-        if replay is not None:
-            after = generator.get_state()
-            generator.set_state(replay)
+                       L=L, decode_mean=decode_mean, eps=eps)
         alt = evaluate(model, x, None, sigma_state=sigma_state, train=False,
                        L=L, decode_mean=decode_mean, eps=eps,
-                       generator=generator, prior_override=self.alternate)
-        if replay is not None:
-            generator.set_state(after)
+                       prior_override=self.alternate)
         losses = dict(out.losses)
         losses.update({k + '@': v for k, v in alt.losses.items()
                        if not k.endswith('~')})

@@ -18,9 +18,11 @@ stride-s deconv whose sub-pixel form keeps the grid, runs through
 :class:`ops.same_grid_conv.SameGridConvFn` (the CUDA kernel on the card,
 forward and input gradient); the 1x1 latent expansion is one
 ``torch.matmul``.  The rest is PyTorch, gradients included: strided convs
-and stride-1 convs that change the grid (``F.conv2d``), the other strided
-deconvs (``F.conv_transpose2d``), pooling, upsampling and BatchNorm (flax
-semantics in both modes).  The JAX package's TPU-only lowerings (the
+and stride-1 convs that change the grid (``F.conv2d``; in float32 its
+backward on cuDNN's deterministic algorithms, :class:`DeterministicConvFn`),
+the other strided deconvs (``F.conv_transpose2d``), pooling, upsampling
+and BatchNorm (flax semantics in both modes).  The JAX package's TPU-only
+lowerings (the
 phase-packed decoder whose packing persists through later layers, the
 grouped and c0-packed first conv) are not ported.
 Parameters keep the JAX tree names (``conv_3``, ``deconv_1``, ``bn_2``) and
@@ -390,6 +392,43 @@ def conv_route(pl: LayerPlan, h: int, w: int) -> Tuple[str, Tuple[int, int]]:
 HWIO_ROUTES = ('same_grid', 'subpixel', 'matmul')
 
 
+class DeterministicConvFn(torch.autograd.Function):
+    """``F.conv2d(x, w, stride=s, padding=p)`` (no bias, OIHW) whose
+    backward runs ``convolution_backward`` under cuDNN's deterministic
+    algorithms, so that a float32 train step repeats from a seed: cuDNN's
+    default float32 data gradient at the flagship's features conv_4 (7x7,
+    64 -> 200, 8x8 -> 2x2) sums in no fixed order
+    (``scripts/torch_determinism_probe.py``).  Only float32 inputs take
+    it: the bfloat16 defaults repeat (the same probe).  The switch holds
+    for this backward call only, and is read where the backward is
+    launched, so
+    that a captured step's graph holds the deterministic kernels.  The
+    forward is ``F.conv2d``'s, and on the CPU the gradients are the
+    autograd of ``F.conv2d`` bit for bit (the same ``convolution_backward``
+    call)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        s, p = ctx.stride, ctx.padding
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [s, s], [p, p], [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        finally:
+            torch.backends.cudnn.deterministic = was
+        return gx, gw, None, None
+
+
 class ConvLayer(nn.Module):
     """One conv/deconv site of plan ``pl`` on an (h, w) input: ``weight``
     in its route's layout — HWIO for 'same_grid', 'subpixel' and 'matmul'
@@ -454,7 +493,9 @@ class ConvLayer(nn.Module):
                 if lo != hi or lo < 0:
                     xc = F.pad(xc, (lo, hi, lo, hi))
                     lo = 0
-                y = F.conv2d(xc, wt, stride=self.stride, padding=lo)
+                y = (DeterministicConvFn.apply(xc, wt, self.stride, lo)
+                     if xc.dtype == torch.float32 else
+                     F.conv2d(xc, wt, stride=self.stride, padding=lo))
             else:
                 y = F.conv_transpose2d(xc, wt, stride=self.stride,
                                        padding=self.padding,

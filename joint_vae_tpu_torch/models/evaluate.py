@@ -30,7 +30,7 @@ import torch
 from ..ops.iws import iws_combine
 from ..ops.losses import categorical_loss, mse_loss, x_loss
 from ..ops.priors import Params, PriorConfig, prior_kl, prior_log_density
-from ..ops.sampling import reparameterize
+from ..ops.sampling import draw_epsilon, reparameterize
 from ..ops.sigma import (SigmaState, sigma_value, update_sigma_coded,
                          update_sigma_rmse)
 from ..parallel.mesh import gather_uneven, sample_blocks, sample_split
@@ -51,6 +51,24 @@ class EvalOutput:
     log_var: torch.Tensor
     z: torch.Tensor
     sigma_state: SigmaState
+
+
+def draw_eval_epsilon(cfg, n: int, L: Optional[int] = None, *,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> torch.Tensor:
+    """The (L+1, [C,] n, K) latent noise (row 0 zeros) that
+    :func:`evaluate` draws from ``generator`` for a batch of ``n`` inputs
+    without labels at inference (``train=False``, where it is the only
+    draw): the same numbers, in the same dtype, so that passing it as
+    ``eps`` gives the same evaluation and leaves the generator where the
+    call would (a y-coded type's leading class axis included).  ``L``
+    defaults to the config's test L."""
+    L = cfg.test_latent_sampling if L is None else L
+    shape = ((cfg.num_labels,) if cfg.y_is_coded else ()) + (
+        n, cfg.latent_dim)
+    dist = 'uniform' if cfg.prior.distribution == 'uniform' else 'gaussian'
+    return draw_epsilon(shape, L, dist, generator=generator, device=device,
+                        dtype=cfg.dtype)
 
 
 def evaluate(model: CVNet, x: torch.Tensor, y: Optional[torch.Tensor] = None,

@@ -1,41 +1,70 @@
-"""CUDA graphs of the port's steps: the counterpart of ``jax.jit`` for a
-step.
+"""CUDA graphs of the port's one-program steps and scoring batches: the
+counterpart of ``jax.jit``.
 
-The JAX package runs each hot step as one compiled program that the host
-dispatches once: the train step (``joint_vae_tpu/train/steps.py:80``,
+The JAX package runs each hot program as one compiled program that the
+host dispatches once: the train step (``joint_vae_tpu/train/steps.py:80``,
 ``jax.jit(step, donate_argnums=(0,))``), the device-fed step and the fused
-whole-epoch program (``train/device_data.py:150-191``) and the WIM
-fine-tune step (``ft/job.py:314-316``).  On the card the counterpart is a
-CUDA graph: the step captured once, replayed by one host call per step.
+whole-epoch program (``train/device_data.py:150-191``), the WIM fine-tune
+step (``ft/job.py:314-316``), and the scoring programs: the Scorer's
+``jax.jit run`` (``serve.py:58``), the engines' ``eval_batch`` /
+``eval_scan`` (``evals/engines.py:148-161``) and the fine-tune flow's
+both-prior ``eval_batch`` (``ft/job.py:101-105``).  On the card the
+counterpart is a CUDA graph: the body captured once per input shapes,
+replayed by one host call per step or batch.
 
-A :class:`StepGraph` holds a step body ``body(state, **inputs) -> {name:
-0-dim tensor}`` that updates the state's tensors in place and reads every
-value that moves between steps (learning rate, Adam's count, the warmup
-ramps, the prior-mean thaw) from 0-dim device tensors, so that a replay
-computes what the eager body computes.  It owns the static input buffers
-(one set per input shapes: the loaders drop their last batch, so a run
-has one), packs the metrics into one float32 vector (its output), and on
-the card:
+:class:`GraphRunner` is what both kinds share.  It owns the static input
+buffers (one set per input shapes: the loaders drop a
+train set's last batch, so a run has one; a scored set's ragged tail has
+its own), and on the card:
 
-- runs the first step of each buffer set eagerly on its side stream as a
-  real step (it moves the parameters, the moments, sigma and the
+- runs the first call of each buffer set eagerly on a side stream as a
+  real step or batch (it moves the parameters, the moments, sigma and the
   generator; nothing is restored), so that every library handle, plan
   and kernel library is made before the capture;
 - then captures the body on that stream in the default
   ``capture_error_mode``, with the run's generator registered
   (``register_generator_state``: each replay draws the numbers the eager
-  step would), into a private memory pool, and replays it from then on.
-  A capture that fails raises; nothing falls back to eager steps.
+  body would), and replays it from then on.  A capture that fails
+  raises; nothing falls back to eager runs.
+
+Every runner warms up and captures on one side stream per card, so
+that the warm-ups of every runner reuse the same cached memory.  The
+entries of one runner share one private memory pool: they never replay
+at the same time, so a ragged tail's graph reuses the full batch's
+intermediates, and a graph's outputs are taken (copied or pulled to
+the host) before the runner replays again.  (A pool is not shared
+between runners: PyTorch 2.11 cannot capture into a pool again once
+every graph of it is gone.)  A capture neither synchronises nor
+empties the allocator's cache, as ``torch.cuda.graph`` does: the card
+runs the batches queued while the host captures.  The cache is given
+back first only when it holds more idle memory than the card has free.
+
+A new owner (a step's generator, optimizer and sigma state; a scoring
+batch's generator and whatever else its caller names) means new
+captures: the ones held and their pool are dropped, and the owners are
+held, so that no other object takes their place.
 
 The kernel wrappers count their launches where they call their kernels:
-in eager steps, in the warm-up and in the capture, never in a replay,
+in eager runs, in the warm-up and in the capture, never in a replay,
 which calls no wrapper.  What a replay launches is read from the graph
 instead: at capture the graph's kernel nodes are counted by their
 functions' names, per kernel source of ``ops/cuda_lib.py``, and must
 equal the launches the wrappers counted while capturing, or the capture
 raises.  ``captures`` records each capture's seconds, launches, kernel
-nodes and pool bytes; :data:`steps_run` counts every graph's steps by how
-they ran.
+nodes and the bytes it added to the pool; :data:`steps_run` counts the
+step graphs' steps and :data:`batches_run` the scoring graphs' batches
+by graph name, each by how they ran.
+
+A :class:`StepGraph` holds a step body ``body(state, **inputs) -> {name:
+0-dim tensor}`` that updates the state's tensors in place and reads every
+value that moves between steps (learning rate, Adam's count, the warmup
+ramps, the prior-mean thaw) from 0-dim device tensors, so that a replay
+computes what the eager body computes; it packs the metrics into one
+float32 vector (its output).  A :class:`ScoreGraph` holds a scoring body
+``body(generator, **inputs) -> {name: tensor}`` (losses, logits, scores)
+that changes no state but the generator's; its outputs are static
+tensors that the next replay overwrites, so the caller takes copies or
+pulls them to the host first.
 
 The backward of a captured step accumulates each parameter's gradient on
 the stream its gradient accumulator was made on: the side stream, when
@@ -46,32 +75,39 @@ the capture then fails; drop it first.
 
 On the CPU, which only a caller's explicit ``device='cpu'`` reaches, the
 same body runs eagerly on the same static buffers.  ``graphed=False``
-runs the body eagerly on the inputs as given (the mesh step, and the eager
-reference that ``chip_smoke.py`` holds a graph against).
+runs the body eagerly on the inputs as given (a mesh step or batch, and
+the eager reference that ``chip_smoke.py`` holds a graph against).
 """
 
 import ctypes
 import dataclasses
 import time
 import weakref
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
 from ..ops import cuda_lib
 
 
-# every graph's steps since :func:`reset_steps_run`, by how they ran:
+_HOW = ('eager', 'captured', 'replayed')
+# every runner's warm-up and capture stream, by card (module docstring)
+_side_streams: Dict[torch.device, Any] = {}
+# every step graph's steps since :func:`reset_steps_run`, by how they ran:
 # 'eager' (the body called: an eager step, a warm-up, a step on the CPU),
 # 'captured' (the body recorded into a graph; that step then runs as a
 # replay) and 'replayed'.  The wrappers count the launches of the eager and
 # captured ones.
-steps_run = {'eager': 0, 'captured': 0, 'replayed': 0}
+steps_run = dict.fromkeys(_HOW, 0)
+# the same for the scoring graphs' batches, by graph name
+batches_run: Dict[str, Dict[str, int]] = {}
 
 
 def reset_steps_run() -> None:
+    """:data:`steps_run` and :data:`batches_run` to 0."""
     for k in steps_run:
         steps_run[k] = 0
+    batches_run.clear()
 
 
 @dataclasses.dataclass
@@ -113,29 +149,147 @@ class PackedMetrics(dict):
 @dataclasses.dataclass
 class _Entry:
     buffers: Dict[str, torch.Tensor]
-    warm: bool = False               # its eager warm-up step has run
+    warm: bool = False               # its eager warm-up has run
     graph: Optional[torch.cuda.CUDAGraph] = None
-    out: Optional[torch.Tensor] = None
+    out: Any = None
 
 
-class StepGraph:
-    """One step body, captured per input shapes and replayed (module
-    docstring).  Each step adds its packed metrics into :attr:`sums`
-    inside the step (the fused epoch's carry)."""
+def _outputs(out) -> List[torch.Tensor]:
+    return [out] if isinstance(out, torch.Tensor) else list(out.values())
+
+
+class GraphRunner:
+    """The static buffers, warm-up, capture, replay and run counts that a
+    step graph and a scoring graph share (module docstring)."""
 
     def __init__(self, body: Callable, *, name: str, graphed: bool = True):
-        # a step object's own method is held weakly: the object owns this
+        # an object's own method is held weakly: the object owns this
         # graph, and the graph's memory goes with the object
         self._body = (weakref.WeakMethod(body) if hasattr(body, '__self__')
                       else lambda: body)
         self.name = name
         self.graphed = graphed
-        self.names: Optional[List[str]] = None
-        self.sums: Optional[torch.Tensor] = None
         self.captures: List[dict] = []
         self._entries: Dict[tuple, _Entry] = {}
         self._owner: tuple = ()
-        self._stream = None
+        self._pool = None               # the entries' graph pool
+
+    def _count(self, how: str) -> None:
+        steps_run[how] += 1
+
+    def _entry(self, owner: tuple, given: dict) -> _Entry:
+        """The buffers for ``given``'s shapes, dtypes and devices, filled
+        from ``given``.  A new ``owner`` drops the entries held."""
+        if (len(owner) != len(self._owner)
+                or any(a is not b for a, b in zip(owner, self._owner))):
+            self._entries.clear()
+            self._pool = None
+            self._owner = owner
+        key = tuple(
+            (k, tuple(v.shape), v.src.dtype if isinstance(v, Rows)
+             else v.dtype, (v.src if isinstance(v, Rows) else v).device)
+            for k, v in sorted(given.items()))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = _Entry(buffers={
+                k: torch.empty(shape, dtype=dt, device=dev)
+                for k, shape, dt, dev in key})
+        for k, v in given.items():
+            if isinstance(v, Rows):
+                v.into(entry.buffers[k])
+            else:
+                entry.buffers[k].copy_(v)
+        return entry
+
+    def _run(self, entry: _Entry, generator: Optional[torch.Generator],
+             fn: Callable):
+        """``fn(buffers)``: on the CPU; on the card as the entry's warm-up,
+        else captured once and replayed.  Returns its outputs (a replay's
+        are the graph's static ones)."""
+        dev = next(iter(entry.buffers.values())).device
+        if dev.type != 'cuda':
+            self._count('eager')
+            return fn(entry.buffers)
+        side = _side_streams.get(dev)
+        if side is None:
+            side = _side_streams[dev] = torch.cuda.Stream(dev)
+        if not entry.warm:
+            entry.warm = True
+            self._count('eager')
+            cur = torch.cuda.current_stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out = fn(entry.buffers)
+            cur.wait_stream(side)
+            for t in _outputs(out):
+                t.record_stream(cur)
+            return out
+        if entry.graph is None:
+            self._capture(entry, generator, dev, side, fn)
+        entry.graph.replay()
+        self._count('replayed')
+        return entry.out
+
+    def _capture(self, entry: _Entry, generator: Optional[torch.Generator],
+                 dev: torch.device, side, fn: Callable) -> None:
+        # kept, to count its kernel nodes before it is instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if generator is not None:
+            graph.register_generator_state(generator)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        idle = (torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
+        if torch.cuda.mem_get_info(dev)[0] < idle:
+            torch.cuda.empty_cache()
+        grown = _malloced(dev)
+        before = cuda_lib.launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=self._pool)
+            try:
+                entry.out = fn(entry.buffers)
+            finally:
+                graph.capture_end()
+        nodes = kernel_nodes(graph.raw_cuda_graph())
+        graph.instantiate()
+        capture_s = time.perf_counter() - t0
+        after = cuda_lib.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        if nodes is not None and nodes['by_source'] != cuda_lib.by_source(
+                launches):
+            raise RuntimeError(
+                '{}: the graph holds {} kernel nodes of the port\'s kernels, '
+                'its capture launched {}'.format(self.name, nodes['by_source'],
+                                                 launches))
+        self._count('captured')
+        entry.graph = graph
+        self.captures.append({
+            'name': self.name,
+            'inputs': {k: list(v.shape) for k, v in entry.buffers.items()},
+            'capture_s': capture_s,
+            'launches': {k: v for k, v in launches.items() if v},
+            'kernel_nodes': None if nodes is None else nodes['total'],
+            'kernel_nodes_by_source': None if nodes is None
+            else nodes['by_source'],
+            'pool_bytes': _malloced(dev) - grown})
+
+
+def _malloced(dev: torch.device) -> int:
+    """The bytes the allocator has taken from the card so far (a private
+    pool's growth: it never takes the cache's blocks)."""
+    return torch.cuda.memory_stats(dev)['reserved_bytes.all.allocated']
+
+
+class StepGraph(GraphRunner):
+    """One step body, captured per input shapes and replayed (module
+    docstring).  Each step adds its packed metrics into :attr:`sums`
+    inside the step (the fused epoch's carry)."""
+
+    def __init__(self, body: Callable, *, name: str, graphed: bool = True):
+        super().__init__(body, name=name, graphed=graphed)
+        self.names: Optional[List[str]] = None
+        self.sums: Optional[torch.Tensor] = None
 
     # ---- the body, packed ----------------------------------------------
     def _packed(self, state, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -167,93 +321,47 @@ class StepGraph:
         output on the card."""
         given = {k: v for k, v in inputs.items() if v is not None}
         if not self.graphed:
-            steps_run['eager'] += 1
+            self._count('eager')
             return self.metrics(self._packed(state, {
                 k: v.value() if isinstance(v, Rows) else v
                 for k, v in given.items()}))
-        entry = self._entry(state, given)
-        for k, v in given.items():
-            if isinstance(v, Rows):
-                v.into(entry.buffers[k])
-            else:
-                entry.buffers[k].copy_(v)
-        out = self._run(state, entry)
+        # a new generator, optimizer or sigma state means new captures
+        entry = self._entry((state.generator, state.opt_state,
+                             state.sigma_state.data, state.sigma_state.rmse),
+                            given)
+        out = self._run(entry, state.generator,
+                        lambda bufs: self._packed(state, bufs))
         return self.metrics(out.clone() if entry.graph is not None else out)
 
-    def _entry(self, state, given) -> _Entry:
-        # a new generator, optimizer or sigma state means new captures; the
-        # ones captured are held, so that no other object takes their place
-        owner = (state.generator, state.opt_state, state.sigma_state.data,
-                 state.sigma_state.rmse)
-        if (len(owner) != len(self._owner)
-                or any(a is not b for a, b in zip(owner, self._owner))):
-            self._entries.clear()
-            self._owner = owner
-        key = tuple((k, tuple(v.shape), v.src.dtype if isinstance(v, Rows)
-                     else v.dtype, (v.src if isinstance(v, Rows) else v).device)
-                    for k, v in sorted(given.items()))
-        entry = self._entries.get(key)
-        if entry is None:
-            entry = self._entries[key] = _Entry(buffers={
-                k: torch.empty(shape, dtype=dt, device=dev)
-                for k, shape, dt, dev in key})
-        return entry
 
-    def _run(self, state, entry: _Entry) -> torch.Tensor:
-        dev = next(iter(entry.buffers.values())).device
-        if dev.type != 'cuda':
-            steps_run['eager'] += 1
-            return self._packed(state, entry.buffers)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        if not entry.warm:
-            entry.warm = True
-            steps_run['eager'] += 1
-            cur = torch.cuda.current_stream(dev)
-            self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
-                out = self._packed(state, entry.buffers)
-            cur.wait_stream(self._stream)
-            return out
-        if entry.graph is None:
-            self._capture(state, entry, dev)
-        entry.graph.replay()
-        steps_run['replayed'] += 1
-        return entry.out
+class ScoreGraph(GraphRunner):
+    """One scoring body ``body(generator, **inputs) -> {name: tensor}``,
+    captured per input shapes and replayed (module
+    docstring); its batches count in :data:`batches_run` under its
+    name."""
 
-    def _capture(self, state, entry: _Entry, dev: torch.device) -> None:
-        # kept, to count its kernel nodes before it is instantiated
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(state.generator)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = cuda_lib.launch_counts()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream):
-            entry.out = self._packed(state, entry.buffers)
-        nodes = kernel_nodes(graph.raw_cuda_graph())
-        graph.instantiate()
-        capture_s = time.perf_counter() - t0
-        after = cuda_lib.launch_counts()
-        launches = {k: after[k] - before[k] for k in after}
-        if nodes is not None and nodes['by_source'] != cuda_lib.by_source(
-                launches):
-            raise RuntimeError(
-                '{}: the graph holds {} kernel nodes of the port\'s kernels, '
-                'its capture launched {}'.format(self.name, nodes['by_source'],
-                                                 launches))
-        steps_run['captured'] += 1
-        entry.graph = graph
-        self.captures.append({
-            'name': self.name,
-            'inputs': {k: list(v.shape) for k, v in entry.buffers.items()},
-            'capture_s': capture_s,
-            'launches': {k: v for k, v in launches.items() if v},
-            'kernel_nodes': None if nodes is None else nodes['total'],
-            'kernel_nodes_by_source': None if nodes is None
-            else nodes['by_source'],
-            'pool_bytes': torch.cuda.memory_reserved(dev) - reserved})
+    def _count(self, how: str) -> None:
+        runs = batches_run.setdefault(self.name, dict.fromkeys(_HOW, 0))
+        runs[how] += 1
+
+    def __call__(self, generator: Optional[torch.Generator], *,
+                 owner: tuple = (), **inputs) -> Dict[str, torch.Tensor]:
+        """One batch on ``inputs`` (tensors, or None for an input not
+        given; the buffers live on each input's device), its noise drawn
+        from ``generator``.  ``owner``: objects besides the generator
+        whose change means new captures.  Returns the body's outputs,
+        after a capture copies of the graph's static ones."""
+        given = {k: v for k, v in inputs.items() if v is not None}
+        body = self._body()
+        if not self.graphed:
+            self._count('eager')
+            return body(generator, **given)
+        entry = self._entry((generator,) + tuple(owner), given)
+        out = self._run(entry, generator,
+                        lambda bufs: body(generator, **bufs))
+        if entry.graph is not None:
+            out = {k: v.clone() for k, v in out.items()}
+        return out
 
 
 class _KernelNodeParams(ctypes.Structure):

@@ -99,8 +99,8 @@ def train_model(job: Job,
     (``get_dataset``), its test split as the testset.  ``device_data``
     feeds the steps from a copy of the training set on the device;
     ``mesh`` trains on a device mesh (module docstring); ``graphed``
-    (default: True off a mesh) replays the step as a CUDA graph on the
-    card, False runs it eagerly."""
+    (default: True off a mesh) replays the step and the engines' scoring
+    batches as CUDA graphs on the card, False runs them eagerly."""
     if trainset is None:
         name = job.training_parameters.get('set') or 'cifar10'
         trainset, ts = get_dataset(name)
@@ -177,11 +177,11 @@ def train_model(job: Job,
             ood_detection_rates(job, testset, oodsets,
                                 batch_size=test_batch_size, epoch=epoch,
                                 num_batch=eval_num_batch, outputs=outputs,
-                                mesh=eng_mesh)
+                                mesh=eng_mesh, graphed=graphed)
         if full_test and testset is not None and cfg.predict_methods:
             accuracy(job, testset, batch_size=test_batch_size, epoch=epoch,
                      num_batch=eval_num_batch, outputs=outputs,
-                     mesh=eng_mesh)
+                     mesh=eng_mesh, graphed=graphed)
 
         # per-epoch LR decay (ref optimizer.update_lr, optimizers.py:123-127)
         set_learning_rate(state.opt_state, job.opt_cfg.lr_at_epoch(epoch))
@@ -279,11 +279,11 @@ def train_model(job: Job,
     if signal_handler.sig <= 3 and testset is not None:
         if cfg.predict_methods and final_test:
             accuracy(job, testset, batch_size=test_batch_size,
-                     outputs=outputs, mesh=eng_mesh)
+                     outputs=outputs, mesh=eng_mesh, graphed=graphed)
         if oodsets and final_ood:
             ood_detection_rates(job, testset, oodsets,
                                 batch_size=test_batch_size, outputs=outputs,
-                                mesh=eng_mesh)
+                                mesh=eng_mesh, graphed=graphed)
         if save_dir:
             save_job(job, save_dir)
     return job

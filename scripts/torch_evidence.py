@@ -86,11 +86,19 @@ def steps_run() -> dict:
     return dict(run)
 
 
+def batches_run() -> dict:
+    """The scoring graphs' batches by graph name and how they ran (as
+    :func:`steps_run` counts steps)."""
+    from joint_vae_tpu_torch.train.graphs import batches_run as run
+    return {n: dict(r) for n, r in run.items()}
+
+
 class Stopwatch:
-    """Seconds, launches and steps of a stretch of device work:
-    synchronised at both ends, the launches and steps counted as the
-    difference of the wrappers' counts and of :func:`steps_run` (which it
-    leaves running)."""
+    """Seconds, launches, steps and scored batches of a stretch of device
+    work: synchronised at both ends, the launches, steps and batches
+    counted as the difference of the wrappers' counts, of
+    :func:`steps_run` and of :func:`batches_run` (which it leaves
+    running)."""
 
     def __init__(self, device):
         self.device = device
@@ -99,6 +107,7 @@ class Stopwatch:
         sync(self.device)
         self.before = launches()
         self.before_steps = steps_run()
+        self.before_batches = batches_run()
         self.t0 = time.perf_counter()
         return self
 
@@ -108,6 +117,9 @@ class Stopwatch:
         self.launches = {k: v - self.before[k] for k, v in launches().items()}
         self.steps_run = {k: v - self.before_steps[k]
                           for k, v in steps_run().items()}
+        self.batches_run = {
+            n: {k: v - self.before_batches.get(n, {}).get(k, 0)
+                for k, v in r.items()} for n, r in batches_run().items()}
 
 
 def pretrain(job, trainset, epochs: int, batch_size: int = PRETRAIN_BATCH,
@@ -153,7 +165,7 @@ def timed_finetune(finetune, wim, *args, batch_size: int,
     return {'seconds': sw.seconds, 'loop_seconds': loop_s,
             'eval_seconds': sw.seconds - loop_s, 'steps': clock.steps,
             'images_per_s': images / loop_s, 'launches': sw.launches,
-            'steps_run': sw.steps_run}
+            'steps_run': sw.steps_run, 'batches_run': sw.batches_run}
 
 
 def best(results: dict) -> dict:

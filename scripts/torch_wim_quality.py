@@ -90,7 +90,8 @@ def tune_and_score(job, trainset, testset, oodsets, moving, *, alpha: float,
                         test_batch_size=test_batch_size,
                         ood_methods=POST_METHODS, seed=0)
     return {'pre': pre, 'post': job.ood_results[job.trained],
-            'pre_eval': {'seconds': sw.seconds, 'launches': sw.launches},
+            'pre_eval': {'seconds': sw.seconds, 'launches': sw.launches,
+                         'batches_run': sw.batches_run},
             'finetune': ft}
 
 

@@ -1,8 +1,13 @@
-"""The step graphs (``train/graphs.py``) on the card: each graphed step
+"""The graphs (``train/graphs.py``) on the card: each graphed step
 against its eager step from one state, bit for bit (every metric,
 parameter, BatchNorm buffer, Adam moment, the sigma state, the
 generator's state and the host counts), the launch counters, the
-generator's draws, and a capture that fails raising.  Every test here
+generator's draws, and a capture that fails raising; the Scorer's graph
+against its eager self in both dtypes, its reseeded default noise, each
+capture's kernel nodes by name; the OOD engine's graph with ODIN's
+input gradient in it against its eager self; float32 training repeating
+from a seed under the port's defaults (no ``cudnn.deterministic``).
+Every test here
 needs a CUDA card and skips without one; the file imports neither jax nor
 the JAX package:
 
@@ -10,6 +15,7 @@ the JAX package:
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -39,9 +45,8 @@ STEPS = 4
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the step graphs capture on one')
-    torch.backends.cudnn.deterministic = True
+    assert not torch.backends.cudnn.deterministic
     yield torch.device('cuda')
-    torch.backends.cudnn.deterministic = False
 
 
 def _tensors(job) -> dict:
@@ -260,3 +265,183 @@ def test_capture_failure_raises(cuda_device):
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split()[0] == 'RAISED', out.stdout
     assert out.stdout.split()[-1] == 'True', out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_scorer_graph_equals_eager(dtype, cuda_device):
+    """One batch three times from a caller's generator (new noise each
+    time), three times with the default noise (seed 0 every call: the
+    registered generator reseeded, the same noise), a ragged batch three
+    times: every output and the generator's state bit for bit against
+    eager; one capture per generator and batch shape, each holding the
+    conv's kernel nodes and one of the combine's, by name."""
+    from joint_vae_tpu_torch.serve import Scorer
+    cfg = dataclasses.replace(flagship_config(tiny=True),
+                              compute_dtype=dtype)
+    job = new_job(cfg, seed=1, device=cuda_device)
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0, 1, (16,) + cfg.input_shape).astype(np.float32)
+    tail = x[:5]
+    methods = ('iws', 'elbo', 'zdist', 'soft', 'iws-2s')
+    got = {}
+    for graphed in (False, True):
+        scorer = Scorer(job, methods=methods, graphed=graphed,
+                        thresholds={m: 0.0 for m in methods})
+        gen = make_generator(cuda_device, 5)
+        before = cuda_lib.launch_counts()
+        outs = ([scorer(x, generator=gen) for _ in range(3)]
+                + [scorer(x) for _ in range(3)]
+                + [scorer(tail) for _ in range(3)])
+        after = cuda_lib.launch_counts()
+        got[graphed] = (outs, gen.get_state().cpu(), scorer.graph.captures,
+                        {k: after[k] - before[k] for k in after})
+    for e, g in zip(got[False][0], got[True][0]):
+        assert e['label'].tobytes() == g['label'].tobytes()
+        assert e['confidence'].tobytes() == g['confidence'].tobytes()
+        assert e['in_distribution'].tobytes() == \
+            g['in_distribution'].tobytes()
+        for m in methods:
+            assert e['scores'][m].tobytes() == g['scores'][m].tobytes(), m
+    assert torch.equal(got[False][1], got[True][1])
+    # the default noise: the same every call
+    for a, b in ((3, 4), (4, 5), (6, 7), (7, 8)):
+        assert got[True][0][a]['scores']['iws'].tobytes() == \
+            got[True][0][b]['scores']['iws'].tobytes()
+    for a, b in ((0, 1), (1, 2)):
+        assert got[True][0][a]['scores']['iws'].tobytes() != \
+            got[True][0][b]['scores']['iws'].tobytes()
+    caps = got[True][2]
+    per_batch = {k: v // 9 for k, v in got[False][3].items()}
+    assert per_batch['same_grid_conv'] > 0 and per_batch['iws_combine'] == 1
+    assert len(caps) == 3          # gen; the default noise; its ragged batch
+    for c in caps:
+        assert c['kernel_nodes_by_source'] == {
+            'same_grid_conv': per_batch['same_grid_conv'], 'iws_combine': 1}
+    # graphed: each graph's warm-up and capture call the wrappers
+    assert got[True][3] == {k: 6 * v for k, v in per_batch.items()}
+
+
+@pytest.mark.cuda
+def test_reseeded_generator_draws_the_same_noise(cuda_device):
+    """A registered generator reseeded before each replay draws what a
+    fresh generator of that seed draws, every call."""
+    class State:
+        pass
+
+    def draw(generator, x):
+        return {'d': x + torch.randn(x.shape, device=x.device,
+                                     generator=generator)}
+    from joint_vae_tpu_torch.train.graphs import ScoreGraph
+    x = torch.zeros(4096, device=cuda_device)
+    g = ScoreGraph(draw, name='reseeded')
+    gen = make_generator(cuda_device, 0)
+    outs = [g(gen.manual_seed(s), x=x)['d'] for s in (0, 0, 0, 9, 0)]
+    fresh = {s: torch.randn(4096, device=cuda_device,
+                            generator=make_generator(cuda_device, s))
+             for s in (0, 9)}
+    assert len(g.captures) == 1
+    for o, s in zip(outs, (0, 0, 0, 9, 0)):
+        assert torch.equal(o, fresh[s])
+
+
+@pytest.mark.cuda
+def test_float32_training_repeats_from_a_seed(cuda_device):
+    """Two float32 flagship train steps at full width from one state and
+    one seed, twice in one process under the port's defaults: every
+    tensor and metric bit-equal (the 'conv' route's backward runs cuDNN's
+    deterministic algorithms itself, ``models/conv.py``), the switch off
+    again afterwards."""
+    cfg = flagship_config()
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 256) + cfg.input_shape)
+                         .astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.integers(0, cfg.num_labels, (2, 256))
+                         ).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        job = new_job(cfg, OptimizerConfig(lr=1e-4), seed=4,
+                      device=cuda_device)
+        step = make_train_step(job.model, job.opt_cfg)
+        st, ms = job.state, []
+        for i in range(2):
+            st, m = step(st, x[i], y[i])
+            ms.append(m.vector)
+        torch.cuda.synchronize()
+        runs.append((_tensors(job), torch.stack(ms).cpu()))
+        del job, step, st
+    _assert_same(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert not torch.backends.cudnn.deterministic
+
+
+
+@pytest.mark.cuda
+def test_odin_engine_graph_equals_eager(cuda_device):
+    """``ood_detection_rates`` with ODIN methods on a vib, its input
+    gradient captured in the scoring graph (the conv kernel's dx and the
+    float32 strided convs' deterministic backward among its nodes): two
+    sets of two full batches and a ragged tail, from a caller's generator
+    and then on the graph held on the job (the default noise), every
+    score, ROC entry and the generator's state bit for bit against
+    ``graphed=False``; each capture holding, by name, the kernel nodes
+    of one eager batch's launches."""
+    from joint_vae_tpu_torch.evals import engines
+    from joint_vae_tpu_torch.ops.priors import PriorConfig
+    from joint_vae_tpu_torch.save_load.jobs import load_job, save_job
+    import tempfile
+    cfg = dataclasses.replace(flagship_config(tiny=True), type='vib')
+    cfg = dataclasses.replace(cfg, prior=PriorConfig(dim=cfg.latent_dim))
+    methods = ['odin-1-0.0000', 'odin-1-0.0020', 'odin-10-0.0020',
+               'baseline', 'logits']
+    rng = np.random.default_rng(17)
+    sets = [ArrayDataset(rng.uniform(0, 1, (n,) + cfg.input_shape)
+                         .astype(np.float32),
+                         rng.integers(0, cfg.num_labels, n), name)
+            for n, name in ((40, 'test'), (40, 'ooda'))]
+    kw = dict(batch_size=16, method=methods, from_where=('compute',),
+              update_self_ood=False, recording=False)
+    got = {}
+    with tempfile.TemporaryDirectory() as d:
+        save_job(new_job(cfg, seed=2, device=cuda_device), d)
+        for graphed in (False, True):
+            job = load_job(d, device=cuda_device)
+            scores = []
+            collect = engines._collect_scores
+
+            def keep(*a, **k):
+                out = collect(*a, **k)
+                scores.append({m: v.cpu() for m, v in out.items()})
+                return out
+            engines._collect_scores = keep
+            try:
+                gen = make_generator(cuda_device, 6)
+                before = cuda_lib.launch_counts()
+                res = [engines.ood_detection_rates(
+                    job, sets[0], sets[1:], generator=gen, graphed=graphed,
+                    **kw)]
+                after = cuda_lib.launch_counts()
+                res.append(engines.ood_detection_rates(
+                    job, sets[0], sets[1:], graphed=graphed, **kw))
+            finally:
+                engines._collect_scores = collect
+            caps = [c for g in engines.held_score_graphs(job).values()
+                    for c in g.captures]
+            got[graphed] = (res, scores, gen.get_state().cpu(), caps,
+                            {k: after[k] - before[k] for k in after})
+    (res, scores, state, _, launched), graph = got[False], got[True]
+    assert json.dumps(res, sort_keys=True) == json.dumps(graph[0],
+                                                         sort_keys=True)
+    assert torch.equal(state, graph[2])
+    assert len(scores) == len(graph[1]) == 4
+    for e, g in zip(scores, graph[1]):
+        assert set(e) == set(g) == set(methods)
+        for m in methods:
+            assert torch.equal(e[m], g[m]), m
+    per_batch = {k: v // 6 for k, v in launched.items()}
+    assert per_batch['same_grid_conv_dx'] > 0
+    # the caller's generator: a full batch and a tail captured; the held
+    # graph's own generator: both again
+    assert len(graph[3]) == 4
+    for c in graph[3]:
+        assert c['kernel_nodes_by_source'] == cuda_lib.by_source(per_batch)

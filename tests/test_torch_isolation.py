@@ -9,7 +9,11 @@ the reference-layout writer and the stub reference checkout that
 ``torch_poscod_quality.py``, ``torch_wim_inversion_study.py``,
 ``torch_reproduce_sota.py``, ``torch_prepare_data.py``, what they
 share, ``torch_evidence.py``, and ``torch_determinism_probe.py``), the
-card-only step-graph tests and ``scripts/torch_graph_probe.py`` imports
+card-only step-graph tests, ``scripts/torch_graph_probe.py``, the job
+store's scripts (``scripts/torch_delete_jobs.py``,
+``torch_rsync_jobs.py``), the step profiler
+(``scripts/torch_profile_step.py``) and the evaluation timer
+(``scripts/torch_eval_times.py``) imports
 jax,
 flax, optax, the JAX package or pandas (the card machine has no pandas:
 the port's result tables are its own), and importing them in a clean
@@ -28,7 +32,9 @@ EVIDENCE_SCRIPTS = ('torch_evidence.py', 'torch_wim_quality.py',
                     'torch_wim_study.py', 'torch_poscod_quality.py',
                     'torch_wim_inversion_study.py',
                     'torch_reproduce_sota.py', 'torch_prepare_data.py',
-                    'torch_determinism_probe.py', 'torch_graph_probe.py')
+                    'torch_determinism_probe.py', 'torch_graph_probe.py',
+                    'torch_delete_jobs.py', 'torch_rsync_jobs.py',
+                    'torch_profile_step.py', 'torch_eval_times.py')
 
 
 def _port_sources():

@@ -17,6 +17,7 @@ from joint_vae_tpu_torch.ops.same_grid_conv import (SameGridConvFn,
                                                     same_grid_conv,
                                                     same_grid_conv_dx,
                                                     same_grid_conv_plain)
+from joint_vae_tpu_torch.train.graphs import batches_run, reset_steps_run
 
 from torch_kernel_cases import (CONV_GEOMS, FLAGSHIP_DX_GEOMS,
                                 FLAGSHIP_SITE_GEOMS, IWS_CASES,
@@ -467,9 +468,12 @@ def test_test_cli_rehard_on_card(tmp_path, cuda_device, monkeypatch):
     """``cli.test --compute rehard`` on the full-width flagship over 32
     images of cifar100 and of cifar10 at batch 16: 8 conv and 1 combine
     launches per batch of its four set passes (accuracy, the OOD engine
-    over both sets, misclassification); then the same run on the CPU, the
-    latent noise injected alike from one numpy array per shape: the saved
-    accuracies, rates and AUCs within 1e-6."""
+    over both sets, misclassification) that ran eagerly or was captured
+    (each engine's batches are scoring graphs; a replay calls no
+    wrapper); then the same run on the CPU, the latent noise injected
+    alike from one numpy array per shape (on the card, copied there once
+    per shape, before any capture reads it): the saved accuracies, rates
+    and AUCs within 1e-6."""
     import json
     import shutil
     import zlib
@@ -480,13 +484,17 @@ def test_test_cli_rehard_on_card(tmp_path, cuda_device, monkeypatch):
     from joint_vae_tpu_torch.models.cvnet import flagship_config
     from joint_vae_tpu_torch.save_load.jobs import new_job, save_job
 
+    made = {}
+
     def noise(mu, log_var, L, dist='gaussian', sampled=True, *, eps=None,
               generator=None):
         shape = (L + 1,) + tuple(mu.shape)
-        rng = np.random.default_rng(zlib.crc32(repr(shape).encode()))
-        e = rng.standard_normal(shape).astype(np.float32)
-        e[0] = 0.0
-        e = torch.from_numpy(e).to(mu.device)
+        if (shape, mu.device) not in made:
+            rng = np.random.default_rng(zlib.crc32(repr(shape).encode()))
+            e = rng.standard_normal(shape).astype(np.float32)
+            e[0] = 0.0
+            made[shape, mu.device] = torch.from_numpy(e).to(mu.device)
+        e = made[shape, mu.device]
         z = mu[None] + torch.exp(0.5 * log_var)[None] * e * float(sampled)
         return z, e[1:]
     monkeypatch.setattr(evaluate, 'reparameterize', noise)
@@ -499,9 +507,12 @@ def test_test_cli_rehard_on_card(tmp_path, cuda_device, monkeypatch):
     argv = ['--compute', 'rehard', '--sets', 'cifar100', 'cifar10',
             '-t', '32', '-M', '16']
     same_grid_conv.launches = iws_combine.launches = 0
+    reset_steps_run()
     assert test_cli.main(['--job-dir', roots['cuda']] + argv) == 0
     torch.cuda.synchronize()
-    batches = 4 * 2
+    assert sum(r['eager'] + r['replayed']
+               for r in batches_run.values()) == 4 * 2
+    batches = sum(r['eager'] + r['captured'] for r in batches_run.values())
     assert (same_grid_conv.launches, iws_combine.launches) == (8 * batches,
                                                                batches)
     assert test_cli.main(['--job-dir', roots['cpu'], '--device', 'cpu']
