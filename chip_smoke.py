@@ -341,7 +341,35 @@ and phase 15 counts them on the card in profiled replays.
    kernel records held to the batches' launches, but for ``cli.test``),
    capture seconds and the bytes each capture added to its graph's pool
    (``score_graphs`` line);
-17. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+17. the JAX package's second geometry, imagenet64
+   (``models/cvnet.py::imagenet64_config``: a cvae with vgg16 features on
+   3x64x64, a [x4:2+1] sub-pixel upsampler with a 5x5 head, widths 2048,
+   K=256, a learned 1000-class gaussian prior, test L=16; 40,566,355
+   parameters) at full width, batch 512 (``bench.py:57``): its 18
+   same-grid sites (13 vgg16 convs, 4 k=4, s=2 sub-pixel deconvs, the
+   head) against their plain versions at a serve batch (n=512 features,
+   8,192 decoder) in float32 and bfloat16 (``im64_conv`` lines) and at
+   the train step's batch 512, forward at 18 and dx at 17 in both dtypes,
+   the im2col dw against float64 with cuDNN's wgrad beside
+   (``im64_train_conv``, ``im64_dx`` lines), each row with its kernel,
+   ms, cuDNN ms and bound; the saved job served by its Scorer graph on 4
+   batches of 512 at L=16 in both dtypes (18 conv and 1 combine
+   launches per eager or captured batch, the capture's 18 + 1 kernel
+   nodes, one batch profiled; in float32 the card against the CPU on 8
+   inputs at phase 4's tolerance: ``im64_serve`` lines); phase 5's
+   ``train`` at 512 in both dtypes (one epoch of 6 batches, a validation
+   split and a test set of 512, save/load exact, 18 forward and 17 dx
+   per eager or captured step, 10 timed steps, one profiled; in float32
+   the card-vs-CPU gate at batch 8) and the graphed step bit for bit
+   against eager over 3 steps (``im64_train_*``, ``im64_graph_bits``
+   lines); one fused bfloat16 epoch fed from a 10,000-image uint8 set
+   on the card and 10 timed device-fed steps (``im64_device_fed``
+   line); ``ood_detection_rates`` at C=1000 on a test set and two OOD
+   sets of 2,048 synthetic images (18 + 1 launches per eager or captured
+   batch, (1000, N) per-class records, the json and recorders tiers
+   with no launch, ROC ms per (set, method): ``im64_ood`` line); all on
+   the ``imagenet64`` line;
+18. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
    ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
@@ -350,16 +378,17 @@ and phase 15 counts them on the card in profiled replays.
    the wrapper's launches in the graphed bit-gate runs and the kernel
    records of the source in each timed case's profiled replay;
    ``launches_score_graphs``: phase 16's, the same of its scoring
-   graphs);
-18. print ``{"ok": true, "device": {...}}`` as the last line.
+   graphs; ``launches_imagenet64`` and ``imagenet64``: phase 17's by
+   main path, and its sites' summed times);
+19. print ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --graphs`` builds the kernels and runs phase 15
-alone; ``--score-graphs`` phase 16.  A Scorer, engine or both-prior
-batch runs as a scoring graph (``train/graphs.py::ScoreGraph``): a
-graph's first batch eager, its second captured, every later one a
-replay (the engines' graphs are held on the job across calls); a check
-of launches "per batch" counts them per eager or captured batch
-(``batches_run``: ``_scored``).
+alone; ``--score-graphs`` phase 16; ``--imagenet64`` phase 17.  A
+Scorer, engine or both-prior batch runs as a scoring graph
+(``train/graphs.py::ScoreGraph``): a graph's first batch eager, its
+second captured, every later one a replay (the engines' graphs are held
+on the job across calls); a check of launches "per batch" counts them
+per eager or captured batch (``batches_run``: ``_scored``).
 
 Bounds: max(bytes / 3.35 TB/s, FLOPs / peak) with float32 at the 3xTF32
 rate (3 x FLOPs / 495 TFLOP/s; the CUDA-core bound at 67 TFLOP/s beside
@@ -409,6 +438,19 @@ dense encoder moves 1/64 of a weight gradient's column, and the
 statistics after the steps follow the weights those gradients moved.
 The trunks alone (resnet50, densenet121) in inference: the conv form at
 1e-4.
+
+Phase 17's imagenet64 in float32: the losses of 3 steps to 1e-4
+relative, and every element of the first step's gradients within the
+flip bound, 5e-2 (|cpu| + rms(cpu)); the share of each tensor's elements
+beyond 1e-4 is reported beside the same share of the CPU's own gradient
+at the input moved by 1e-7 (relative, seeded) and by one ulp, and not
+gated.  Through 13 vgg convs with their ReLUs and max pools and 5
+decoder layers, a rounding-sized move of the input flips discrete
+choices whose effect spreads to every earlier layer: on the CPU alone,
+the 1e-7 move takes 19% of features conv_0's weight gradient beyond
+1e-4 (worst 4.4e-4), 14% of conv_3's (1.3e-3) and 0.19% of conv_8's
+(2.9e-3), to three digits the figures of an H100's gradient against the
+CPU's (the ``imagenet64`` line's ``card_vs_cpu``).
 
 bfloat16 (phase 7).  The conv and its dx in the conv's form at 1.6e-2;
 the weight gradient, summed in float32 and rounded once, within
@@ -462,6 +504,10 @@ TRAIN_LR = 1e-4                           # bench.py:100
 GATE_BATCH, GATE_STEPS = 8, 3
 GRAD_TOL, TRAIN_LOSS_RTOL = 1e-4, 1e-4
 GRAD_FLIP_TOL, GRAD_FLIP_SHARE = 5e-2, 1.0 / 16
+# phase 17's deep trunk: the CPU's own gradient on the input moved by this
+# much (relative, float32 rounding's size) and by one float32 ulp, beside
+# the card's
+ROUNDING_TWIN = 1e-7
 BN_STATS_RTOL = 1e-5
 # the backward spans of SameGridConvFn (record_function)
 SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw')
@@ -552,12 +598,13 @@ def site_inputs(site, dt, g):
     return x, kern, kern
 
 
-def check_conv(sites):
+def check_conv(sites, tag: str = 'conv'):
     """Each site in float32 and bfloat16: kernel vs plain version, then the
     kernel, the plain version and the library call timed.  The library
     call is F.conv2d for a same-grid site and F.conv_transpose2d of the
     true deconv for a sub-pixel site.  FLOPs count the packed conv as
-    launched; the true (de)conv's FLOPs are printed beside them."""
+    launched; the true (de)conv's FLOPs are printed beside them.  Each
+    row is printed on a ``tag`` line."""
     import torch.nn.functional as F
     from joint_vae_tpu_torch.ops.same_grid_conv import (
         kernel_route, same_grid_conv, same_grid_conv_plain)
@@ -606,6 +653,7 @@ def check_conv(sites):
                    'ms': ms, 'plain_ms': plain, 'library_ms': lib,
                    'bound_ms': b, 'bound_by': by,
                    'gflop_launched': flops / 1e9, 'gflop_true': true_flops / 1e9,
+                   'share_of_bound': b / ms,
                    'max_abs_err': err, 'rel_err': rel,
                    'tflops': flops / ms / 1e9}
             if dt == torch.float32:
@@ -623,7 +671,7 @@ def check_conv(sites):
                     lambda: same_grid_conv(x, kd8, lo, lo), reps)
                 del kd8, y8
             rows.append(row)
-            print('conv', json.dumps(row), flush=True)
+            print(tag, json.dumps(row), flush=True)
             if dt == torch.float32:       # the serving path is float32
                 for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
                             'bound_ms_cuda_core'):
@@ -909,21 +957,73 @@ def profile_batch(scorer, x) -> dict:
             rows.append((dev_us / 1e3, ev.key[:60], ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    by_group = {}
+    for ms, key, _ in rows:
+        by_group[_bucket(key)] = by_group.get(_bucket(key), 0.0) + ms
     dgrad = [k for _, k, _ in rows if 'dgrad' in k.lower()]
     if dgrad:
         raise AssertionError('the serve batch still runs a transposed conv '
                              'on cuDNN: {}'.format(dgrad))
     return {'wall_ms': wall_ms, 'device_ms': busy,
             'device_busy_share': busy / wall_ms if wall_ms else None,
+            'by_group_ms': by_group,
             'top': [{'ms': ms, 'kernel': k, 'calls': c}
                     for ms, k, c in rows[:12]]}
+
+
+def serve_thresholds(scores: dict) -> dict:
+    """Each method's gate from a calibration batch's scores: its 5%
+    quantile, or its 5% and 95% ones for a two-sided method."""
+    return {m: ((float(np.quantile(v, 0.05)), float(np.quantile(v, 0.95)))
+                if m.endswith('-2s') else float(np.quantile(v, 0.05)))
+            for m, v in scores.items()}
+
+
+def serve_card_vs_cpu(job, job_dir: str, thresholds: dict, x8) -> dict:
+    """The card against the CPU (the saved job loaded there) on ``x8``
+    with injected noise: ``evaluate``'s every loss and the Scorer's every
+    score at the serving tolerance, and the labels where the CPU's
+    classes are clear of each other."""
+    from joint_vae_tpu_torch.models.evaluate import evaluate
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.serve import Scorer
+    cfg = job.model_cfg
+    L, K = cfg.test_latent_sampling, cfg.latent_dim
+    eps = np.random.default_rng(3).standard_normal(
+        (L + 1, len(x8), K)).astype(np.float32)
+    eps[0] = 0.0
+    res = {}
+    for name, j in (('cuda', job), ('cpu', load_job(job_dir, device='cpu'))):
+        out = evaluate(j.model, torch.as_tensor(x8, device=j.device), None,
+                       sigma_state=j.sigma_state, eps=torch.as_tensor(eps),
+                       decode_mean=False)
+        sc = Scorer(j, methods=METHODS, thresholds=thresholds)(
+            x8, eps=torch.as_tensor(eps))
+        res[name] = ({k: v.cpu().numpy() for k, v in out.losses.items()}, sc)
+    checked = [('loss ' + k, res['cuda'][0][k], want)
+               for k, want in res['cpu'][0].items()]
+    checked += [('score ' + m, res['cuda'][1]['scores'][m],
+                 res['cpu'][1]['scores'][m]) for m in METHODS]
+    worst = {}
+    for name, got, want in checked:
+        err = np.abs(got.astype(np.float64) - want)
+        worst[name] = float(np.max(err / np.maximum(np.abs(want), 1e-30)))
+        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL,
+                                   err_msg='card vs CPU, ' + name)
+    iws_cpu = res['cpu'][0]['iws']
+    top2 = np.sort(iws_cpu, axis=0)[-2:]
+    clear = (top2[1] - top2[0]) > 2 * (SERVE_ATOL + SERVE_RTOL * np.abs(top2[1]))
+    if not np.array_equal(res['cpu'][1]['label'][clear],
+                          res['cuda'][1]['label'][clear]):
+        raise AssertionError('card and CPU labels differ')
+    return {'inputs': len(x8), 'checked': len(checked),
+            'clear_labels': int(clear.sum()), 'worst': worst}
 
 
 def serve(card: str):
     """Phase 4: the flagship through save_job, the CLI and Scorer."""
     from joint_vae_tpu_torch.cli.serve import main as cli_main
     from joint_vae_tpu_torch.models.cvnet import flagship_config
-    from joint_vae_tpu_torch.models.evaluate import evaluate
     from joint_vae_tpu_torch.ops.iws import iws_combine
     from joint_vae_tpu_torch.ops.same_grid_conv import same_grid_conv
     from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
@@ -959,11 +1059,7 @@ def serve(card: str):
 
     calib = Scorer(job, methods=METHODS,
                    thresholds={m: float('-inf') for m in METHODS})(xs[0])
-    thresholds = {}
-    for m in METHODS:
-        s = calib['scores'][m]
-        thresholds[m] = ((float(np.quantile(s, 0.05)), float(np.quantile(s, 0.95)))
-                         if m.endswith('-2s') else float(np.quantile(s, 0.05)))
+    thresholds = serve_thresholds(calib['scores'])
     scorer = Scorer(job, methods=METHODS, thresholds=thresholds)
     scorer(xs[0])                   # its graph's warm-up, then its capture
     scorer(xs[0])
@@ -1023,38 +1119,8 @@ def serve(card: str):
     print('serve_l128', json.dumps(eval128), flush=True)
 
     breakdown = profile_batch(scorer, xs[1])
-
-    # --- card vs CPU on 8 inputs with injected noise ---
-    L, K, n8 = cfg.test_latent_sampling, cfg.latent_dim, 8
-    eps = np.random.default_rng(3).standard_normal((L + 1, n8, K)).astype(np.float32)
-    eps[0] = 0.0
-    x8 = xs[1, :n8]
-    cpu_job = load_job(job_dir, device='cpu')
-    res = {}
-    for name, j in (('cuda', job), ('cpu', cpu_job)):
-        out = evaluate(j.model, torch.as_tensor(x8, device=j.device), None,
-                       sigma_state=j.sigma_state, eps=torch.as_tensor(eps),
-                       decode_mean=False)
-        sc = Scorer(j, methods=METHODS, thresholds=thresholds)(
-            x8, eps=torch.as_tensor(eps))
-        res[name] = ({k: v.cpu().numpy() for k, v in out.losses.items()}, sc)
-    worst, checked = {}, []
-    for k, want in res['cpu'][0].items():
-        checked.append(('loss ' + k, res['cuda'][0][k], want))
-    for m in METHODS:
-        checked.append(('score ' + m, res['cuda'][1]['scores'][m],
-                        res['cpu'][1]['scores'][m]))
-    for name, got, want in checked:
-        err = np.abs(got.astype(np.float64) - want)
-        worst[name] = float(np.max(err / np.maximum(np.abs(want), 1e-30)))
-        np.testing.assert_allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL,
-                                   err_msg='card vs CPU, ' + name)
-    iws_cpu = res['cpu'][0]['iws']
-    top2 = np.sort(iws_cpu, axis=0)[-2:]
-    clear = (top2[1] - top2[0]) > 2 * (SERVE_ATOL + SERVE_RTOL * np.abs(top2[1]))
-    if not np.array_equal(res['cpu'][1]['label'][clear],
-                          res['cuda'][1]['label'][clear]):
-        raise AssertionError('card and CPU labels differ')
+    worst = serve_card_vs_cpu(job, job_dir, thresholds, xs[1, :8])['worst']
+    L = cfg.test_latent_sampling
     summary = {'params': n_params, 'cli_seconds': cli_s,
                'serve_images_per_s': img_s, 'batch_ms': batch_ms,
                'batch': BATCH, 'batches': BATCHES,
@@ -1102,16 +1168,18 @@ def dw_gate(dw, dw64, what, dt):
                              'of the float64 sum'.format(what, bad))
 
 
-def check_train_conv(sites, dt=torch.float32):
-    """The same-grid conv at the train step's shapes (batch 1024, L=1) in
-    ``dt``: the forward at every site against its plain version (timed
+def check_train_conv(sites, dt=torch.float32, prefix: str = '',
+                     dx_sites: int = DX_PER_STEP):
+    """The same-grid conv at the train step's shapes (batch 1024, L=1, or
+    the batch of ``sites``) in ``dt``, each row on a ``prefix``-ed line: the forward at every site against its plain version (timed
     beside cuDNN's forward, ``F.conv2d`` of the launched kernel); at the
     sites whose input needs a gradient the dx kernel against its plain
     version (``library_ms``: cuDNN's data gradient of the same conv,
     ``torch.nn.grad.conv2d_input``), and the weight gradient (an im2col
     product summed in float32) against the same product in float64
     (:func:`dw_gate`), timed beside cuDNN's weight gradient in ``dt``,
-    whose error against float64 is printed (not gated)."""
+    whose error against float64 is printed (not gated).  The first site
+    reads the data (no dx); ``dx_sites`` sites take one."""
     import torch.nn.functional as F
     from joint_vae_tpu_torch.ops.same_grid_conv import (
         kernel_route, same_grid_conv, same_grid_conv_dw, same_grid_conv_dx,
@@ -1148,8 +1216,10 @@ def check_train_conv(sites, dt=torch.float32):
                          'dtype': str(dt).split('.')[-1], 'ms': fwd_ms,
                          'plain_ms': fwd_plain, 'library_ms': fwd_lib,
                          'bound_ms': fb, 'bound_by': fby,
+                         'share_of_bound': fb / fwd_ms,
                          'max_abs_err': fwd_err})
-        print('train_conv' + tag, json.dumps(fwd_rows[-1]), flush=True)
+        print(prefix + 'train_conv' + tag, json.dumps(fwd_rows[-1]),
+              flush=True)
         total['fwd_ms'] += fwd_ms
         total['fwd_plain_ms'] += fwd_plain
         total['fwd_library_ms'] += fwd_lib
@@ -1193,7 +1263,7 @@ def check_train_conv(sites, dt=torch.float32):
                'dw_cudnn_max_rel_err':
                    (dw_cudnn.double() - dw64).abs().max().item() / rms64}
         dx_rows.append(row)
-        print('dx' + tag, json.dumps(row), flush=True)
+        print(prefix + 'dx' + tag, json.dumps(row), flush=True)
         for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dw_ms',
                     'dw_cudnn_ms'):
             total[key] += row[key]
@@ -1203,7 +1273,7 @@ def check_train_conv(sites, dt=torch.float32):
             total[key] = max(total[key], row[key])
         del x, kern, kd, g, dx, dx_ref, dw, dw64, dw_cudnn, wc, gc, xc, wk
         torch.cuda.empty_cache()
-    if len(dx_rows) != DX_PER_STEP:
+    if len(dx_rows) != dx_sites:
         raise AssertionError('{} dx sites'.format(len(dx_rows)))
     return fwd_rows, dx_rows, total
 
@@ -1368,11 +1438,47 @@ def check_grads(grads: dict) -> tuple:
     return worst, loose
 
 
+def check_grads_deep(grads: dict) -> dict:
+    """The training gate for a model whose first-step gradient jumps under
+    a rounding-sized change (phase 17: ReLUs and max pools through 13 vgg
+    convs and 5 decoder layers): every element of every tensor within the
+    flip bound, |card - cpu| <= 5e-2 (|cpu| + rms(cpu)) (raises
+    otherwise); per tensor the share of elements beyond 1e-4 and the worst
+    ratio on the card and, beside them, on the CPU's own gradients at the
+    input moved by ROUNDING_TWIN and by one ulp (``grads['cpu_twin']``,
+    ``grads['cpu_ulp']``), reported: a rounding-sized move flips discrete
+    choices whose effects spread back through every earlier layer, so the
+    share clause of :func:`check_grads` does not hold between two CPU
+    runs either (module docstring)."""
+    rows, worst = {}, 0.0
+    for k, want in grads['cpu'].items():
+        rms = want.square().mean().sqrt().item()
+        scale = want.abs() + rms + 1e-30
+        ratio = (grads['cuda'][k] - want).abs() / scale
+        worst = max(worst, ratio.max().item())
+        if ratio.max().item() > GRAD_FLIP_TOL:
+            raise AssertionError('card vs CPU gradient {}: worst {} beyond {}'
+                                 .format(k, ratio.max().item(), GRAD_FLIP_TOL))
+        row = {}
+        for name, run in (('card', 'cuda'), ('cpu_twin', 'cpu_twin'),
+                          ('cpu_ulp', 'cpu_ulp')):
+            r = ratio if run == 'cuda' else (grads[run][k] - want).abs() / scale
+            row[name + '_share_beyond_1e-4'] = float((r > GRAD_TOL).float()
+                                                     .mean())
+            row[name + '_worst'] = r.max().item()
+        if any(v for n, v in row.items() if n.endswith('1e-4')):
+            rows[k] = row
+    return {'grad_worst_err_over_abs_plus_rms': worst,
+            'tensors': len(grads['cpu']), 'beyond_1e-4': rows,
+            'rounding_twin': ROUNDING_TWIN}
+
+
 def _rms_rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
-def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False) -> dict:
+def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False,
+               deep: bool = False) -> dict:
     """The full-width model of ``cfg`` at ``batch`` from one init (a
     numpy seed), with the same batch and the same injected noise, on the
     card and on the CPU: the first step's gradients per tensor, then the
@@ -1381,7 +1487,8 @@ def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False) -> dict:
     gradients are reported by their rms-relative error, the trunk's and
     the rest's apart, and so are the statistics after the steps, which
     the gradients move; neither is gated (TRUNK_GRAD_NOTE); the losses
-    are."""
+    are.  ``deep``: the gradients held by :func:`check_grads_deep`, the
+    CPU also run on the input moved by ROUNDING_TWIN."""
     from joint_vae_tpu_torch.models.evaluate import evaluate
     from joint_vae_tpu_torch.save_load.jobs import new_job
     from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
@@ -1394,25 +1501,34 @@ def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False) -> dict:
     eps[0] = 0.0
     grads, losses, stats = {}, {}, {}
     relu0_min = None
-    for dev in ('cuda', 'cpu'):
-        job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=1, device=dev)
-        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
-        et = torch.from_numpy(eps).to(dev)
+
+    def first_grads(job, xt, yt, et):
         params = dict(job.model.named_parameters())
         out = evaluate(job.model, xt, yt, sigma_state=job.sigma_state,
                        train=True, with_beta=True, eps=et)
         got = torch.autograd.grad(torch.mean(out.losses['total']),
                                   list(params.values()), allow_unused=True)
-        grads[dev] = {k: (torch.zeros_like(p) if g is None else g).cpu()
-                      for (k, p), g in zip(params.items(), got)}
+        return {k: (torch.zeros_like(p) if g is None else g).cpu()
+                for (k, p), g in zip(params.items(), got)}
+    for dev in ('cuda', 'cpu'):
+        job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=1, device=dev)
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        et = torch.from_numpy(eps).to(dev)
+        grads[dev] = first_grads(job, xt, yt, et)
+        if deep and dev == 'cpu':
+            moved = x * (1 + ROUNDING_TWIN * np.random.default_rng(2)
+                         .standard_normal(x.shape))
+            grads['cpu_twin'] = first_grads(
+                job, torch.from_numpy(moved.astype(np.float32)), yt, et)
+            toward = np.where(np.random.default_rng(3).random(x.shape) < 0.5,
+                              -np.inf, np.inf).astype(np.float32)
+            grads['cpu_ulp'] = first_grads(
+                job, torch.from_numpy(np.nextafter(x, toward)), yt, et)
         if dev == 'cpu' and hasattr(job.model.features_stack, 'conv_0'):
             # the conv features' first ReLU input nearest 0
             with torch.no_grad():
                 relu0_min = job.model.features_stack.conv_0(
                     xt.permute(0, 2, 3, 1).contiguous()).abs().min().item()
-        # the eager forward's autograd graph goes before the step graph is
-        # captured (train/graphs.py: the parameters' gradient accumulators)
-        del out, got
         step = make_train_step(job.model, job.opt_cfg)
         state, seq = job.state, []
         for _ in range(GATE_STEPS):
@@ -1433,6 +1549,8 @@ def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False) -> dict:
                     list(e.values()))),
                 'top': sorted(e.items(), key=lambda kv: -kv[1])[:4]}
         res['grads_not_gated'] = TRUNK_GRAD_NOTE
+    elif deep:
+        res.update(check_grads_deep(grads))
     else:
         (res['grad_worst_err_over_abs_plus_rms'],
          res['grad_beyond_strict_tol']) = check_grads(grads)
@@ -1458,14 +1576,19 @@ def train_gate(cfg, batch: int = GATE_BATCH, trunk: bool = False) -> dict:
 
 def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
           dx: int = DX_PER_STEP, name: str = 'train',
-          gate_batch: int = GATE_BATCH, gate_trunk: bool = False):
+          gate_batch: int = GATE_BATCH, gate_trunk: bool = False,
+          batch: int = TRAIN_BATCH, batches: int = TRAIN_BATCHES,
+          eval_size: int = TRAIN_TEST, gate: bool = True,
+          gate_deep: bool = False):
     """Phase 5: the full-width flagship (or ``cfg``, whose forward
     launches the conv ``sites`` times and its input gradient ``dx`` times
     per step) trained through new_job, train_model, save_job and
-    load_job, weights, BatchNorm statistics and optimizer state compared;
-    then timed steps, a profile and the card vs CPU gate at
-    ``gate_batch``.  Returns the main path's launches, the summary and
-    the job."""
+    load_job for one epoch of ``batches`` batches of ``batch`` (a
+    validation split and a test set of ``eval_size`` each, at
+    TRAIN_TEST_BATCH), weights, BatchNorm statistics and optimizer state
+    compared; then timed steps, a profile and, with ``gate``, the card vs
+    CPU gate at ``gate_batch`` (``gate_deep``: :func:`check_grads_deep`).  Returns the main path's launches, the
+    summary and the job."""
     from joint_vae_tpu_torch.data.loaders import ArrayDataset, DataLoader
     from joint_vae_tpu_torch.models.cvnet import flagship_config
     from joint_vae_tpu_torch.ops.iws import iws_combine
@@ -1480,21 +1603,21 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
 
     cfg = cfg or flagship_config()
     rng = np.random.default_rng(7)
-    n = TRAIN_BATCH * TRAIN_BATCHES + TRAIN_VALIDATION
+    n = batch * batches + eval_size
     trainset = ArrayDataset(
         rng.uniform(0, 1, (n,) + cfg.input_shape).astype(np.float32),
         rng.integers(0, cfg.num_labels, n), 'synthetic')
     testset = ArrayDataset(
-        rng.uniform(0, 1, (TRAIN_TEST,) + cfg.input_shape).astype(np.float32),
-        rng.integers(0, cfg.num_labels, TRAIN_TEST), 'synthetic')
+        rng.uniform(0, 1, (eval_size,) + cfg.input_shape).astype(np.float32),
+        rng.integers(0, cfg.num_labels, eval_size), 'synthetic')
     job_dir = os.path.join(WORK, name + '_job')
     job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=0)   # on the card
 
     _count_reset()
     # --- the main path: train_model, one epoch ---
     t0 = time.perf_counter()
-    train_model(job, trainset, testset, epochs=1, batch_size=TRAIN_BATCH,
-                test_batch_size=TRAIN_TEST_BATCH, validation=TRAIN_VALIDATION,
+    train_model(job, trainset, testset, epochs=1, batch_size=batch,
+                test_batch_size=TRAIN_TEST_BATCH, validation=eval_size,
                 save_dir=job_dir, final_test=False, final_ood=False,
                 outputs=EpochOutput(stdout=False))
     torch.cuda.synchronize()
@@ -1503,8 +1626,8 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
                 'same_grid_conv_dx': same_grid_conv_dx.launches,
                 'iws_combine': iws_combine.launches}
     # --- end of the main path ---
-    eval_batches = 2 * (TRAIN_TEST // TRAIN_TEST_BATCH)   # validation + test
-    body = _body_steps(TRAIN_BATCHES, 'train epoch')
+    eval_batches = 2 * (eval_size // TRAIN_TEST_BATCH)   # validation + test
+    body = _body_steps(batches, 'train epoch')
     want = {'same_grid_conv': sites * (body + eval_batches),
             'same_grid_conv_dx': dx * body,
             'iws_combine': 0}
@@ -1518,7 +1641,7 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
         vals = list(hist[part].values())
         if not vals or not np.all(np.isfinite(vals)):
             raise AssertionError('bad {}: {}'.format(part, hist[part]))
-    if job.state.step != TRAIN_BATCHES:
+    if job.state.step != batches:
         raise AssertionError('{} steps'.format(job.state.step))
 
     # --- save_job / load_job: weights and optimizer state exactly ---
@@ -1543,11 +1666,15 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
     # --- timed steps, fed as train_model feeds them ---
     step = make_train_step(job.model, job.opt_cfg)
     state = job.state
-    batches = iter(DataLoader(trainset, TRAIN_BATCH, shuffle=True, seed=1,
-                              drop_last=True))
+    def batches_of(seed=1):     # epoch after epoch: a short epoch's set
+        while True:             # holds fewer batches than are timed
+            yield from DataLoader(trainset, batch, shuffle=True, seed=seed,
+                                  drop_last=True)
+            seed += 1
+    loader = batches_of()
     dev = state.device
     for _ in range(TRAIN_WARMUP):
-        xb, yb = next(batches)
+        xb, yb = next(loader)
         state, m = step(state, to_device(xb, dev), to_device(yb, dev))
     torch.cuda.synchronize()
     _count_reset()
@@ -1556,7 +1683,7 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
     t0 = time.perf_counter()
     for _ in range(TRAIN_TIMED):
         t1 = time.perf_counter()
-        xb, yb = next(batches)
+        xb, yb = next(loader)
         t2 = time.perf_counter()
         xy = (to_device(xb, dev), to_device(yb, dev))
         loader_s += t2 - t1
@@ -1580,16 +1707,17 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
         state, m = step(state, *xy)
     torch.cuda.synchronize()
     staged_s = time.perf_counter() - t0
-    xb, yb = next(batches)
+    xb, yb = next(loader)
     breakdown = profile_train_step(step, state, to_device(xb, dev),
                                    to_device(yb, dev))
-    gate = train_gate(cfg, gate_batch, gate_trunk)
-    summary = {'batch': TRAIN_BATCH, 'epoch_batches': TRAIN_BATCHES,
+    gate = (train_gate(cfg, gate_batch, gate_trunk, gate_deep) if gate
+            else None)
+    summary = {'batch': batch, 'epoch_batches': batches,
                'epoch_seconds': epoch_s,
-               'epoch_images_per_s': TRAIN_BATCH * TRAIN_BATCHES / epoch_s,
+               'epoch_images_per_s': batch * batches / epoch_s,
                'timed_steps': TRAIN_TIMED, 'warmup_steps': TRAIN_WARMUP,
                'ms_per_step': timed_s * 1e3 / TRAIN_TIMED,
-               'train_images_per_s': TRAIN_BATCH * TRAIN_TIMED / timed_s,
+               'train_images_per_s': batch * TRAIN_TIMED / timed_s,
                'loader_ms_per_batch': loader_s * 1e3 / TRAIN_TIMED,
                'to_device_ms_per_batch': copy_s * 1e3 / TRAIN_TIMED,
                'ms_per_step_batches_on_card': staged_s * 1e3 / TRAIN_TIMED,
@@ -2146,17 +2274,20 @@ def _counts() -> dict:
             'iws_combine': iws_combine.launches}
 
 
-def _want(steps: int, batches: int = 0) -> dict:
-    """Launches of ``steps`` train steps and ``batches`` scored batches."""
-    return {'same_grid_conv': SITES_PER_BATCH * (steps + batches),
-            'same_grid_conv_dx': DX_PER_STEP * steps,
+def _want(steps: int, batches: int = 0, sites: int = SITES_PER_BATCH,
+          dx: int = DX_PER_STEP) -> dict:
+    """Launches of ``steps`` train steps and ``batches`` scored batches of
+    a model with ``sites`` same-grid sites, ``dx`` of them with an input
+    gradient (the flagship's by default)."""
+    return {'same_grid_conv': sites * (steps + batches),
+            'same_grid_conv_dx': dx * steps,
             'iws_combine': batches}
 
 
-def time_device_steps(job, dd, batch: int) -> dict:
+def time_device_steps(job, dd, batch: int, want=_want) -> dict:
     """10 device-fed steps after 3 warm-up ones, each gathering its rows of
-    a DeviceDataset in the epoch's order, with their launches; then one
-    step profiled (phase 5's breakdown)."""
+    a DeviceDataset in the epoch's order, with their launches (``want``
+    of the steps); then one step profiled (phase 5's breakdown)."""
     from joint_vae_tpu_torch.train.device_data import (epoch_permutation,
                                                        make_device_train_step)
     from joint_vae_tpu_torch.train.steps import pull_metrics
@@ -2175,7 +2306,7 @@ def time_device_steps(job, dd, batch: int) -> dict:
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
     launches = _counts()
-    if launches != _want(_body_steps(TRAIN_TIMED, 'device-fed steps')):
+    if launches != want(_body_steps(TRAIN_TIMED, 'device-fed steps')):
         raise AssertionError('device-fed steps launched {}'.format(launches))
     _check_bf16_counts(launches, job.model.cfg.compute_dtype == 'bfloat16',
                        'device-fed steps')
@@ -5217,22 +5348,24 @@ def _bit_gate(runs: dict, what: str) -> dict:
             'counts': list(e['counts'])}
 
 
-def graph_train_bits(dtype: str) -> dict:
-    """The flagship's graphed train step against its eager step from one
-    state (``new_job`` seed 4 twice), GRAPH_STEPS host-fed steps of 1024:
-    the first eager (the warm-up), the second captured and replayed, the
-    third replayed; launches 8 forward and 7 dx per step either way."""
+def graph_train_bits(dtype: str, cfg=None, batch: int = TRAIN_BATCH,
+                     want=_want) -> dict:
+    """The flagship's (or ``cfg``'s) graphed train step against its eager
+    step from one state (``new_job`` seed 4 twice), GRAPH_STEPS host-fed
+    steps of ``batch``: the first eager (the warm-up), the second captured
+    and replayed, the third replayed; launches ``want`` per step either
+    way (the flagship's 8 forward and 7 dx)."""
     from joint_vae_tpu_torch.device import to_device
     from joint_vae_tpu_torch.models.cvnet import flagship_config
     from joint_vae_tpu_torch.save_load.jobs import new_job
     from joint_vae_tpu_torch.train.graphs import steps_run
     from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
     from joint_vae_tpu_torch.train.steps import make_train_step
-    cfg = flagship_config(compute_dtype=dtype)
+    cfg = cfg or flagship_config(compute_dtype=dtype)
     rng = np.random.default_rng(21)
-    xs = rng.uniform(0, 1, (GRAPH_STEPS, TRAIN_BATCH) + cfg.input_shape
+    xs = rng.uniform(0, 1, (GRAPH_STEPS, batch) + cfg.input_shape
                      ).astype(np.float32)
-    ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, TRAIN_BATCH))
+    ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, batch))
     dev = torch.device('cuda')
     runs = {}
     # under the port's defaults: the 'conv' route's backward runs cuDNN's
@@ -5258,9 +5391,9 @@ def graph_train_bits(dtype: str) -> dict:
     if torch.backends.cudnn.deterministic:
         raise AssertionError('cuDNN\'s deterministic switch was left on')
     out = _bit_gate(runs, 'train step ' + dtype)
-    out.update({'dtype': dtype, 'batch': TRAIN_BATCH, 'steps': GRAPH_STEPS,
+    out.update({'dtype': dtype, 'batch': batch, 'steps': GRAPH_STEPS,
                 'cudnn_deterministic': False})
-    out.update(_graph_launch_gate(runs, _want, '{} train steps'.format(dtype)))
+    out.update(_graph_launch_gate(runs, want, '{} train steps'.format(dtype)))
     return out
 
 
@@ -6048,6 +6181,436 @@ def _score_launch_keys(launches: dict, records: dict, kernel: str,
             'profiled_records': {k: r[source] for k, r in records.items()}}
 
 
+# phase 17: the JAX package's second geometry, imagenet64 (models/cvnet.py::
+# imagenet64_config, the values of __graft_entry__.py:41-58; bench.py's
+# batch 512 at :57): vgg16's 13 convs, the four k=4, s=2 sub-pixel deconvs
+# and the 5x5 head on the same-grid kernel, 18 launches a forward; conv_0
+# reads the data, so a train step takes 17 dx; C=1000, K=256, test L=16
+IM64_SITES, IM64_DX = 18, 17
+IM64_BATCH = 512
+IM64_SERVE_BATCHES = 4
+IM64_TRAIN_BATCHES = 6          # one short epoch; validation and test of 512
+IM64_EVAL = 512
+IM64_DEVICE_SET = 10000         # uint8 3x64x64 on the card, 123 MB: 19 steps
+IM64_OOD_SIZE = 2048
+IM64_OOD_SETS = ('im64_ood_dark', 'im64_ood_noise')
+IM64_PER_BATCH = {'same_grid_conv': IM64_SITES, 'iws_combine': 1}
+
+
+def _im64_want(steps: int, batches: int = 0) -> dict:
+    return _want(steps, batches, IM64_SITES, IM64_DX)
+
+
+def _im64_totals(rows: list, keys=('ms', 'plain_ms', 'library_ms',
+                                   'bound_ms')) -> dict:
+    """Per dtype, the sum over the sites of each of ``keys``, the largest
+    error, and the bound's share of the kernel's time."""
+    out = {}
+    for r in rows:
+        t = out.setdefault(r['dtype'], dict.fromkeys(keys, 0.0))
+        for k in keys:
+            t[k] += r[k]
+        t['max_abs_err'] = max(t.get('max_abs_err', 0.0), r['max_abs_err'])
+        t['sites'] = t.get('sites', 0) + 1
+    for t in out.values():
+        t['share_of_bound'] = t['bound_ms'] / t['ms']
+    return out
+
+
+def im64_kernels() -> dict:
+    """(a) The same-grid conv at imagenet64's 18 sites against its plain
+    version, each row with the kernel its shape dispatches, its ms,
+    cuDNN's ms and the bound: a serve batch (512 images, L=16: the
+    decoder at 8,192) in float32 and bfloat16 (``im64_conv`` lines), the
+    train step's forward and dx at batch 512 in both dtypes with the
+    im2col dw against float64 and cuDNN's wgrad beside it
+    (``im64_train_conv``, ``im64_dx`` lines, ``_bf16`` for bfloat16)."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet, imagenet64_config
+    from joint_vae_tpu_torch.ops.same_grid_conv import batch_chunks
+    cfg = imagenet64_config()
+    model = CVNet(cfg)
+    sites = same_grid_sites(model, IM64_BATCH, cfg.test_latent_sampling)
+    if len(sites) != IM64_SITES:
+        raise AssertionError('{} imagenet64 same-grid sites'.format(len(sites)))
+    # each site's launches at the serve batch (``batch_chunks``: one unless
+    # x or y passes the kernel's int32 shapes) and the largest launch
+    def per_image(s):
+        co = s['co'] * (s['layer'].stride ** 2 if s['route'] == 'subpixel'
+                        else 1)
+        return s['h'] * s['w'] * max(s['ci'], co)
+    widest = max(s['n'] * per_image(s) for s in sites)
+    chunks = {s['site']: len(batch_chunks(s['n'], per_image(s)))
+              for s in sites}
+    serve_rows, _ = check_conv(sites, 'im64_conv')
+    train_sites = same_grid_sites(model, IM64_BATCH, cfg.latent_sampling)
+    fwd, dx, t32 = check_train_conv(train_sites, torch.float32, 'im64_',
+                                    IM64_DX)
+    fwd16, dx16, t16 = check_train_conv(train_sites, torch.bfloat16, 'im64_',
+                                        IM64_DX)
+    dw_keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'dw_ms',
+               'dw_cudnn_ms')
+    out = {'sites': len(sites), 'launch_chunks': chunks,
+           'widest_launch_elements': widest,
+           'serve': _im64_totals(serve_rows),
+           'train_forward': _im64_totals(fwd + fwd16),
+           'train_dx': _im64_totals(dx + dx16, dw_keys),
+           'dw_max_rel_err': {'float32': t32['dw_max_rel_err'],
+                              'bfloat16': t16['dw_max_rel_err']},
+           'dw_cudnn_max_rel_err': {'float32': t32['dw_cudnn_max_rel_err'],
+                                    'bfloat16': t16['dw_cudnn_max_rel_err']},
+           'kernels': {r['site']: r['kernel'] for r in serve_rows}}
+    print('im64_kernels', json.dumps(out), flush=True)
+    return out
+
+
+def im64_serve(card: str) -> tuple:
+    """(b) The imagenet64 job saved and loaded, then scored through its
+    Scorer graph on IM64_SERVE_BATCHES batches of 512 at L=16 after the
+    graph's warm-up and capture, in float32 and in bfloat16: 18 conv and 1
+    combine launches per eager or captured batch, the capture's graph
+    holding 18 same-grid and 1 combine kernel nodes by function name,
+    finite outputs, images/s and ms per batch, one batch profiled by
+    kernel; in float32 the card against the CPU on 8 inputs with
+    injected noise (phase 4's tolerance); the bfloat16 scores' rms-relative
+    distance to the float32 ones on the same weights and noise
+    (reported).  Returns the launches by dtype and the summary."""
+    from joint_vae_tpu_torch.models.cvnet import imagenet64_config
+    from joint_vae_tpu_torch.save_load.jobs import load_job, new_job, save_job
+    from joint_vae_tpu_torch.serve import Scorer
+    rng = np.random.default_rng(17)
+    shape = imagenet64_config().input_shape
+    xs = rng.uniform(0, 1, (IM64_SERVE_BATCHES + 1, IM64_BATCH) + shape
+                     ).astype(np.float32)
+    eps = torch.from_numpy(rng.standard_normal(
+        (imagenet64_config().test_latent_sampling + 1, IM64_BATCH,
+         imagenet64_config().latent_dim)).astype(np.float32))
+    eps[0] = 0.0
+    launches, rows, same_noise = {}, {}, {}
+    for dtype in ('float32', 'bfloat16'):
+        cfg = imagenet64_config(dtype)
+        job_dir = os.path.join(WORK, 'im64_job_' + dtype)
+        shutil.rmtree(job_dir, ignore_errors=True)
+        save_job(new_job(cfg, seed=0), job_dir)      # on the card
+        job = load_job(job_dir)
+        calib = Scorer(job, methods=METHODS, graphed=False,
+                       thresholds={m: float('-inf') for m in METHODS})(xs[0])
+        thresholds = serve_thresholds(calib['scores'])
+        scorer = Scorer(job, methods=METHODS, thresholds=thresholds)
+        what = 'imagenet64 Scorer ' + dtype
+        _count_reset()
+        # --- the main path: the Scorer's graph, warm-up, capture, batches ---
+        t0 = time.perf_counter()
+        scorer(xs[0])
+        scorer(xs[0])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        outs, batch_ms = [], []
+        for b in range(IM64_SERVE_BATCHES):
+            t0 = time.perf_counter()
+            outs.append(scorer(xs[1 + b]))
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        launches[dtype] = _counts()
+        # --- end of the main path ---
+        n = _scored(2 + IM64_SERVE_BATCHES, what, ('scorer',))
+        if launches[dtype] != _im64_want(0, n):
+            raise AssertionError('{}: launched {}, want {}'.format(
+                what, launches[dtype], _im64_want(0, n)))
+        _check_bf16_counts(launches[dtype], dtype == 'bfloat16', what)
+        capture = _capture_gate(scorer.graph.captures, IM64_PER_BATCH, what)
+        for o in outs:
+            for m in METHODS:
+                if (o['scores'][m].shape != (IM64_BATCH,)
+                        or not np.all(np.isfinite(o['scores'][m]))):
+                    raise AssertionError('{}: bad scores for {}'.format(what, m))
+            if not (np.all(np.isfinite(o['confidence']))
+                    and o['label'].shape == (IM64_BATCH,)
+                    and np.all((o['label'] >= 0)
+                               & (o['label'] < cfg.num_labels))):
+                raise AssertionError(what + ': bad labels or confidence')
+        profile = profile_batch(scorer, xs[1])
+        del scorer
+        same_noise[dtype] = Scorer(job, methods=METHODS, thresholds=thresholds,
+                                   graphed=False)(xs[1], eps=eps)['scores']
+        rows[dtype] = {
+            'params': sum(p.numel() for p in job.model.parameters()),
+            'batch': IM64_BATCH, 'L': cfg.test_latent_sampling,
+            'C': cfg.num_labels, 'K': cfg.latent_dim,
+            'batches': IM64_SERVE_BATCHES, 'batch_ms': batch_ms,
+            'warmup_and_capture_ms': first_ms,
+            'images_per_s': IM64_BATCH * IM64_SERVE_BATCHES
+            / (sum(batch_ms) / 1e3),
+            'launches': launches[dtype], 'batches_counted': n,
+            'capture': capture, 'profile': profile,
+            'accept_rate': float(np.mean([o['in_distribution'].mean()
+                                          for o in outs]))}
+        if dtype == 'float32':
+            rows[dtype]['card_vs_cpu'] = serve_card_vs_cpu(
+                job, job_dir, thresholds, xs[1, :8])
+        del job
+        torch.cuda.empty_cache()
+        print('im64_serve', json.dumps({dtype: rows[dtype]}), flush=True)
+    rows['bf16_vs_f32_scores_rel_rms'] = {
+        m: rel_rms(same_noise['bfloat16'][m], same_noise['float32'][m])
+        for m in METHODS}
+    return launches, rows
+
+
+def im64_train(card: str) -> tuple:
+    """(c) Training in both dtypes at batch 512: phase 5's ``train`` on the
+    imagenet64 config (``new_job`` with bench.py's Adam, ``train_model``
+    for one epoch of IM64_TRAIN_BATCHES batches with a validation split
+    and a test set of 512, graphed; ``save_job`` / ``load_job`` exact; 18
+    forward and 17 dx launches per eager or captured step, 18 per eval
+    batch, no combine; 10 timed steps after 3 warm-up ones; one step
+    profiled; in float32 the card against the CPU at batch 8), then the
+    graphed step bit for bit against its eager step over 3 steps (phase
+    15's gate), its capture holding 35 same-grid kernel nodes."""
+    from joint_vae_tpu_torch.models.cvnet import imagenet64_config
+    launches, rows = {}, {}
+    for dtype in ('float32', 'bfloat16'):
+        cfg = imagenet64_config(dtype)
+        launches[dtype], summary, job = train(
+            card, cfg, IM64_SITES, IM64_DX, 'im64_train_' + dtype,
+            batch=IM64_BATCH, batches=IM64_TRAIN_BATCHES,
+            eval_size=IM64_EVAL, gate=dtype == 'float32', gate_deep=True)
+        del job
+        torch.cuda.empty_cache()
+        bits = graph_train_bits(dtype, cfg, IM64_BATCH, _im64_want)
+        print('im64_graph_bits', json.dumps(bits), flush=True)
+        torch.cuda.empty_cache()
+        rows[dtype] = {k: summary[k] for k in (
+            'batch', 'epoch_batches', 'epoch_seconds', 'epoch_images_per_s',
+            'ms_per_step', 'train_images_per_s', 'loader_ms_per_batch',
+            'to_device_ms_per_batch', 'ms_per_step_batches_on_card',
+            'launches', 'timed_launches', 'card_vs_cpu')}
+        rows[dtype]['profile'] = {k: summary['profile'][k] for k in (
+            'wall_ms', 'device_ms', 'device_busy_share', 'by_span_ms',
+            'by_name_ms', 'kernel_records')}
+        rows[dtype]['graph_bits'] = {k: bits[k] for k in (
+            'tensors_equal', 'metrics_equal', 'launches', 'capture')}
+    return launches, rows
+
+
+def im64_device_fed(card: str) -> tuple:
+    """(d) The bench's pipeline mode in bfloat16: a synthetic uint8 set of
+    IM64_DEVICE_SET 3x64x64 images held on the card, one fused
+    ``train_epochs_on_device`` epoch at 512 (19 steps, 18 forward and 17
+    dx launches per eager or captured step, all of the bfloat16 build),
+    then 10 timed device-fed steps after 3 warm-up ones and one
+    profiled."""
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    from joint_vae_tpu_torch.models.cvnet import imagenet64_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.device_data import (DeviceDataset,
+                                                       train_epochs_on_device)
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    cfg16 = imagenet64_config('bfloat16')
+    rng = np.random.default_rng(19)
+    trainset = ArrayDataset(
+        rng.integers(0, 256, (IM64_DEVICE_SET,) + cfg16.input_shape,
+                     dtype=np.uint8),
+        rng.integers(0, cfg16.num_labels, IM64_DEVICE_SET).astype(np.int32),
+        'synthetic')
+    job = new_job(cfg16, OptimizerConfig(lr=TRAIN_LR), seed=0)
+    steps = IM64_DEVICE_SET // IM64_BATCH
+    _count_reset()
+    # --- the main path: one fused bfloat16 epoch fed from the card ---
+    t0 = time.perf_counter()
+    total = train_epochs_on_device(job, trainset, 1, IM64_BATCH,
+                                   fused=True)['total']
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = _counts()
+    # --- end of the main path ---
+    want = _im64_want(_body_steps(steps, 'imagenet64 device-fed epoch'))
+    if launches != want:
+        raise AssertionError('imagenet64 device-fed epoch launched {}, want '
+                             '{}'.format(launches, want))
+    _check_bf16_counts(launches, True, 'imagenet64 device-fed epoch')
+    if job.state.step != steps or not np.isfinite(total):
+        raise AssertionError('imagenet64 device-fed epoch: {} steps, total '
+                             '{}'.format(job.state.step, total))
+    dd = DeviceDataset(trainset)
+    if dd.x.dtype != torch.uint8:
+        raise AssertionError('the uint8 set is held as {}'.format(dd.x.dtype))
+    timed = time_device_steps(job, dd, IM64_BATCH, _im64_want)
+    row = {'batch': IM64_BATCH, 'steps': steps, 'launches': launches,
+           'epoch_seconds': epoch_s,
+           'epoch_images_per_s': steps * IM64_BATCH / epoch_s,
+           'epoch_total_loss': total, 'dataset_mb': dd.x.numel() / 1e6,
+           'ms_per_step': timed['ms_per_step'],
+           'images_per_s': timed['images_per_s'],
+           'timed_launches': timed['launches'],
+           'profile': {k: timed['profile'][k] for k in (
+               'wall_ms', 'device_ms', 'device_busy_share', 'by_span_ms',
+               'by_name_ms', 'kernel_records')}}
+    del job, dd
+    torch.cuda.empty_cache()
+    print('im64_device_fed', json.dumps(row), flush=True)
+    return launches, row
+
+
+def im64_ood(card: str) -> tuple:
+    """(e) Per-class OOD evaluation at C=1000 through the engines: the
+    float32 serving job, an in-distribution test set and two OOD sets of
+    IM64_OOD_SIZE synthetic 64x64 images (in memory), batch 512, L=16:
+    ``ood_detection_rates`` on the compute tier (18 conv and 1 combine
+    launches per eager or captured batch), its record files holding the
+    (1000, N) per-class losses; the json tier and then the recorders
+    tier alone (the records read back) with no launch and the same
+    results; the compute tier's images/s and ms per set, the ROC's ms per
+    (set, method) on the card."""
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    from joint_vae_tpu_torch.evals import engines
+    from joint_vae_tpu_torch.ops.roc import roc_curve, two_sided_from_method
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.save_load.recorders import LossRecorder, find_record
+    job_dir = os.path.join(WORK, 'im64_job_float32')
+    shutil.rmtree(os.path.join(job_dir, 'samples'), ignore_errors=True)
+    job = load_job(job_dir)
+    cfg = job.model_cfg
+    rng = np.random.default_rng(23)
+    shape = (IM64_OOD_SIZE,) + cfg.input_shape
+
+    def synthetic(name, scale):
+        return ArrayDataset(
+            (scale * rng.uniform(0, 1, shape)).astype(np.float32),
+            rng.integers(0, cfg.num_labels, IM64_OOD_SIZE), name,
+            synthetic=True)
+    testset = synthetic('im64_test', 1.0)
+    oodsets = [synthetic(IM64_OOD_SETS[0], 0.3), synthetic(IM64_OOD_SETS[1], 1.0)]
+    sets = [testset] + oodsets
+    batches = -(-IM64_OOD_SIZE // IM64_BATCH)
+    set_ms = {}
+    collect = engines._collect_scores
+
+    def timed_collect(job_, dataset, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect(job_, dataset, *a, **k)
+        torch.cuda.synchronize()
+        set_ms[dataset.name] = (time.perf_counter() - t0) * 1e3
+        return out
+    engines._collect_scores = timed_collect
+    try:
+        _count_reset()
+        # --- the main path: the compute tier, then the cheap tiers ---
+        t0 = time.perf_counter()
+        res = engines.ood_detection_rates(job, testset, oodsets,
+                                          batch_size=IM64_BATCH)
+        torch.cuda.synchronize()
+        ood_s = time.perf_counter() - t0
+        launches = _counts()
+        runs = _batches_run()
+        again = engines.ood_detection_rates(job, testset, oodsets,
+                                            batch_size=IM64_BATCH,
+                                            from_where=('json', 'recorders'))
+        job.ood_results.clear()
+        t0 = time.perf_counter()
+        replay = engines.ood_detection_rates(job, testset, oodsets,
+                                             batch_size=IM64_BATCH,
+                                             from_where=('recorders',))
+        replay_s = time.perf_counter() - t0
+        reuse = {k: v - launches[k] for k, v in _counts().items()}
+        # --- end of the main path ---
+    finally:
+        engines._collect_scores = collect
+    n = _scored(batches * len(sets), 'imagenet64 OOD evaluation', runs=runs)
+    if launches != _im64_want(0, n):
+        raise AssertionError('imagenet64 OOD launches {}, want {} ({} sets of '
+                             '{} batches)'.format(launches, _im64_want(0, n),
+                                                  len(sets), batches))
+    if any(reuse.values()):
+        raise AssertionError('the json and recorders tiers launched {}'.format(
+            reuse))
+    if again != res or set(res) != set(IM64_OOD_SETS):
+        raise AssertionError('the json tier changed the results')
+    for s_name, ms in res.items():
+        for m, r in ms.items():
+            vals = [r['auc'], r['mean'], r['std']] + r['fpr'] + r['precision']
+            if r['n'] != IM64_OOD_SIZE or not np.all(np.isfinite(vals)):
+                raise AssertionError('bad imagenet64 ood entry {} {}'.format(
+                    s_name, m))
+            got = replay[s_name][m]
+            if abs(got['auc'] - r['auc']) > ROC_TOL:
+                raise AssertionError('the recorders tier: {} {} auc {} vs '
+                                     '{}'.format(s_name, m, got['auc'],
+                                                 r['auc']))
+    sdir = os.path.join(job_dir, 'samples', '0000')
+    per_class = {}
+    for s in sets:
+        rec = LossRecorder.load(find_record(sdir, s.name))
+        shapes = {k: list(rec.get(k).shape) for k in rec.keys()}
+        if shapes.get('iws') != [cfg.num_labels, IM64_OOD_SIZE]:
+            raise AssertionError('{}: record shapes {}'.format(s.name, shapes))
+        per_class[s.name] = shapes
+    scores = {s.name: engines._scores_from_recorder(
+        job, LossRecorder.load(find_record(sdir, s.name)), cfg.ood_methods)
+        for s in sets}
+    roc_ms = {}
+    for s_name in IM64_OOD_SETS:
+        for m in cfg.ood_methods:
+            ins, outs = scores[testset.name][m], scores[s_name][m]
+            geo = two_sided_from_method(m)
+            roc_ms['{}/{}'.format(s_name, m)] = time_ms(
+                lambda: roc_curve(ins, outs, two_sided=geo), 5)
+    n_images = IM64_OOD_SIZE * len(sets)
+    row = {'sets': [s.name for s in sets], 'set_size': IM64_OOD_SIZE,
+           'batch': IM64_BATCH, 'L': cfg.test_latent_sampling,
+           'C': cfg.num_labels, 'methods': cfg.ood_methods,
+           'ood_seconds': ood_s, 'compute_ms_per_set': set_ms,
+           'ood_images_per_s': n_images / (sum(set_ms.values()) / 1e3),
+           'ood_images_per_s_with_roc': n_images / ood_s,
+           'recorders_tier_seconds': replay_s,
+           'roc_ms': roc_ms, 'roc_ms_total': sum(roc_ms.values()),
+           'launches': launches, 'reuse_launches': reuse,
+           'batches_run': runs, 'record_shapes': per_class,
+           'auc': {s: {m: res[s][m]['auc'] for m in ('iws', 'elbo')}
+                   for s in res}}
+    del job
+    torch.cuda.empty_cache()
+    print('im64_ood', json.dumps(row), flush=True)
+    return launches, row
+
+
+def _im64_launch_keys(launches: dict, kernel: str) -> dict:
+    """Phase 17's launches of ``kernel``, by main path (and dtype)."""
+    return {'serve_' + dt: c[kernel] for dt, c in launches['serve'].items()} | {
+        'train_' + dt: c[kernel] for dt, c in launches['train'].items()} | {
+        'device_fed_bf16': launches['device_fed_bf16'][kernel],
+        'ood': launches['ood'][kernel]}
+
+
+def imagenet64_phase(card: str) -> tuple:
+    """Phase 17: the JAX package's second geometry at full width (the
+    module docstring); returns the launches of each main path and the
+    ``imagenet64`` line."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet, imagenet64_config
+    torch.cuda.empty_cache()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+    kernels = timed('kernels', im64_kernels)
+    serve_launches, serve_rows = timed('serve', im64_serve, card)
+    train_launches, train_rows = timed('train', im64_train, card)
+    fed_launches, fed = timed('device_fed', im64_device_fed, card)
+    ood_launches, ood = timed('ood', im64_ood, card)
+    line = {'config': 'imagenet64',
+            'params': sum(p.numel() for p in CVNet(imagenet64_config())
+                          .parameters()),
+            'kernels': kernels, 'serve': serve_rows, 'train': train_rows,
+            'device_fed_bf16': fed, 'ood': ood, 'seconds': seconds,
+            'card': card}
+    print('imagenet64', json.dumps(line), flush=True)
+    launches = {'serve': serve_launches, 'train': train_launches,
+                'device_fed_bf16': fed_launches, 'ood': ood_launches}
+    return launches, line
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -6130,6 +6693,7 @@ def main():
                                                        graphs_phase, card)
     score_launches, score_records, score_line = timed(
         '16 score_graphs', score_graphs_phase, card)
+    im64_launches, im64_line = timed('17 imagenet64', imagenet64_phase, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -6161,6 +6725,10 @@ def main():
          'launches_score_graphs': _score_launch_keys(
              score_launches, score_records, 'same_grid_conv',
              'same_grid_conv'),
+         'launches_imagenet64': _im64_launch_keys(im64_launches,
+                                                  'same_grid_conv'),
+         'imagenet64': {g: im64_line['kernels'][g]
+                        for g in ('serve', 'train_forward')},
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
                             tail_err),
          'tail_max_abs_err': tail_err,
@@ -6216,6 +6784,9 @@ def main():
          'launches_score_graphs': _score_launch_keys(
              score_launches, score_records, 'same_grid_conv_dx',
              'same_grid_conv'),
+         'launches_imagenet64': _im64_launch_keys(im64_launches,
+                                                  'same_grid_conv_dx'),
+         'imagenet64': {'train_dx': im64_line['kernels']['train_dx']},
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
          'odin_conv_0': odin_conv_0,
@@ -6274,6 +6845,8 @@ def main():
                                                graph_records, 'iws_combine', 'iws_combine'),
          'launches_score_graphs': _score_launch_keys(
              score_launches, score_records, 'iws_combine', 'iws_combine'),
+         'launches_imagenet64': _im64_launch_keys(im64_launches,
+                                                  'iws_combine'),
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -6292,6 +6865,7 @@ def main():
                       'interop': interop_line, 'mesh': mesh_line,
                       'export': export_line, 'evidence': evidence_line,
                       'graphs': graphs_line, 'score_graphs': score_line,
+                      'imagenet64': im64_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -6299,9 +6873,9 @@ def main():
 
 
 def phase_only(phase):
-    """``--graphs`` / ``--score-graphs``: build the kernels and run phase
-    15 or 16 alone (its ``graphs`` or ``score_graphs`` line), for work on
-    the graphs."""
+    """``--graphs`` / ``--score-graphs`` / ``--imagenet64``: build the
+    kernels and run phase 15, 16 or 17 alone (its ``graphs``,
+    ``score_graphs`` or ``imagenet64`` line)."""
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
     from joint_vae_tpu_torch.device import set_float32_math
@@ -6321,5 +6895,7 @@ if __name__ == '__main__':
         phase_only(graphs_phase)
     elif sys.argv[1:] == ['--score-graphs']:
         phase_only(score_graphs_phase)
+    elif sys.argv[1:] == ['--imagenet64']:
+        phase_only(imagenet64_phase)
     else:
         main()

@@ -325,6 +325,25 @@ def flagship_config(tiny: bool = False,
         compute_dtype=compute_dtype)
 
 
+def imagenet64_config(compute_dtype: str = 'float32') -> CVNetConfig:
+    """The repo's second geometry (``bench.py``'s ``JVT_BENCH_GEOM=
+    imagenet64``): an ImageNet-subset cvae with vgg16 features on 3x64x64
+    crops, a [x4:2+1] sub-pixel upsampler with a 5x5 head, widths 2048,
+    K=256, a learned 1000-class gaussian prior and test L=16 (same values
+    as ``__graft_entry__._imagenet64_cfg``), computing in
+    ``compute_dtype``."""
+    return CVNetConfig(
+        input_shape=(3, 64, 64), num_labels=1000, type='cvae',
+        features='vgg16',
+        upsampler='[x4:2+1]512x4:1+0-256-128-64-32-!3x5:1+2',
+        encoder=(2048,), decoder=(2048,), classifier=(),
+        latent_dim=256, latent_sampling=1, test_latent_sampling=16,
+        gamma=1000.0, beta=1e-4, sigma=SigmaConfig(value=0.1),
+        prior=PriorConfig(dim=256, num_priors=1000, init_mean=17.0,
+                          learned_means=True),
+        compute_dtype=compute_dtype)
+
+
 class _DenseImager(nn.Module):
     """Linear imager when there is no deconv upsampler."""
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's same-grid conv kernel of a tree at the flagship's
-shapes, on one CUDA card, beside cuDNN and the bound.
+"""Time the port's same-grid conv kernel of a tree at the flagship's (or
+imagenet64's) shapes, on one CUDA card, beside cuDNN and the bound.
 
     python3 scripts/time_torch_conv.py --root DIR [--label NAME]
+        [--geometry flagship|imagenet64]
 
 DIR is the root of a checkout whose ``joint_vae_tpu_torch`` is imported
 (this tree, or an earlier commit unpacked with ``git archive``); its
@@ -12,10 +13,13 @@ card (parent, change, change, parent) to compare them.
 
 Cases (one ``conv_time`` JSON line each): every site of a float32 and a
 bfloat16 serve batch (512 images, L=16); the forward at every site and
-the input gradient at the seven that need one, at the train step's batch
-1024 (L=1), in both dtypes; ODIN's input gradient at conv_0 (64 images,
-32 -> 3); the OOD evaluation's ragged last batch (272 images) at every
-site in float32.  Each line has the kernel's device ms (CUDA events,
+the input gradient at those that need one (all but conv_0, which reads
+the data), at the train step's batch (L=1), in both dtypes; for the
+flagship (the default), at a train batch of 1024, also ODIN's input
+gradient at conv_0 (64 images, 32 -> 3) and the OOD evaluation's ragged
+last batch (272 images) at every site in float32.  ``--geometry
+imagenet64`` (``models/cvnet.py::imagenet64_config``, which DIR's port
+must have) takes its 18 sites, the train step at 512 (``bench.py:57``).  Each line has the kernel's device ms (CUDA events,
 calls back to back), cuDNN's ms for the same function (``F.conv2d``,
 ``F.conv_transpose2d`` of the true deconv at a sub-pixel serve site,
 ``torch.nn.grad.conv2d_input`` for an input gradient), the bound
@@ -38,6 +42,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--root', required=True)
     ap.add_argument('--label', default=None)
+    ap.add_argument('--geometry', default='flagship',
+                    choices=['flagship', 'imagenet64'])
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     label = args.label or os.path.basename(root)
@@ -55,8 +61,16 @@ def main():
     if not sgc.__file__.startswith(root + os.sep):
         raise SystemExit('imported {} outside {}'.format(sgc.__file__, root))
     from joint_vae_tpu_torch.device import set_float32_math
-    from joint_vae_tpu_torch.models.cvnet import CVNet, flagship_config
+    from joint_vae_tpu_torch.models import cvnet
+    from joint_vae_tpu_torch.models.cvnet import CVNet
     set_float32_math()
+    flagship = args.geometry == 'flagship'
+    if flagship:
+        cfg, train_batch = cvnet.flagship_config(), cs.TRAIN_BATCH
+    elif hasattr(cvnet, 'imagenet64_config'):
+        cfg, train_batch = cvnet.imagenet64_config(), cs.IM64_BATCH
+    else:
+        raise SystemExit('{} has no imagenet64_config'.format(root))
     print(cs.card_line(), flush=True)
 
     def route(dt, ci, co):
@@ -83,7 +97,8 @@ def main():
         ms = cs.time_ms(fn, reps)
         lib = cs.time_ms(lib_fn, reps)
         b, by = cs.bound_ms(nbytes, flops, cs.PEAK_FLOPS[dt])
-        row = {'tree': label, 'group': group, 'site': site,
+        row = {'tree': label, 'geometry': args.geometry, 'group': group,
+               'site': site,
                'dtype': str(dt).split('.')[-1], 'launched_shape': shape,
                'ms': ms, 'cudnn_ms': lib, 'bound_ms': b, 'bound_by': by,
                'share_of_bound': b / ms, 'kernel': route(dt, ci, co),
@@ -92,7 +107,9 @@ def main():
             row['bound_ms_cuda_core'] = max(
                 nbytes / cs.HBM_BYTES_PER_S, flops / cs.CUDA_CORE_FLOPS) * 1e3
         print('conv_time', json.dumps(row), flush=True)
-        t = totals.setdefault(group, {'tree': label, 'group': group, 'ms': 0.0,
+        t = totals.setdefault(group, {'tree': label,
+                                      'geometry': args.geometry,
+                                      'group': group, 'ms': 0.0,
                                       'cudnn_ms': 0.0, 'bound_ms': 0.0,
                                       'sites': 0, 'within_gate': True})
         t['ms'] += ms
@@ -102,13 +119,14 @@ def main():
         t['within_gate'] = t['within_gate'] and within
         del got, want
 
-    cfg = flagship_config()
     g = torch.Generator(device='cuda').manual_seed(1)
-    # a serve batch, both dtypes; the ragged tail in float32
+    # a serve batch, both dtypes; the flagship's ragged tail in float32
     both = (torch.float32, torch.bfloat16)
-    for group, n_img, dts in (('serve', cs.BATCH, both),
-                              ('tail', cs.OOD_SET_SIZE % cs.OOD_BATCH,
-                               (torch.float32,))):
+    groups = [('serve', cs.BATCH, both)]
+    if flagship:
+        groups.append(('tail', cs.OOD_SET_SIZE % cs.OOD_BATCH,
+                       (torch.float32,)))
+    for group, n_img, dts in groups:
         for site in cs.same_grid_sites(CVNet(cfg), n_img,
                                        cfg.test_latent_sampling):
             lo, lay = site['lo'], site['layer']
@@ -137,11 +155,11 @@ def main():
                 del x, kern, kd, xc, wc
                 torch.cuda.empty_cache()
 
-    # the train step at batch 1024: forward at every site, dx at seven
+    # the train step: forward at every site, dx at all but conv_0
     g = torch.Generator(device='cuda').manual_seed(3)
     for dt in (torch.float32, torch.bfloat16):
         tag = str(dt).split('.')[-1]
-        sites = cs.same_grid_sites(CVNet(cfg), cs.TRAIN_BATCH,
+        sites = cs.same_grid_sites(CVNet(cfg), train_batch,
                                    cfg.latent_sampling)
         for j, site in enumerate(sites):
             lo = site['lo']
@@ -174,7 +192,17 @@ def main():
             del x, kd, xc, wk
             torch.cuda.empty_cache()
 
-    # ODIN's input gradient at conv_0: 64 images, 32 -> 3 channels
+    if flagship:
+        odin_dx(cs, sgc, cfg, CVNet, g, report)
+    for t in totals.values():
+        t['share_of_bound'] = t['bound_ms'] / t['ms']
+        print('conv_total', json.dumps(t), flush=True)
+
+
+def odin_dx(cs, sgc, cfg, CVNet, g, report):
+    """ODIN's input gradient at the flagship's conv_0: 64 images, 32 -> 3
+    channels."""
+    import torch
     site = cs.same_grid_sites(CVNet(cfg), cs.ODIN_BATCH, 1)[0]
     lo = site['lo']
     _, _, k0 = cs.site_inputs(site, torch.float32, g)
@@ -191,10 +219,6 @@ def main():
                                               padding=lo),
            4.0 * (gr.numel() + k0.numel() + n * h * w * ci),
            2.0 * n * h * w * th * tw * ci * co, co, ci, 20)
-
-    for t in totals.values():
-        t['share_of_bound'] = t['bound_ms'] / t['ms']
-        print('conv_total', json.dumps(t), flush=True)
 
 
 if __name__ == '__main__':

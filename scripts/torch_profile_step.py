@@ -4,14 +4,16 @@ under ``torch.profiler``: the graphed program beside its eager self.
 
     python scripts/torch_profile_step.py [--steps 10] [--batch 512] [--eval]
         [--dtype bfloat16|float32] [--eager] [--device cuda|cpu]
-        [--tiny] [--out FILE]
+        [--tiny] [--geometry flagship|imagenet64] [--out FILE]
     PYTHONPATH=DIR python scripts/torch_profile_step.py ...   # DIR's port
 
 The counterpart of ``scripts/profile_step.py`` (the JAX step under
 ``jax.profiler``), with the same flags plus ``--dtype`` (bfloat16 by
 default, as there), ``--eager`` (the eager program alone), ``--device`` and
 ``--tiny`` (the tiny flagship: a rehearsal on the CPU, where no graph is
-captured and no device time is recorded).  Without ``--eval`` the
+captured and no device time is recorded) and ``--geometry`` (the model:
+the flagship by default, or ``imagenet64``, ``models/cvnet.py::
+imagenet64_config``, which the port on the path must have).  Without ``--eval`` the
 program is the host-fed train step (``train/steps.py``, bench.py's Adam
 at lr 1e-4); with it, one ``Scorer`` batch at the flagship's test L and
 the seven methods of ``bench.py``'s eval mode.
@@ -166,10 +168,12 @@ def _sync():
 def _program(args, graphed: bool, dev: torch.device):
     """The program as a function of no argument (a train step or a Scorer
     batch, ``graphed`` or not), and its graph."""
-    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.models import cvnet
     from joint_vae_tpu_torch.save_load.jobs import new_job
     from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
-    cfg = flagship_config(tiny=args.tiny, compute_dtype=args.dtype)
+    cfg = (cvnet.imagenet64_config(compute_dtype=args.dtype)
+           if args.geometry == 'imagenet64' else
+           cvnet.flagship_config(tiny=args.tiny, compute_dtype=args.dtype))
     job = new_job(cfg, OptimizerConfig(lr=1e-4), seed=0, device=dev)
     rng = np.random.default_rng(0)
     x = rng.uniform(0, 1, (args.batch,) + cfg.input_shape).astype(np.float32)
@@ -202,14 +206,18 @@ def main(argv=None) -> int:
     p.add_argument('--device', default=None)
     p.add_argument('--tiny', action='store_true',
                    help='the tiny flagship (a rehearsal)')
+    p.add_argument('--geometry', default='flagship',
+                   choices=['flagship', 'imagenet64'])
     p.add_argument('--out', default=None, help='also write the JSON here')
     args = p.parse_args(argv)
+    if args.tiny and args.geometry != 'flagship':
+        p.error('--tiny is the tiny flagship')
     import joint_vae_tpu_torch
     root = os.path.dirname(os.path.dirname(joint_vae_tpu_torch.__file__))
     from joint_vae_tpu_torch.device import resolve_device
     dev = resolve_device(args.device)
     result = {'program': 'scorer_batch' if args.eval else 'train_step',
-              'batch': args.batch, 'dtype': args.dtype, 'root': root,
+              'geometry': args.geometry, 'batch': args.batch, 'dtype': args.dtype, 'root': root,
               'tiny': args.tiny, 'steps': args.steps,
               'device': (torch.cuda.get_device_name(dev)
                          if dev.type == 'cuda' else 'cpu'),

@@ -20,7 +20,8 @@ from joint_vae_tpu_torch.ops.same_grid_conv import (SameGridConvFn,
 from joint_vae_tpu_torch.train.graphs import batches_run, reset_steps_run
 
 from torch_kernel_cases import (CONV_GEOMS, FLAGSHIP_DX_GEOMS,
-                                FLAGSHIP_SITE_GEOMS, IWS_CASES,
+                                FLAGSHIP_SITE_GEOMS, IMAGENET64_SITE_GEOMS,
+                                IWS_CASES,
                                 STRESS_CONV_GEOMS, WIDE_CONV_GEOM,
                                 conv_inputs, iws_case_id, iws_case_inputs,
                                 iws_inputs)
@@ -114,6 +115,68 @@ def test_flagship_sites_at_train_batch_on_card(site, dtype, cuda_device):
                                 generator=gen)).to(dt)
         close(same_grid_conv_dx(g, k, ph, pw).float(),
               same_grid_conv_dx_plain(g, k, ph, pw).float(), tol)
+
+
+# the conv's tolerances in chip_smoke.py's form, |got - want| <= tol
+# (|want| + rms(want)): float32 1e-4, bfloat16 two bf16 ulps
+CONV_TOL = {torch.float32: CONV_F32_TOL, torch.bfloat16: 1.6e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('site', sorted(IMAGENET64_SITE_GEOMS))
+def test_imagenet64_sites_on_card(site, dtype, cuda_device):
+    """Four of imagenet64's same-grid sites in both dtypes (ci 512 on a
+    4x4 grid, the k=4 sub-pixel deconv's packed 1,024 channels, the 5x5
+    head): the forward and the input gradient against their plain
+    versions, one launch each, in the conv gate's form."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import same_grid_conv_dx_plain
+    dt = getattr(torch, dtype)
+    n, h, w, ci, co, th, tw, ph, pw = IMAGENET64_SITE_GEOMS[site]
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    x = torch.rand((n, h, w, ci), device=cuda_device, generator=gen).to(dt)
+    k = (torch.randn((th, tw, ci, co), device=cuda_device, generator=gen)
+         / (th * tw * ci) ** 0.5).to(dt)
+    g = (0.05 * torch.randn((n, h, w, co), device=cuda_device,
+                            generator=gen)).to(dt)
+    before = (same_grid_conv.launches, same_grid_conv_dx.launches)
+    y = same_grid_conv(x, k, ph, pw)
+    dx = same_grid_conv_dx(g, k, ph, pw)
+    torch.cuda.synchronize()
+    assert (same_grid_conv.launches, same_grid_conv_dx.launches) == (
+        before[0] + 1, before[1] + 1)
+    conv_gate(y.float(), same_grid_conv_plain(x, k, ph, pw).float(),
+              CONV_TOL[dt])
+    conv_gate(dx.float(), same_grid_conv_dx_plain(g, k, ph, pw).float(),
+              CONV_TOL[dt])
+
+
+@pytest.mark.cuda
+def test_imagenet64_subpixel_deconv_layer_on_card(cuda_device):
+    """imagenet64's deconv_1 (k=4, s=2, p=1: 4x4, 512 -> 256 channels to
+    8x8) through the sub-pixel route against F.conv_transpose2d in full
+    float32: one same-grid launch on the packed kernel."""
+    import torch.nn.functional as F
+    set_float32_math()
+    n, h, ci, co, k, p, s = 16, 4, 512, 256, 4, 1, 2
+    pl = LayerPlan(ltype='deconv', out_channels=co, kernel_size=k, padding=p,
+                   stride=s, output_padding=0, out_shape=(co, 2 * h, 2 * h))
+    layer = ConvLayer(pl, ci, h, h).to(cuda_device)
+    assert layer.route == 'subpixel'
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        layer.weight.copy_(torch.randn(layer.weight.shape, generator=g)
+                           / (k * k * ci) ** 0.5)
+        layer.bias.copy_(torch.randn(co, generator=g))
+        x = torch.rand((n, h, h, ci), generator=g).to(cuda_device)
+        before = same_grid_conv.launches
+        got = layer(x)
+        torch.cuda.synchronize()
+        assert same_grid_conv.launches == before + 1
+        wt = torch.flip(layer.weight, (0, 1)).permute(2, 3, 0, 1)
+        want = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, layer.bias,
+                                  stride=s, padding=p)
+    conv_gate(got, want.permute(0, 2, 3, 1))
 
 
 @pytest.mark.cuda

@@ -9,8 +9,9 @@
   host is contacted);
 - ``scripts/torch_profile_step.py``: a rehearsal of the train step and of
   the Scorer batch on the tiny flagship, eager and graphed (on the CPU
-  the graph's body runs eagerly; no device time is recorded), and of
-  another checkout's port named on ``PYTHONPATH``;
+  the graph's body runs eagerly; no device time is recorded), of
+  another checkout's port named on ``PYTHONPATH``; its imagenet64
+  geometry's program (one full-width train step, in process);
 - ``scripts/torch_eval_times.py``: without a card it stops before it
   writes anything.
 """
@@ -131,6 +132,38 @@ def test_profile_step_runs_the_port_on_pythonpath(tmp_path):
     assert rc == 0, stderr[-2000:]
     rec = json.loads(stdout.strip().splitlines()[-1])
     assert rec['root'] == str(other) and set(rec['modes']) == {'eager'}
+
+
+def test_profile_step_takes_the_imagenet64_geometry(tmp_path, monkeypatch):
+    """``--geometry imagenet64``'s program is the full-width imagenet64
+    train step (one step at batch 1 on the CPU, in process: profiling it
+    under the suite's workers would take minutes); ``--tiny`` is the
+    flagship's alone."""
+    import argparse
+    import importlib.util
+    import torch
+    import joint_vae_tpu_torch.save_load.jobs as jobs
+    spec = importlib.util.spec_from_file_location(
+        'torch_profile_step', os.path.join(ROOT, 'scripts',
+                                           'torch_profile_step.py'))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    made = []
+    real = jobs.new_job
+    monkeypatch.setattr(jobs, 'new_job',
+                        lambda *a, **k: made.append(real(*a, **k)) or made[-1])
+    args = argparse.Namespace(geometry='imagenet64', tiny=False, batch=1,
+                              dtype='float32', eval=False)
+    run, graph = script._program(args, False, torch.device('cpu'))
+    run()
+    (job,) = made
+    assert job.model_cfg.features == 'vgg16' and job.model_cfg.num_labels == 1000
+    assert sum(p.numel() for p in job.model.parameters()) == 40566355
+    assert graph.captures == []
+    rc, _, stderr = _run('torch_profile_step.py', [
+        '--device', 'cpu', '--geometry', 'imagenet64', '--tiny'],
+        str(tmp_path))
+    assert rc == 2 and '--tiny is the tiny flagship' in stderr
 
 
 def test_eval_times_needs_a_card(tmp_path):

@@ -56,6 +56,19 @@ FLAGSHIP_DX_GEOMS = {
 FLAGSHIP_SITE_GEOMS = {'features_stack.conv_0': (8, 32, 32, 3, 32, 5, 5, 2, 2),
                        **FLAGSHIP_DX_GEOMS}
 
+# four of imagenet64's eighteen same-grid sites (models/cvnet.py::
+# imagenet64_config), as launched, at a small batch: the 64x64 grid of
+# vgg16's conv_1; a 4x4 grid at ci 512 (K = 4,608), where a 128-row tile
+# spans 8 images; the k=4, s=2 sub-pixel deconv_1's packed kernel (3x3
+# taps to 4 x 256 channels); the 5x5 head at 64x64.  Each takes an input
+# gradient in a train step.
+IMAGENET64_SITE_GEOMS = {
+    'features_stack.conv_1': (4, 64, 64, 64, 64, 3, 3, 1, 1),
+    'features_stack.conv_15': (16, 4, 4, 512, 512, 3, 3, 1, 1),
+    'imager.deconv_1': (16, 4, 4, 512, 1024, 3, 3, 1, 1),   # sub-pixel, packed
+    'imager.conv_5': (4, 64, 64, 32, 3, 5, 5, 2, 2),
+}
+
 
 def conv_inputs(geom, seed=0):
     n, h, w, ci, co, th, tw, _, _ = geom
