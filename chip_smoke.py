@@ -369,7 +369,22 @@ and phase 15 counts them on the card in profiled replays.
    batch, (1000, N) per-class records, the json and recorders tiers
    with no launch, ROC ms per (set, method): ``im64_ood`` line); all on
    the ``imagenet64`` line;
-18. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+18. the JAX package's last jitted programs as CUDA graphs, on phase 6's
+   flagship job and phase 9's first WIM job (alone: a flagship job of
+   another seed): the trainer's per-epoch losses over two epochs with
+   train steps between (float32 and bfloat16), ``cli.aggregate``'s
+   scores of both jobs, a Poscod fine-tune (the head, Adam's moments and
+   counts) and its scores, the sampling driver's correct / incorrect
+   scan and ``record_latents``' files, each graphed against eager from
+   one job bit for bit, the generators' states after them too; 8 conv
+   launches (and a combine where the program computes iws) per eager or
+   captured batch and as kernel nodes in each capture, none of the
+   port's in Poscod's head step; then graphed against eager in turns
+   (one epoch's losses on the 10,000-image test set at 512, the scores
+   of two jobs, a Poscod fine-tune and its scores, ``record_latents``):
+   first call and ms per call, one profiled call of each mode, capture
+   seconds and pool bytes (``jit_graphs`` line);
+19. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
    ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
@@ -379,11 +394,13 @@ and phase 15 counts them on the card in profiled replays.
    records of the source in each timed case's profiled replay;
    ``launches_score_graphs``: phase 16's, the same of its scoring
    graphs; ``launches_imagenet64`` and ``imagenet64``: phase 17's by
-   main path, and its sites' summed times);
-19. print ``{"ok": true, "device": {...}}`` as the last line.
+   main path, and its sites' summed times; ``launches_jit_graphs``:
+   phase 18's graphed bit-gate runs, by program);
+20. print ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --graphs`` builds the kernels and runs phase 15
-alone; ``--score-graphs`` phase 16; ``--imagenet64`` phase 17.  A
+alone; ``--score-graphs`` phase 16; ``--imagenet64`` phase 17;
+``--jit-graphs`` phase 18.  A
 Scorer, engine or both-prior batch runs as a scoring graph
 (``train/graphs.py::ScoreGraph``): a graph's first batch eager, its
 second captured, every later one a replay (the engines' graphs are held
@@ -1626,7 +1643,10 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
                 'same_grid_conv_dx': same_grid_conv_dx.launches,
                 'iws_combine': iws_combine.launches}
     # --- end of the main path ---
-    eval_batches = 2 * (eval_size // TRAIN_TEST_BATCH)   # validation + test
+    # the validation and test sets' batches as a scoring graph: its
+    # warm-up and capture counted
+    eval_batches = _scored(2 * (eval_size // TRAIN_TEST_BATCH),
+                           'train evaluations', ('mean_losses',))
     body = _body_steps(batches, 'train epoch')
     want = {'same_grid_conv': sites * (body + eval_batches),
             'same_grid_conv_dx': dx * body,
@@ -3226,13 +3246,16 @@ def wim_finetune(card: str) -> tuple:
             wall = time.perf_counter() - t0
             launches = _counts()
             # --- end of the main path ---
-            # the pre-tuning engine's and the both-prior batches as
-            # scoring graphs: their warm-ups and captures counted
+            # the pre-tuning engine's, the both-prior and record_latents'
+            # batches as scoring graphs: their warm-ups and captures
+            # counted
             want = _ft_want(
                 _body_steps(steps, name),
                 _scored(evals[0], name + ' pre-tuning', ('score_batch',)),
                 _scored(evals[1], name + ' both-prior',
-                        ('both_prior_batch',)), *evals[2:])
+                        ('both_prior_batch',)),
+                *[_scored(n, name + ' latents', ('latents_batch',))
+                  for n in evals[2:]])
             if rc != 0 or launches != want:
                 raise AssertionError('{}: exit {}, launches {}, want {}'
                                      .format(name, rc, launches, want))
@@ -3333,8 +3356,6 @@ def wim_finetune(card: str) -> tuple:
     poscod_epochs = 1                         # [wim-default] epochs
     train_steps = min(-(-OOD_SET_SIZE // WIM_BATCH), 512 // WIM_BATCH)
     want = _ft_want(0, 0, 0)
-    want['same_grid_conv'] = SITES_PER_BATCH * (
-        2 * poscod_epochs * train_steps + n_sets * batches)
     old_cwd = os.getcwd()
     try:
         os.chdir(cwd)
@@ -3346,6 +3367,11 @@ def wim_finetune(card: str) -> tuple:
         torch.cuda.synchronize()
         poscod_s = time.perf_counter() - t0
         poscod_launches = _counts()
+        # the frozen net's batches as a scoring graph: its warm-ups and
+        # captures counted
+        want['same_grid_conv'] = SITES_PER_BATCH * _scored(
+            2 * poscod_epochs * train_steps + n_sets * batches, 'poscod',
+            ('poscod_batch',))
     finally:
         os.chdir(old_cwd)
     (d3,) = set(_job_dirs(os.path.join(root, 'wim'))) - seen
@@ -3637,8 +3663,14 @@ def drivers(store: str, resnet_dir: str) -> tuple:
     seconds = time.perf_counter() - t0
     launches['aggregate'] = _counts()
     per_job = batches * (1 + (1 + len(DRIVER_SETS)) + len(DRIVER_SETS))
-    want = {'same_grid_conv': per_job * (SITES_PER_BATCH + RESNET_SITES),
-            'same_grid_conv_dx': 0, 'iws_combine': 2 * per_job}
+    # the scores' batches (the test and OOD sets) as a scoring graph per
+    # job, held on it: the warm-ups and captures counted, as many for
+    # each job; the record sets' batches eager
+    scored = _scored(2 * batches * (1 + len(DRIVER_SETS)), 'aggregate',
+                     ('aggregate_batch',))
+    counted = batches * (1 + len(DRIVER_SETS)) + scored // 2
+    want = {'same_grid_conv': counted * (SITES_PER_BATCH + RESNET_SITES),
+            'same_grid_conv_dx': 0, 'iws_combine': 2 * counted}
     rows = [ln for ln in text.splitlines()
             if ln.startswith(('job ', 'ensemble ', 'combo ', 'ood '))]
     pcts = [float(ln.rsplit(' ', 1)[1].rstrip('%')) for ln in rows]
@@ -5809,16 +5841,16 @@ def scorer_bits(dtype: str) -> list:
 
 
 def _keep_engine_graphs(engines, graphs: list):
-    """``engines._engine_graph`` keeping each graph it hands out in
+    """``engines.held_graph`` keeping each graph it hands out in
     ``graphs`` (once); returns the original, to restore."""
-    real = engines._engine_graph
+    real = engines.held_graph
 
     def keep(*a, **k):
         g, gen = real(*a, **k)
         if all(g is not h for h in graphs):
             graphs.append(g)
         return g, gen
-    engines._engine_graph = keep
+    engines.held_graph = keep
     return real
 
 
@@ -6102,7 +6134,7 @@ def score_timings(job_dir: str) -> list:
         cases.append(_score_case('cli_test_rehard', rehard, 1, None, lambda: [
             cap for g in graphs for cap in g.captures]))
     finally:
-        engines._engine_graph = real
+        engines.held_graph = real
 
     wim = _wim(job_dir)
     _, ds = get_dataset('cifar10', splits=['test'])
@@ -6611,6 +6643,324 @@ def imagenet64_phase(card: str) -> tuple:
     return launches, line
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the JAX package's last jitted programs as CUDA graphs (the
+# trainer's per-epoch losses, ``cli.aggregate``'s scores, Poscod's means,
+# head step and scores, the sampling driver's batch, ``record_latents``),
+# each held bit for bit to its eager self from one job, then graphed
+# against eager timings in one process
+# ---------------------------------------------------------------------------
+JIT_EPOCH_STEPS = 3              # train steps between two epochs' losses
+JIT_EVAL_SET = 2 * TRAIN_TEST_BATCH + 276     # two full batches, a tail
+JIT_POSCOD_SET = 512             # Poscod's ind and moving sets, at WIM_BATCH
+JIT_SAMPLE_N = 64                # cli.sample's -N default
+
+
+class _Generators:
+    """The generator each scoring graph was last called with, by graph
+    name (the held generators' state after a run: ``state()``), kept
+    while it is installed."""
+
+    def __enter__(self):
+        from joint_vae_tpu_torch.train import graphs
+        self.cls, self.real, self.last = (graphs.ScoreGraph,
+                                          graphs.ScoreGraph.__call__, {})
+        real, last = self.real, self.last
+
+        def call(graph, generator, **kw):
+            last[graph.name] = generator
+            return real(graph, generator, **kw)
+        self.cls.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.real
+
+    def state(self) -> dict:
+        return {n: g.get_state() for n, g in self.last.items()
+                if g is not None}
+
+
+def _second_job_dir() -> str:
+    """Phase 9's first WIM job, or a flagship job of another seed when
+    phase 18 runs alone."""
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job, save_job
+    wims = _job_dirs(os.path.join(WORK, 'ft_jobs', 'wim'))
+    if wims:
+        return wims[0]
+    job_dir = os.path.join(WORK, 'jit_graphs_second_job')
+    if not os.path.exists(os.path.join(job_dir, 'params.json')):
+        save_job(new_job(flagship_config(), seed=1), job_dir)
+    return job_dir
+
+
+def _cut(ds, n: int):
+    """The first ``n`` images of ``ds``."""
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    return ArrayDataset(ds.data[:n], ds.targets[:n], ds.name)
+
+
+def _jit_run(program: str, graphed: bool, dirs: tuple, dtype: str) -> dict:
+    """Program ``program`` once, on fresh loads of the jobs in ``dirs``
+    (the flagship's in ``dtype``): its host outputs, every tensor it
+    moves, the generators' states after it, the wrappers' launches,
+    the scoring batches and steps run, the captures."""
+    from joint_vae_tpu_torch.cli import aggregate as agg_cli
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.evals import sample
+    from joint_vae_tpu_torch.ft import job as ft_job
+    from joint_vae_tpu_torch.ft import poscod
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.save_load.jobs import load_job, new_job
+    from joint_vae_tpu_torch.train import trainer
+    from joint_vae_tpu_torch.train.graphs import held_score_graphs, steps_run
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.state import fold_in, make_generator
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    testset, oodsets = _ood_sets()
+    jobs, caps, out, tensors = [], [], {}, {}
+    _count_reset()
+    with _Generators() as gens:
+        if program == 'mean_losses':
+            job = new_job(flagship_config(compute_dtype=dtype),
+                          OptimizerConfig(lr=TRAIN_LR), seed=4)
+            jobs.append(job)
+            dev = job.device
+            step = make_train_step(job.model, job.opt_cfg, graphed=graphed)
+            rng = np.random.default_rng(41)
+            ds = _cut(testset, JIT_EVAL_SET)
+            for epoch in range(2):
+                job.state.epoch = epoch
+                for _ in range(JIT_EPOCH_STEPS):
+                    x = rng.uniform(0, 1, (TRAIN_BATCH,) + job.model_cfg
+                                    .input_shape).astype(np.float32)
+                    y = rng.integers(0, job.model_cfg.num_labels, TRAIN_BATCH)
+                    job.state, _ = step(job.state, to_device(x, dev),
+                                        to_device(y, dev))
+                out[epoch] = trainer._mean_losses(
+                    job, ds, TRAIN_TEST_BATCH, epoch, graphed=graphed)
+            caps += step.graph.captures
+            tensors = _run_tensors(job)
+        elif program == 'aggregate':
+            for d in dirs:
+                job = load_job(d)
+                jobs.append(job)
+                # the test set's pass and an OOD pass, as the CLI seeds them
+                for seed, ds in ((0, testset), (fold_in(0, 9), oodsets[0])):
+                    out['{}/{}'.format(len(jobs), ds.name)] = \
+                        agg_cli._scores(job, ds, OOD_BATCH, seed,
+                                        graphed=graphed)
+        elif program == 'poscod':
+            job = load_job(dirs[0])
+            jobs.append(job)
+            steps = []
+
+            class Step(poscod._HeadStep):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    steps.append(self)
+            real, poscod._HeadStep = poscod._HeadStep, Step
+            try:
+                pc = poscod.PoscodJob(job=job, graphed=graphed).finetune(
+                    _cut(testset, JIT_POSCOD_SET),
+                    _cut(oodsets[0], JIT_POSCOD_SET), epochs=1,
+                    batch_size=WIM_BATCH, seed=0)
+            finally:
+                poscod._HeadStep = real
+            o = steps[0].opt_state
+            tensors = {'head/' + k: v for k, v in pc.head.items()}
+            tensors.update({'mu/' + k: v for k, v in o.mu.items()})
+            tensors.update({'nu/' + k: v for k, v in o.nu.items()})
+            out['counts'] = (o.count, o.adam_count)
+            for ds in (testset, oodsets[0]):
+                out['llr/' + ds.name] = pc.llr_scores(ds, WIM_TEST_BATCH)
+            caps += steps[0].graph.captures
+        elif program == 'sample':
+            job = load_job(dirs[0])
+            jobs.append(job)
+            out = sample.select_correct_incorrect(job, testset, JIT_SAMPLE_N,
+                                                  graphed=graphed)
+        else:
+            wim = _wim(dirs[0])
+            jobs.append(wim.job)
+            gen = make_generator(wim.job.device, 5)
+            d = os.path.join(WORK, 'jit_latents_{}'.format(int(graphed)))
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(d)
+            ft_job.record_latents(wim, [testset, oodsets[0]], WIM_TEST_BATCH,
+                                  gen, d, graphed=graphed)
+            for f in sorted(os.listdir(d)):
+                with open(os.path.join(d, f), 'rb') as fh:
+                    out[f] = fh.read()
+            tensors = {'generator': gen.get_state()}
+        torch.cuda.synchronize()
+        states = gens.state()
+    caps += [c for j in jobs for g in held_score_graphs(j).values()
+             for c in g.captures]
+    return {'out': out, 'tensors': {k: v.detach().cpu()
+                                    for k, v in tensors.items()},
+            'gens': {k: v.cpu() for k, v in states.items()},
+            'launches': _counts(), 'runs': _batches_run(),
+            'steps_run': dict(steps_run), 'captures': caps}
+
+
+def _host_same(a, b) -> list:
+    """Where two nests of host outputs (arrays, bytes, numbers) differ."""
+    if isinstance(a, dict):
+        return [str(k) + ('/' + d if d else '') for k in a
+                for d in (_host_same(a[k], b[k]) if k in b else ['missing'])]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return ['length']
+        return ['{}{}'.format(i, '/' + d if d else '')
+                for i, (u, v) in enumerate(zip(a, b)) for d in _host_same(u, v)]
+    if isinstance(a, np.ndarray):
+        return _host_equal(a, b)
+    return [] if a == b else ['']
+
+
+def jit_bits(program: str, dirs: tuple, dtype: str = 'float32') -> dict:
+    """``program`` graphed against eager from one job: every output, every
+    tensor it moves and every generator's state after it bit for bit;
+    launches per eager or captured batch (one eager batch's launches,
+    the flagship's 8 conv, with or without a combine); each scoring
+    capture holding them as kernel nodes by name (Poscod's head step
+    none of the port's)."""
+    got = {graphed: _jit_run(program, graphed, dirs, dtype)
+           for graphed in (False, True)}
+    e, g = got[False], got[True]
+    what = '{} {}'.format(program, dtype)
+    diff = ['out/' + k for k in _host_same(e['out'], g['out'])]
+    diff += [k for k in e['tensors']
+             if not torch.equal(e['tensors'][k], g['tensors'][k])]
+    if set(e['gens']) != set(g['gens']) or any(
+            not torch.equal(e['gens'][k], g['gens'][k]) for k in e['gens']):
+        diff.append('generators')
+    if diff:
+        raise AssertionError('{}: graph and eager differ at {}'.format(
+            what, diff[:12]))
+    names = [n for n in e['runs'] if n != 'train_step']
+    eager_batches = sum(e['runs'][n]['eager'] for n in names)
+    body = {k: 0 for k in e['launches']}
+    if program == 'mean_losses':
+        body = _want(_body_steps(2 * JIT_EPOCH_STEPS, what, e['steps_run']))
+        body['iws_combine'] = 0
+    per_batch = {k: (v - body[k]) // eager_batches
+                 for k, v in e['launches'].items()}
+    if per_batch['same_grid_conv'] != SITES_PER_BATCH or per_batch[
+            'same_grid_conv_dx'] or per_batch['iws_combine'] not in (0, 1):
+        raise AssertionError('{}: {} launches a batch'.format(what, per_batch))
+    for graphed, r in got.items():
+        if graphed and not any(x['replayed'] for x in r['runs'].values()):
+            raise AssertionError('{}: no batch replayed'.format(what))
+        n = _scored(sum(x['eager'] + x['replayed'] for x in
+                        r['runs'].values()), what, runs=r['runs'])
+        steps = (_body_steps(2 * JIT_EPOCH_STEPS, what, r['steps_run'])
+                 if program == 'mean_losses' else 0)
+        want = {k: per_batch[k] * n + (_want(steps)[k] if steps else 0)
+                for k in per_batch}
+        if r['launches'] != want:
+            raise AssertionError('{} (graphed {}): launched {}, want {}'
+                                 .format(what, graphed, r['launches'], want))
+    scoring = [c for c in g['captures'] if c['name'] in g['runs']]
+    nodes = {'same_grid_conv': per_batch['same_grid_conv'],
+             'iws_combine': per_batch['iws_combine']}
+    out = {'program': program, 'dtype': dtype, 'runs': g['runs'],
+           'outputs_equal': len(e['out']), 'tensors_equal': len(e['tensors']),
+           'generators_equal': sorted(e['gens']),
+           'per_batch': per_batch,
+           'launches': {'eager': e['launches'], 'graphed': g['launches']}}
+    out.update(_capture_gate(scoring, nodes, what))
+    if program == 'mean_losses':
+        # the train step's graph, beside which the losses' pool sits
+        out['train_step'] = [{k: c[k] for k in ('capture_s', 'pool_bytes',
+                                                 'kernel_nodes')}
+                             for c in g['captures']
+                             if c['name'] == 'train_step']
+    heads = [c for c in g['captures'] if c['name'] == 'poscod_head_step']
+    if program == 'poscod':
+        if not heads or any(any(c['kernel_nodes_by_source'].values())
+                            for c in heads):
+            raise AssertionError('poscod head step captures {}'.format(heads))
+        out['head_step'] = {'captures': len(heads),
+                            'capture_s': [c['capture_s'] for c in heads],
+                            'pool_bytes': [c['pool_bytes'] for c in heads],
+                            'steps_run': g['steps_run']}
+    return out
+
+
+def jit_timings(dirs: tuple) -> list:
+    """Graphed against eager in one process, in turns eager, graph, graph,
+    eager (``_score_case``: the first calls with their captures, ms a
+    call, one profiled call of each mode): one epoch's per-epoch losses
+    on a 10,000-image test set at 512, ``cli.aggregate``'s scores of two
+    jobs over the test set, a Poscod fine-tune and its scores of the test
+    set, ``record_latents`` of two sets.  Each graphed program on a job
+    of its own, its held graphs captured in its first call."""
+    from joint_vae_tpu_torch.cli import aggregate as agg_cli
+    from joint_vae_tpu_torch.ft import job as ft_job
+    from joint_vae_tpu_torch.ft.poscod import PoscodJob
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.train import trainer
+    from joint_vae_tpu_torch.train.graphs import held_score_graphs
+    from joint_vae_tpu_torch.train.state import make_generator
+    testset, oodsets = _ood_sets()
+    jobs = {m: [load_job(d) for d in dirs] for m in (False, True)}
+
+    def caps(kind, *js):
+        return lambda: [c for j in js
+                        for c in held_score_graphs(j)[kind].captures]
+    cases = [_score_case(
+        'mean_losses', lambda m: trainer._mean_losses(
+            jobs[m][0], testset, OOD_BATCH, 0, graphed=m), 1, None,
+        caps('mean_losses', jobs[True][0]))]
+    cases.append(_score_case(
+        'aggregate', lambda m: [agg_cli._scores(j, testset, OOD_BATCH, 0,
+                                                graphed=m) for j in jobs[m]],
+        1, None, caps('aggregate', *jobs[True])))
+    pcs = {m: PoscodJob(job=jobs[m][0], graphed=m) for m in (False, True)}
+    ind, moving = (_cut(testset, JIT_POSCOD_SET),
+                   _cut(oodsets[0], JIT_POSCOD_SET))
+
+    def poscod_run(m):
+        pcs[m].finetune(ind, moving, epochs=1, batch_size=WIM_BATCH)
+        pcs[m].llr_scores(testset, WIM_TEST_BATCH)
+    cases.append(_score_case('poscod', poscod_run, 1, None,
+                             caps('poscod', jobs[True][0])))
+    wims = {m: _wim(dirs[0]) for m in (False, True)}
+    d = os.path.join(WORK, 'jit_latents_timed')
+    os.makedirs(d, exist_ok=True)
+    cases.append(_score_case(
+        'record_latents', lambda m: ft_job.record_latents(
+            wims[m], [testset, oodsets[0]], WIM_TEST_BATCH,
+            make_generator(wims[m].job.device, 5), d, graphed=m), 1, None,
+        caps('latents', wims[True].job)))
+    return cases
+
+
+def jit_graphs_phase(card: str) -> tuple:
+    """Phase 18: the bit gates, then the timings; returns the graphed
+    bit-gate runs' launches and the ``jit_graphs`` line."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dirs = (_flagship_dir(), _second_job_dir())
+    bits = [jit_bits('mean_losses', dirs, 'float32'),
+            jit_bits('mean_losses', dirs, 'bfloat16')]
+    bits += [jit_bits(p, dirs) for p in ('aggregate', 'poscod', 'sample',
+                                         'latents')]
+    torch.cuda.empty_cache()
+    timings = jit_timings(dirs)
+    torch.cuda.empty_cache()
+    line = {'bits': bits, 'timings': timings,
+            'jobs': [os.path.relpath(d, WORK) for d in dirs],
+            'seconds': time.perf_counter() - t0, 'card': card}
+    print('jit_graphs', json.dumps(line), flush=True)
+    launches = {'{}_{}'.format(b['program'], b['dtype']):
+                b['launches']['graphed'] for b in bits}
+    return launches, line
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -6694,6 +7044,7 @@ def main():
     score_launches, score_records, score_line = timed(
         '16 score_graphs', score_graphs_phase, card)
     im64_launches, im64_line = timed('17 imagenet64', imagenet64_phase, card)
+    jit_launches, jit_line = timed('18 jit_graphs', jit_graphs_phase, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -6727,6 +7078,8 @@ def main():
              'same_grid_conv'),
          'launches_imagenet64': _im64_launch_keys(im64_launches,
                                                   'same_grid_conv'),
+         'launches_jit_graphs': {k: c['same_grid_conv']
+                                 for k, c in jit_launches.items()},
          'imagenet64': {g: im64_line['kernels'][g]
                         for g in ('serve', 'train_forward')},
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
@@ -6786,6 +7139,8 @@ def main():
              'same_grid_conv'),
          'launches_imagenet64': _im64_launch_keys(im64_launches,
                                                   'same_grid_conv_dx'),
+         'launches_jit_graphs': {k: c['same_grid_conv_dx']
+                                 for k, c in jit_launches.items()},
          'imagenet64': {'train_dx': im64_line['kernels']['train_dx']},
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
@@ -6847,6 +7202,8 @@ def main():
              score_launches, score_records, 'iws_combine', 'iws_combine'),
          'launches_imagenet64': _im64_launch_keys(im64_launches,
                                                   'iws_combine'),
+         'launches_jit_graphs': {k: c['iws_combine']
+                                 for k, c in jit_launches.items()},
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -6865,7 +7222,7 @@ def main():
                       'interop': interop_line, 'mesh': mesh_line,
                       'export': export_line, 'evidence': evidence_line,
                       'graphs': graphs_line, 'score_graphs': score_line,
-                      'imagenet64': im64_line,
+                      'imagenet64': im64_line, 'jit_graphs': jit_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -6873,9 +7230,10 @@ def main():
 
 
 def phase_only(phase):
-    """``--graphs`` / ``--score-graphs`` / ``--imagenet64``: build the
-    kernels and run phase 15, 16 or 17 alone (its ``graphs``,
-    ``score_graphs`` or ``imagenet64`` line)."""
+    """``--graphs`` / ``--score-graphs`` / ``--imagenet64`` /
+    ``--jit-graphs``: build the kernels and run phase 15, 16, 17 or 18
+    alone (its ``graphs``, ``score_graphs``, ``imagenet64`` or
+    ``jit_graphs`` line)."""
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
     from joint_vae_tpu_torch.device import set_float32_math
@@ -6897,5 +7255,7 @@ if __name__ == '__main__':
         phase_only(score_graphs_phase)
     elif sys.argv[1:] == ['--imagenet64']:
         phase_only(imagenet64_phase)
+    elif sys.argv[1:] == ['--jit-graphs']:
+        phase_only(jit_graphs_phase)
     else:
         main()

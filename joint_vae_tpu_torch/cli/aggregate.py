@@ -10,7 +10,9 @@ ensemble posteriors, and prints accuracy (and OOD AUROC) per combination
 method, plus the pairwise latent mutual information matrix; ``--record``
 writes per-sample Im-<T> tensors for ``results.mutual_info``.  Batch i of
 a pass draws its noise from ``fold_in(0, i)`` (the OOD passes from
-``fold_in(0, 9)``, the records from ``fold_in(0, 31 + i)``).
+``fold_in(0, 9)``, the records from ``fold_in(0, 31 + i)``); on the card
+each scored batch replays a CUDA graph held on its job, its generator
+reseeded per batch.
 """
 
 import argparse
@@ -18,6 +20,8 @@ import itertools
 import logging
 import os
 import sys
+import weakref
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,33 +34,54 @@ from ..models.evaluate import evaluate
 from ..ops.roc import auroc_one_sided_exact
 from ..save_load.fetch import find_by_job_number
 from ..save_load.recorders import LossRecorder, record_filename
-from ..train.state import fold_in, make_generator
+from ..train.graphs import ScoreGraph, held_graph
+from ..train.state import fold_in
 from . import add_device_arg
 
 SEED = 0
 
 
-def _scores(job, dataset, batch_size, seed, score='total'):
-    """(C, N) per-class scores + true labels + posteriors + neg-kl scores
-    (the 'mean~' combine input, ref results/aggregation.py:330-335)."""
-    dev = job.device
-    per, ys, posts, nkls = [], [], [], []
-    for i, (x, y) in enumerate(DataLoader(dataset, batch_size, shuffle=False)):
-        out = evaluate(job.model, to_device(x, dev), None,
-                       sigma_state=job.sigma_state, train=False,
-                       generator=make_generator(dev, fold_in(seed, i)))
+def _score_graph(job, graphed: bool = True) -> ScoreGraph:
+    """``_scores``' batch (the JAX CLI's jitted ``f``): the per-class
+    scores, the neg-kl scores and the posteriors, as a scoring graph
+    (``graphed=False``: eager)."""
+    ref = weakref.ref(job)          # the job holds the graph
+
+    def body(generator, x):
+        job = ref()
+        out = evaluate(job.model, x, None, sigma_state=job.sigma_state,
+                       train=False, generator=generator)
         losses = out.losses
         s = losses.get('iws')
         if s is None or s.ndim < 2:
             s = -losses['total']
-        per.append(s.cpu().numpy())
         kl = losses.get('kl')
-        nkls.append(-(kl if kl is not None and kl.ndim >= 2
-                      else losses['total']).cpu().numpy())
+        return {'s': s, 'kl': (kl if kl is not None and kl.ndim >= 2
+                               else losses['total']),
+                'post': torch.softmax(out.logits, -1)}
+    return ScoreGraph(body, name='aggregate_batch', graphed=graphed)
+
+
+def _scores(job, dataset, batch_size, seed, score='total',
+            graphed: Optional[bool] = None):
+    """(C, N) per-class scores + true labels + posteriors + neg-kl scores
+    (the 'mean~' combine input, ref results/aggregation.py:330-335).  On
+    the card each batch replays a scoring graph held on the job
+    (``graphed=False``: eager); its outputs stay there until the set's
+    end."""
+    graph, gen = held_graph(job, 'aggregate',
+                            lambda g: _score_graph(job, g), graphed=graphed)
+    per, ys, posts, kls = [], [], [], []
+    for i, (x, y) in enumerate(DataLoader(dataset, batch_size, shuffle=False)):
+        out = graph(gen.manual_seed(fold_in(seed, i)),
+                    x=to_device(x, job.device))
+        per.append(out['s'])
+        kls.append(out['kl'])
+        posts.append(out['post'])
         ys.append(y)
-        posts.append(torch.softmax(out.logits, -1).cpu().numpy().T)
-    return (np.concatenate(per, -1), np.concatenate(ys),
-            np.concatenate(posts, -1), np.concatenate(nkls, -1))
+    return (torch.cat(per, -1).cpu().numpy(), np.concatenate(ys),
+            np.ascontiguousarray(torch.cat(posts).cpu().numpy().T),
+            -torch.cat(kls, -1).cpu().numpy())
 
 
 def main(argv=None):

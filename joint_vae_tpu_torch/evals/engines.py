@@ -56,7 +56,7 @@ collectives would hang them); rank 0 writes the record files.
 import logging
 import os
 import weakref
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,9 +72,7 @@ from ..save_load.dictify import _fpr_at, needed_components
 from ..save_load.jobs import Job
 from ..save_load.checkpoint import is_write_process
 from ..save_load.recorders import LossRecorder, find_record, record_filename
-from ..train.graphs import ScoreGraph
-from ..train.state import make_generator
-from ..train.steps import graph_mode
+from ..train.graphs import ScoreGraph, held_graph, held_score_graphs  # noqa: F401
 from .odin import make_odin_scores
 
 KEPT_TPR = DEFAULT_KEPT_TPR
@@ -204,40 +202,6 @@ def _score_graph(job: Job, methods: Sequence[str], mesh=None,
                     cfg, out.logits, losses, methods).items()})
         return res
     return ScoreGraph(body, name='score_batch', graphed=graphed)
-
-
-def _engine_graph(job: Job, kind: str, methods: Sequence[str],
-                  make: Callable[[bool], ScoreGraph],
-                  generator: Optional[torch.Generator], seed: int, mesh,
-                  graphed: Optional[bool]):
-    """The scoring graph of engine ``kind`` for ``methods``
-    (``make(graphed)`` builds it) and the generator of its batches.
-    Graphed (the default off a mesh), both are held on the job across
-    calls, one graph per engine (a call with other methods, or on another
-    device, model or sigma state, replaces it), and the generator is
-    reseeded with ``seed`` (as a fresh generator of that seed draws); a
-    caller's ``generator`` means new captures.  Otherwise an eager graph
-    and a fresh generator."""
-    dev = job.device
-    if not graph_mode(graphed, mesh):
-        return make(False), (generator if generator is not None
-                             else make_generator(dev, seed))
-    held = vars(job).setdefault('_score_graphs', {})
-    key = (tuple(methods), dev)
-    reads = (job.model, job.sigma_state.data, job.sigma_state.rmse)
-    h = held.get(kind)
-    if h is None or h[0] != key or any(a is not b
-                                      for a, b in zip(h[1], reads)):
-        h = held[kind] = (key, reads, make(True),
-                          torch.Generator(device=dev))
-    graph, gen = h[2], h[3]
-    return graph, (generator if generator is not None
-                   else gen.manual_seed(int(seed)))
-
-
-def held_score_graphs(job: Job) -> Dict[str, ScoreGraph]:
-    """The scoring graphs held on ``job``, by engine."""
-    return {k: v[2] for k, v in vars(job).get('_score_graphs', {}).items()}
 
 
 def _collect_scores(job: Job, dataset: ArrayDataset, methods: Sequence[str],
@@ -458,9 +422,10 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
     if to_compute:
         union = [m for m in methods
                  if any(m in ms for _, ms in to_compute)]
-        graph, generator = _engine_graph(
-            job, 'ood', union, lambda g: _score_graph(job, union, mesh, g),
-            generator, epoch, mesh, graphed)
+        graph, generator = held_graph(
+            job, 'ood', lambda g: _score_graph(job, union, mesh, g),
+            key=union, seed=epoch, generator=generator, mesh=mesh,
+            graphed=graphed)
         for s, ms in to_compute:
             rec = None
             # record_dir redirects fresh recordings (the WIM pre-tuning
@@ -638,9 +603,9 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
     estimated = getattr(testset, 'estimated', None)
 
     pm = [m for m in predict_methods if m != 'already']
-    graph, generator = _engine_graph(
-        job, 'accuracy', pm, lambda g: _accuracy_graph(job, pm, g),
-        generator, epoch + 1, mesh, graphed)
+    graph, generator = held_graph(
+        job, 'accuracy', lambda g: _accuracy_graph(job, pm, g), key=pm,
+        seed=epoch + 1, generator=generator, mesh=mesh, graphed=graphed)
     counts = torch.zeros(len(pm), dtype=torch.int64, device=dev)
     rec_batches = []
     for i, (x, y) in enumerate(loader):
@@ -740,10 +705,10 @@ def misclassification_detection_rates(job: Job,
         if not mms:
             return {}
         rec = LossRecorder(batch_size)
-        graph, generator = _engine_graph(
-            job, 'misclassification', mms,
-            lambda g: _score_graph(job, mms, mesh, g), generator, epoch + 2,
-            mesh, graphed)
+        graph, generator = held_graph(
+            job, 'misclassification',
+            lambda g: _score_graph(job, mms, mesh, g), key=mms,
+            seed=epoch + 2, generator=generator, mesh=mesh, graphed=graphed)
         _collect_scores(job, testset, mms, batch_size, rec, graph, generator,
                         num_batch, mesh=mesh)
         # persist the fresh recording even when no prior record file

@@ -11,13 +11,15 @@ Port of ``joint_vae_tpu/evals/sample.py``:
   histograms and scatters;
 - :func:`save_grid_image`: raw npz, and a PNG when PIL imports.
 
-The evaluations run on the job's device; the noise of ``evaluate`` comes
+The evaluations run on the job's device (the correct / incorrect scan's
+batches as a CUDA graph held on the job); the noise of ``evaluate`` comes
 from a torch generator (or ``eps``), the prior draw of
 :func:`generation_grid` from ``numpy.random.default_rng(seed)`` (or
 ``eps``): JAX's ``random.normal`` has no torch counterpart.
 """
 
 import os
+import weakref
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -27,6 +29,7 @@ from ..device import to_device
 from ..models.evaluate import evaluate
 from ..ops.scores import predict_after_evaluate
 from ..save_load.jobs import Job
+from ..train.graphs import ScoreGraph, held_graph
 from ..train.state import fold_in, make_generator
 
 
@@ -67,15 +70,35 @@ def reconstruction_grid(job: Job, x: np.ndarray, y: Optional[np.ndarray] = None,
     return grid
 
 
+def _pred_graph(job: Job, graphed: bool = True) -> ScoreGraph:
+    """:func:`select_correct_incorrect`'s batch (the JAX driver's jitted
+    ``pred``): the evaluation without the mean sample's decode and the
+    first predict method's labels, as a scoring graph (``graphed=False``:
+    eager)."""
+    cfg = job.model_cfg
+    ref = weakref.ref(job)          # the job holds the graph
+
+    def body(generator, x):
+        job = ref()
+        out = evaluate(job.model, x, None, sigma_state=job.sigma_state,
+                       train=False, decode_mean=False, generator=generator)
+        return {'pred': predict_after_evaluate(cfg, out.logits, out.losses,
+                                               cfg.predict_methods[0])}
+    return ScoreGraph(body, name='sample_batch', graphed=graphed)
+
+
 def select_correct_incorrect(job: Job, dataset, n: int,
                              batch_size: int = 256, seed: int = 3,
-                             max_batches: int = 64):
+                             max_batches: int = 64,
+                             graphed: Optional[bool] = None):
     """Scan a dataset until n correctly- and n incorrectly-classified
     inputs are pooled (ref module/sample.py:437-466: the reference walks
     the test loader accumulating both pools before building its 'correct'
     and 'incorrect' grids); batch i draws its noise from
-    ``fold_in(seed, i)``.  -> {'correct': (x, y), 'incorrect': (x, y)}
-    (pools may be shorter than n if the set runs out)."""
+    ``fold_in(seed, i)``.  On the card each batch replays a scoring graph
+    held on the job, its generator reseeded per batch (``graphed=False``:
+    eager).  -> {'correct': (x, y), 'incorrect': (x, y)} (pools may be
+    shorter than n if the set runs out)."""
     from ..data.loaders import DataLoader
     cfg = job.model_cfg
     if not cfg.predict_methods:
@@ -85,15 +108,15 @@ def select_correct_incorrect(job: Job, dataset, n: int,
     def have(name):
         return sum(len(a) for a in pools[name][0])
 
+    graph, gen = held_graph(job, 'sample', lambda g: _pred_graph(job, g),
+                            graphed=graphed)
     loader = DataLoader(dataset, batch_size, shuffle=False)
     for i, (x, y) in enumerate(loader):
         if i >= max_batches or all(have(nm) >= n for nm in pools):
             break
-        out = _eval(job, x, make_generator(job.device, fold_in(seed, i)),
-                    decode_mean=False)
-        y_ = predict_after_evaluate(cfg, out.logits, out.losses,
-                                    cfg.predict_methods[0]).cpu().numpy()
-        ok = y_ == np.asarray(y)
+        y_ = graph(gen.manual_seed(fold_in(seed, i)),
+                   x=to_device(np.asarray(x), job.device))['pred']
+        ok = y_.cpu().numpy() == np.asarray(y)
         for name, m in (('correct', ok), ('incorrect', ~ok)):
             if have(name) < n and m.any():
                 pools[name][0].append(np.asarray(x)[m])

@@ -22,13 +22,14 @@ The fine-tune step is replayed as a CUDA graph on the card (its inputs
 copied into the graph's buffers), and so is each both-prior batch of
 the post-tuning evaluation (:func:`both_prior_graph`: one draw of the
 latent noise for both priors, one graph for every set, its generator
-reseeded per set); ``record_latents`` stays eager.
+reseeded per set), and each batch of ``record_latents``.
 """
 
 import dataclasses
 import logging
 import os
 import time
+import weakref
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -44,9 +45,9 @@ from ..ops.scores import batch_dist_measures
 from ..parallel.mesh import (batch_sharding, ensure_placed, eval_feed,
                              put_global, world)
 from ..save_load.checkpoint import is_write_process, save_json
-from ..save_load.jobs import load_job, save_job
+from ..save_load.jobs import Job, load_job, save_job
 from ..save_load.recorders import LossRecorder, SampleRecorder, record_filename
-from ..train.graphs import ScoreGraph
+from ..train.graphs import ScoreGraph, held_graph
 from ..train.optimizers import build_optimizer
 from ..train.state import make_generator, named_params
 from ..train.steps import graph_mode, pull_metrics
@@ -193,19 +194,39 @@ def host_roc(ins: np.ndarray, outs: np.ndarray, two_sided=False):
                      kept_tpr=DEFAULT_KEPT_TPR, two_sided=two_sided)
 
 
+def _latents_graph(job: Job, graphed: bool = True) -> ScoreGraph:
+    """``record_latents``' batch (the JAX flow's jitted ``mu_of``): the
+    encoder means of an evaluation at L=1, as a scoring graph
+    (``graphed=False``: eager)."""
+    ref = weakref.ref(job)          # the job holds the graph
+
+    def body(generator, x):
+        job = ref()
+        return {'mu': evaluate(job.model, x, sigma_state=job.sigma_state,
+                               L=1, decode_mean=False,
+                               generator=generator).mu}
+    return ScoreGraph(body, name='latents_batch', graphed=graphed)
+
+
 def record_latents(wim: WIMJob, datasets: Sequence[ArrayDataset],
                    batch_size: int, generator: torch.Generator,
-                   out_dir: str, mesh=None) -> None:
+                   out_dir: str, mesh=None,
+                   graphed: Optional[bool] = None) -> None:
     """SampleRecorder dumps of the encoder means of each set's first
     ``LATENT_BATCHES`` batches, with both priors' centroids as
     auxiliaries: the input of the post-hoc PCA / latent-shift inspection
-    (ref ft/__main__.py:209-221 feeding ft/inspection.py).  ``mesh``:
-    every rank runs the mesh-fed forwards and gathers, rank 0 writes."""
+    (ref ft/__main__.py:209-221 feeding ft/inspection.py).  On the card
+    each batch replays a scoring graph (one across the sets, held on the
+    job with ``generator``; ``graphed=False``: eager).  ``mesh``: every
+    rank runs the mesh-fed forwards and gathers, rank 0 writes (eager)."""
     job = wim.job
+    graph, generator = held_graph(job, 'latents',
+                                  lambda g: _latents_graph(job, g),
+                                  generator=generator, mesh=mesh,
+                                  graphed=graphed)
     if mesh is not None:
         job.state = ensure_placed(job.state, mesh)
-    model = job.model
-    centroids = model.prior()['mean'].detach().float().cpu().numpy()
+    centroids = job.model.prior()['mean'].detach().float().cpu().numpy()
     alternate = (wim.alternate_prior_params['mean'].float().cpu().numpy()
                  if wim.alternate_prior_params is not None else None)
     for ds in datasets:
@@ -216,12 +237,8 @@ def record_latents(wim: WIMJob, datasets: Sequence[ArrayDataset],
             if i >= LATENT_BATCHES:
                 break
             xt = put(x)
-
-            def forward():
-                return {'mu': evaluate(model, xt, sigma_state=job.sigma_state,
-                                       L=1, decode_mean=False,
-                                       generator=generator).mu}
-            mus.append(run(len(x), forward, lambda k, v: v.ndim - 2)['mu'])
+            mus.append(run(len(x), lambda: graph(generator, x=xt),
+                           lambda k, v: v.ndim - 2)['mu'])
             ys.append(np.asarray(y))
         for mu, y in zip(mus, ys):
             rec.append_batch(mu=mu.float().cpu().numpy(), y=y)

@@ -8,13 +8,19 @@ moving set (label 0).  The score is the head's output, the
 log-likelihood ratio ('llr' method).  The head's optimizer is the port's
 Adam (``train/optimizers.py``), optax's ``adam`` step for step.
 
+On the card the frozen net's batches replay a scoring graph held on the
+job (its means, and with the head its scores: one replay per scored
+batch) and the head's step a step graph, its head and Adam's moments
+updated in place (``train/graphs.py``).
+
 ``mesh=``: the frozen net's forwards are mesh-fed and their encoder means
 gathered, so that every rank trains the same replicated head (K+1
-scalars) on the whole batch, as one process does.
+scalars) on the whole batch, as one process does (eagerly).
 """
 
 import dataclasses
 import os
+import weakref
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,8 +33,9 @@ from ..models.evaluate import evaluate
 from ..parallel.mesh import ensure_placed, eval_feed, world
 from ..save_load.checkpoint import is_write_process
 from ..save_load.jobs import Job, load_job
-from ..train.optimizers import OptimizerConfig, build_optimizer
-from ..train.state import make_generator
+from ..train.graphs import ScoreGraph, StepGraph, graph_mode, held_graph
+from ..train.optimizers import (OptimizerConfig, advance_counts,
+                                build_optimizer, sync_device_scalars)
 
 OOD_METHODS = ['llr']
 
@@ -57,30 +64,85 @@ def load_poscod_job(job_dir: str, device: DeviceLike = None) -> 'PoscodJob':
     return pc
 
 
+def _mu_graph(job: Job, graphed: bool = True) -> ScoreGraph:
+    """Poscod's batch (the JAX ``_mu_jit`` and ``score``): the encoder
+    means of the whole model's forward, widened to float32 (as JAX
+    promotes a bfloat16 model's against the float32 head), and with the
+    head's ``w`` and ``b`` given, its scores ``mu @ w + b`` instead; as
+    a scoring graph (``graphed=False``: eager)."""
+    ref = weakref.ref(job)          # the job holds the graph
+
+    def body(generator, x, w=None, b=None):
+        job = ref()
+        mu = evaluate(job.model, x, None, sigma_state=job.sigma_state,
+                      train=False, L=1, compute_iws=False, decode_mean=False,
+                      generator=generator).mu.float()
+        if w is None:
+            return {'mu': mu}
+        return {'llr': mu @ w + b}
+    return ScoreGraph(body, name='poscod_batch', graphed=graphed)
+
+
+class _HeadStep:
+    """The head's step (the JAX ``step``): the BCE of ``mu @ w + b``
+    against ind = 1, moving = 0 and the Adam update, the head and the
+    moments updated in place and Adam's count read from a device scalar,
+    as a step graph (``graphed=False``: eager)."""
+
+    generator = None                # the step draws no noise
+
+    def __init__(self, K: int, lr: float, device, graphed: bool):
+        self.head = {'w': torch.zeros((K,), device=device),
+                     'b': torch.zeros((), device=device)}
+        self.tx = build_optimizer(OptimizerConfig(optim_type='adam', lr=lr))
+        self.opt_state = self.tx.init(self.head)
+        self.device = device
+        self.graph = StepGraph(self._body, name='poscod_head_step',
+                               graphed=graphed)
+
+    def _body(self, state, mu_i: torch.Tensor, mu_m: torch.Tensor) -> dict:
+        mu = torch.cat([mu_i, mu_m])
+        labels = torch.cat([torch.ones(len(mu_i), device=mu.device),
+                            torch.zeros(len(mu_m), device=mu.device)])
+        leaves = {k: v.detach().requires_grad_() for k, v in self.head.items()}
+        with torch.enable_grad():
+            logit = mu @ leaves['w'] + leaves['b']
+            loss = F.binary_cross_entropy_with_logits(logit, labels)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        updates, _ = self.tx.update(grads, self.opt_state, self.head,
+                                    capturable=True)
+        with torch.no_grad():
+            torch._foreach_add_(list(self.head.values()),
+                                [updates[k] for k in self.head])
+        return {'loss': loss.detach()}
+
+    def __call__(self, mu_i: torch.Tensor, mu_m: torch.Tensor) -> None:
+        sync_device_scalars(self.opt_state, self.device)
+        self.graph(self, owner=(self.opt_state,), mu_i=mu_i, mu_m=mu_m)
+        advance_counts(self.opt_state, adam=True)
+
+
 @dataclasses.dataclass
 class PoscodJob:
+    """``graphed`` (default: True off a mesh) replays the frozen net's
+    batches (its means, and with the head its scores) as a scoring graph
+    held on the job, shared by :meth:`finetune` and :meth:`llr_scores`
+    (each reseeds its generator), and the head's step as a step graph;
+    False runs both eagerly, as does a mesh."""
     job: Job
     head: Optional[Dict[str, torch.Tensor]] = None
+    graphed: Optional[bool] = None
 
-    def _mu(self, x: np.ndarray, generator: torch.Generator,
-            mesh=None) -> torch.Tensor:
-        """The encoder means (N, K) of a host batch in float32, on the
-        job's device (gathered on every rank of a mesh).  A bfloat16
-        model's means are widened, as JAX promotes them against the
-        float32 head."""
+    def _batches(self, dataset: ArrayDataset, seed: int, mesh):
+        """(put, run, graph, generator) of a pass over ``dataset``."""
         job = self.job
+        graph, gen = held_graph(job, 'poscod', lambda g: _mu_graph(job, g),
+                                seed=seed, mesh=mesh, graphed=self.graphed)
         if mesh is not None:
             job.state = ensure_placed(job.state, mesh)
-        put, run = eval_feed(mesh, job.device, np.ndim(x))
-        xt = put(x)
-
-        def forward():
-            return {'mu': evaluate(job.model, xt, None,
-                                   sigma_state=job.sigma_state, train=False,
-                                   L=1, compute_iws=False, decode_mean=False,
-                                   generator=generator).mu}
-        mu = run(len(x), forward, lambda k, v: v.ndim - 2)['mu'].float()
-        return mu.reshape((-1, mu.shape[-1])) if mu.ndim > 2 else mu
+        put, run = eval_feed(mesh, job.device, 1 + len(dataset.shape))
+        return put, run, graph, gen
 
     @staticmethod
     def _check(mesh):
@@ -93,36 +155,32 @@ class PoscodJob:
         """Train the 1-logit head with BCE (ind = 1, moving = 0)."""
         self._check(mesh)
         dev = self.job.device
-        K = self.job.model_cfg.latent_dim
-        head = {'w': torch.zeros((K,), device=dev),
-                'b': torch.zeros((), device=dev)}
-        tx = build_optimizer(OptimizerConfig(optim_type='adam', lr=lr))
-        opt_state = tx.init(head)
-        generator = make_generator(dev, seed)
+        put, run, graph, gen = self._batches(ind, seed, mesh)
+
+        def mu(x):
+            xt = put(x)
+            m = run(len(x), lambda: graph(gen, x=xt),
+                    lambda k, v: v.ndim - 2)['mu']
+            return m.reshape((-1, m.shape[-1])) if m.ndim > 2 else m
+        step = _HeadStep(self.job.model_cfg.latent_dim, lr, dev,
+                         graph_mode(self.graphed, mesh))
         for epoch in range(epochs):
             li = DataLoader(ind, batch_size, seed=seed + epoch)
             lm = DataLoader(moving, batch_size, seed=seed + epoch + 1)
             for (xi, _), (xm, _) in zip(li, lm):
-                mu = torch.cat([self._mu(xi, generator, mesh),
-                                self._mu(xm, generator, mesh)])
-                labels = torch.cat([torch.ones(len(xi), device=dev),
-                                    torch.zeros(len(xm), device=dev)])
-                leaves = {k: v.detach().requires_grad_() for k, v in head.items()}
-                with torch.enable_grad():
-                    logit = mu @ leaves['w'] + leaves['b']
-                    loss = F.binary_cross_entropy_with_logits(logit, labels)
-                    grads = dict(zip(leaves, torch.autograd.grad(
-                        loss, list(leaves.values()))))
-                updates, opt_state = tx.update(grads, opt_state, head)
-                head = {k: head[k] + updates[k] for k in head}
-        self.head = head
+                step(mu(xi), mu(xm))
+        self.head = step.head
         return self
 
     def llr_scores(self, dataset: ArrayDataset, batch_size: int = 256,
                    seed: int = 0, mesh=None) -> np.ndarray:
         assert self.head is not None, 'finetune first'
         self._check(mesh)
-        generator = make_generator(self.job.device, seed)
-        out = [self._mu(x, generator, mesh) @ self.head['w'] + self.head['b']
-               for x, _ in DataLoader(dataset, batch_size, shuffle=False)]
+        put, run, graph, gen = self._batches(dataset, seed, mesh)
+        out = []
+        for x, _ in DataLoader(dataset, batch_size, shuffle=False):
+            xt = put(x)
+            s = run(len(x), lambda: graph(gen, x=xt, **self.head),
+                    lambda k, v: v.ndim - 1)['llr']
+            out.append(s.reshape(-1))
         return torch.cat(out).cpu().numpy()

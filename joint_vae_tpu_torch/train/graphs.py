@@ -39,10 +39,12 @@ empties the allocator's cache, as ``torch.cuda.graph`` does: the card
 runs the batches queued while the host captures.  The cache is given
 back first only when it holds more idle memory than the card has free.
 
-A new owner (a step's generator, optimizer and sigma state; a scoring
-batch's generator and whatever else its caller names) means new
-captures: the ones held and their pool are dropped, and the owners are
-held, so that no other object takes their place.
+A new owner (a step's generator, optimizer and sigma state, or what
+its caller names instead; a scoring batch's generator and whatever else
+its caller names) means new captures: the ones held and their pool are
+dropped, and the owners are held, so that no other object takes their
+place.  :func:`held_graph` holds a program's scoring graph and its
+generator on a job across calls, reseeded per call or per batch.
 
 The kernel wrappers count their launches where they call their kernels:
 in eager runs, in the warm-up and in the capture, never in a replay,
@@ -51,7 +53,8 @@ instead: at capture the graph's kernel nodes are counted by their
 functions' names, per kernel source of ``ops/cuda_lib.py``, and must
 equal the launches the wrappers counted while capturing, or the capture
 raises.  ``captures`` records each capture's seconds, launches, kernel
-nodes and the bytes it added to the pool; :data:`steps_run` counts the
+nodes, the bytes it added to the pool and whether the cache was given
+back first; :data:`steps_run` counts the
 step graphs' steps and :data:`batches_run` the scoring graphs' batches
 by graph name, each by how they ran.
 
@@ -60,11 +63,13 @@ A :class:`StepGraph` holds a step body ``body(state, **inputs) -> {name:
 value that moves between steps (learning rate, Adam's count, the warmup
 ramps, the prior-mean thaw) from 0-dim device tensors, so that a replay
 computes what the eager body computes; it packs the metrics into one
-float32 vector (its output).  A :class:`ScoreGraph` holds a scoring body
-``body(generator, **inputs) -> {name: tensor}`` (losses, logits, scores)
-that changes no state but the generator's; its outputs are static
-tensors that the next replay overwrites, so the caller takes copies or
-pulls them to the host first.
+float32 vector (its output).  Its state is a train state by default
+(its generator, optimizer and sigma state the owners), or any object
+with a ``generator`` (None: no noise) and the owners its caller names.
+A :class:`ScoreGraph` holds a scoring body ``body(generator, **inputs)
+-> {name: tensor}`` (losses, logits, scores) that changes no state but
+the generator's; its outputs are static tensors that the next replay
+overwrites, so the caller takes copies or pulls them to the host first.
 
 The backward of a captured step accumulates each parameter's gradient on
 the stream its gradient accumulator was made on: the side stream, when
@@ -101,6 +106,16 @@ _side_streams: Dict[torch.device, Any] = {}
 steps_run = dict.fromkeys(_HOW, 0)
 # the same for the scoring graphs' batches, by graph name
 batches_run: Dict[str, Dict[str, int]] = {}
+
+
+def graph_mode(graphed: Optional[bool], mesh) -> bool:
+    """Whether a step or scoring batch runs as a graph: by default, off a
+    mesh; a mesh step or batch is eager (its collectives are not
+    captured) and asking it for a graph raises."""
+    if graphed and mesh is not None:
+        raise ValueError('a mesh step runs eagerly: graphed=True cannot '
+                         'be asked of it')
+    return mesh is None if graphed is None else bool(graphed)
 
 
 def reset_steps_run() -> None:
@@ -240,7 +255,8 @@ class GraphRunner:
             self._pool = torch.cuda.graph_pool_handle()
         idle = (torch.cuda.memory_reserved(dev)
                 - torch.cuda.memory_allocated(dev))
-        if torch.cuda.mem_get_info(dev)[0] < idle:
+        emptied = torch.cuda.mem_get_info(dev)[0] < idle
+        if emptied:
             torch.cuda.empty_cache()
         grown = _malloced(dev)
         before = cuda_lib.launch_counts()
@@ -272,7 +288,8 @@ class GraphRunner:
             'kernel_nodes': None if nodes is None else nodes['total'],
             'kernel_nodes_by_source': None if nodes is None
             else nodes['by_source'],
-            'pool_bytes': _malloced(dev) - grown})
+            'pool_bytes': _malloced(dev) - grown,
+            'emptied_cache': emptied})
 
 
 def _malloced(dev: torch.device) -> int:
@@ -315,20 +332,24 @@ class StepGraph(GraphRunner):
         return PackedMetrics(self.names, vector)
 
     # ---- one real step ---------------------------------------------------
-    def __call__(self, state, **inputs) -> PackedMetrics:
+    def __call__(self, state, *, owner: Optional[tuple] = None,
+                 **inputs) -> PackedMetrics:
         """One real step on ``inputs`` (tensors, :class:`Rows`, or None for
         an input not given); returns its metrics, a copy of the graph's
-        output on the card."""
+        output on the card.  ``owner``: what the body reads that can be
+        rebound (default: a train state's optimizer and sigma state);
+        ``state.generator`` always is one."""
         given = {k: v for k, v in inputs.items() if v is not None}
         if not self.graphed:
             self._count('eager')
             return self.metrics(self._packed(state, {
                 k: v.value() if isinstance(v, Rows) else v
                 for k, v in given.items()}))
-        # a new generator, optimizer or sigma state means new captures
-        entry = self._entry((state.generator, state.opt_state,
-                             state.sigma_state.data, state.sigma_state.rmse),
-                            given)
+        if owner is None:
+            owner = (state.opt_state, state.sigma_state.data,
+                     state.sigma_state.rmse)
+        # a new generator or owner means new captures
+        entry = self._entry((state.generator,) + tuple(owner), given)
         out = self._run(entry, state.generator,
                         lambda bufs: self._packed(state, bufs))
         return self.metrics(out.clone() if entry.graph is not None else out)
@@ -362,6 +383,40 @@ class ScoreGraph(GraphRunner):
         if entry.graph is not None:
             out = {k: v.clone() for k, v in out.items()}
         return out
+
+
+def held_graph(job, kind: str, make: Callable[[bool], ScoreGraph], *,
+               key: tuple = (), seed: int = 0,
+               generator: Optional[torch.Generator] = None, mesh=None,
+               graphed: Optional[bool] = None):
+    """The scoring graph of program ``kind`` on ``job`` (``make(graphed)``
+    builds it) and the generator of its batches.  Graphed (the default off
+    a mesh, :func:`graph_mode`), both are held on the job across calls,
+    one graph per kind (another ``key``, device, model or sigma state
+    replaces it), and the generator is reseeded with ``seed`` (as a fresh
+    generator of that seed draws); a caller's ``generator`` means new
+    captures.  Otherwise an eager graph and a fresh generator."""
+    dev = job.device
+    if not graph_mode(graphed, mesh):
+        return make(False), (generator if generator is not None else
+                             torch.Generator(device=dev).manual_seed(
+                                 int(seed)))
+    held = vars(job).setdefault('_score_graphs', {})
+    key = (tuple(key), dev)
+    reads = (job.model, job.sigma_state.data, job.sigma_state.rmse)
+    h = held.get(kind)
+    if h is None or h[0] != key or any(a is not b
+                                      for a, b in zip(h[1], reads)):
+        h = held[kind] = (key, reads, make(True),
+                          torch.Generator(device=dev))
+    graph, gen = h[2], h[3]
+    return graph, (generator if generator is not None
+                   else gen.manual_seed(int(seed)))
+
+
+def held_score_graphs(job) -> Dict[str, ScoreGraph]:
+    """The scoring graphs held on ``job``, by program."""
+    return {k: v[2] for k, v in vars(job).get('_score_graphs', {}).items()}
 
 
 class _KernelNodeParams(ctypes.Structure):

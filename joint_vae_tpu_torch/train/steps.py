@@ -24,7 +24,7 @@ from ..models.evaluate import evaluate
 from ..ops.sigma import SigmaState
 from ..parallel.mesh import Mesh, mesh_scope, split_names
 from ..parallel.shard_steps import global_grad_norm, reduce_step
-from .graphs import PackedMetrics, Rows, StepGraph
+from .graphs import PackedMetrics, Rows, StepGraph, graph_mode
 from .optimizers import (OptimizerConfig, advance_counts, build_optimizer,
                          sync_device_scalars)
 from .state import (TrainState, apply_grad_mask, grad_mask, named_params,
@@ -34,16 +34,6 @@ from .state import (TrainState, apply_grad_mask, grad_mask, named_params,
 def warmup_weight(epoch: int, warmup: Tuple[int, int]) -> float:
     """clip((epoch + 1 - start) / (length + 1), 0, 1) — ref cvae.py:2432."""
     return min(max((epoch + 1.0 - warmup[0]) / (warmup[1] + 1.0), 0.0), 1.0)
-
-
-def graph_mode(graphed: Optional[bool], mesh: Optional[Mesh]) -> bool:
-    """Whether a step runs as a graph: by default, off a mesh; a mesh step
-    is eager (its collectives are not captured) and asking it for a graph
-    raises."""
-    if graphed and mesh is not None:
-        raise ValueError('a mesh step runs eagerly: graphed=True cannot '
-                         'be asked of it')
-    return mesh is None if graphed is None else bool(graphed)
 
 
 def copy_sigma_state(dst: SigmaState, src: SigmaState) -> None:

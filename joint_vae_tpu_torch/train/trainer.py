@@ -25,7 +25,9 @@ cvae.py:2081-2547):
 Per epoch, every ``ood_detection_every`` and ``full_test_every`` epochs,
 and once at the end, it runs the evaluation engines (``evals/engines.py``:
 ``ood_detection_rates``, ``accuracy``), the in-training ones capped at
-``test_sample_size`` samples.
+``test_sample_size`` samples.  The per-epoch validation and test losses
+replay a scoring graph per batch shape on the card, held on the job
+across epochs (``_mean_losses``).
 
 ``mesh`` (``parallel/mesh.py``) trains on a device mesh: the state is
 placed with the sharding rules, every rank iterates the same full loader
@@ -37,6 +39,7 @@ device-resident set is off on a mesh.  A multi-process run needs a mesh; its eva
 
 import logging
 import time
+import weakref
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -45,7 +48,6 @@ import torch
 from ..data.loaders import ArrayDataset, DataLoader, get_dataset
 from ..device import to_device
 from ..evals.engines import accuracy, ood_detection_rates
-from ..models.cvnet import CVNet
 from ..models.evaluate import evaluate
 from ..parallel.mesh import (ensure_placed, eval_batch_putters, mesh_scope,
                              rows_split, world)
@@ -55,8 +57,8 @@ from ..save_load.jobs import Job, mark, save_job
 from ..utils.print_log import EpochOutput
 from ..utils.signaling import SIGHandler
 from .device_data import DeviceDataset, epoch_permutation
+from .graphs import ScoreGraph, held_graph
 from .optimizers import set_learning_rate
-from .state import TrainState, make_generator
 from .steps import make_train_step, pull_metrics
 
 
@@ -256,15 +258,15 @@ def train_model(job: Job,
         }
 
         if validationset is not None:
-            vl, vm = _mean_losses(model, state, validationset,
-                                  test_batch_size, epoch, mesh=eng_mesh)
+            vl, vm = _mean_losses(job, validationset, test_batch_size,
+                                  epoch, mesh=eng_mesh, graphed=graphed)
             checkpoint['validation_loss'] = vl
             checkpoint['validation_measures'] = vm
         if testset is not None and (
                 epoch == epochs - 1
                 or (epoch - first_epoch) % full_test_every == full_test_every - 1):
-            tl, tm = _mean_losses(model, state, testset, test_batch_size,
-                                  epoch, mesh=eng_mesh)
+            tl, tm = _mean_losses(job, testset, test_batch_size, epoch,
+                                  mesh=eng_mesh, graphed=graphed)
             checkpoint['test_loss'] = tl
             checkpoint['test_measures'] = tm
         job.train_history[epoch + 1] = checkpoint
@@ -289,29 +291,48 @@ def train_model(job: Job,
     return job
 
 
-def _mean_losses(model: CVNet, state: TrainState, dataset: ArrayDataset,
-                 batch_size: int, epoch: int, mesh=None):
-    """-> (mean per-component losses, mean measures incl. rmse/dB) with
-    labels (validation/test history tracking); the latent noise comes from
-    a generator seeded with the epoch, and the batch means are pulled from
-    the card once.  ``mesh``: each batch is fed over 'data'
-    (``eval_batch_putters``) and its means are averaged over the ranks."""
-    dev = state.device
-    gen = make_generator(dev, epoch)
-    put_x = put_y = lambda a: to_device(a, dev)
-    if mesh is not None:
-        put_x, put_y = eval_batch_putters(mesh, 1 + len(dataset.shape))
-    per_batch = []
-    for x, y in DataLoader(dataset, batch_size, shuffle=False):
-        split = rows_split(mesh, len(x))
+def _mean_loss_graph(job: Job, mesh=None, graphed: bool = True
+                     ) -> ScoreGraph:
+    """The per-epoch losses' batch (the JAX trainer's ``eval_batch``,
+    ``joint_vae_tpu/train/trainer.py:331``): the batch means of every
+    loss and measure, with labels, as a scoring graph (``graphed=False``:
+    eager); a mesh batch's means are averaged over the ranks."""
+    ref = weakref.ref(job)          # the job holds the graph
+
+    def body(generator, x, y):
+        job = ref()
+        split = rows_split(mesh, x.shape[0])
         with mesh_scope(mesh, rows=split):
-            out = evaluate(model, put_x(x), put_y(y),
-                           sigma_state=state.sigma_state, train=False,
-                           generator=gen)
+            out = evaluate(job.model, x, y, sigma_state=job.sigma_state,
+                           train=False, generator=generator)
         row = {**{'loss/' + k: torch.mean(v) for k, v in out.losses.items()},
                **{'measure/' + k: torch.mean(v)
                   for k, v in out.measures.items()}}
-        per_batch.append(reduce_over_data(row, mesh) if split else row)
+        return reduce_over_data(row, mesh) if split else row
+    return ScoreGraph(body, name='mean_losses', graphed=graphed)
+
+
+def _mean_losses(job: Job, dataset: ArrayDataset, batch_size: int,
+                 epoch: int, mesh=None, graphed: Optional[bool] = None):
+    """-> (mean per-component losses, mean measures incl. rmse/dB) with
+    labels (validation/test history tracking); the latent noise comes from
+    a generator seeded with the epoch, and the batch means are pulled from
+    the card once.  On the card each batch replays a scoring graph
+    (``graphed=False``: eager), held on the job across epochs and sets
+    with its generator (``train/graphs.py::held_graph``): the train step
+    moves the parameters and the sigma state in place, which the graph
+    reads.  ``mesh``: each batch is fed over 'data'
+    (``eval_batch_putters``) and its means are averaged over the ranks;
+    eager."""
+    dev = job.device
+    graph, gen = held_graph(job, 'mean_losses',
+                            lambda g: _mean_loss_graph(job, mesh, g),
+                            seed=epoch, mesh=mesh, graphed=graphed)
+    put_x = put_y = lambda a: to_device(a, dev)
+    if mesh is not None:
+        put_x, put_y = eval_batch_putters(mesh, 1 + len(dataset.shape))
+    per_batch = [graph(gen, x=put_x(x), y=put_y(y))
+                 for x, y in DataLoader(dataset, batch_size, shuffle=False)]
     sums: Dict[str, float] = {}
     for row in pull_metrics(per_batch):
         for k, v in row.items():

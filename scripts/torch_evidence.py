@@ -220,6 +220,11 @@ def parser(doc: str, *, dtypes=DTYPES, epochs: int = 20,
     p.add_argument('--out', default=None,
                    help='record file (default under docs/, on the card '
                         'only; a CPU run writes only here)')
+    p.add_argument('--seed', type=int, default=0,
+                   help="added to every seed of the run (the models', the "
+                        "alternate prior's, the fine-tunes' and heads'; 0: "
+                        "the records'); a run of another seed is kept "
+                        "under '<dtype> seed=<n>'")
     return p
 
 
@@ -249,14 +254,15 @@ def run_dtypes(args, default_out: str, script: str, reference: str,
     record.update(head)
     runs = record.setdefault('runs', {})
     for dtype in args.dtype:
-        torch.manual_seed(0)
+        torch.manual_seed(args.seed)
         t0 = time.perf_counter()
         r = run_one(dtype)
         r['seconds'] = time.perf_counter() - t0
-        runs[key(dtype)] = dict(r, compute_dtype=dtype, device=head['device'],
+        name = key(dtype) + (' seed={}'.format(args.seed) if args.seed else '')
+        runs[name] = dict(r, compute_dtype=dtype, device=head['device'],
                                 nvidia_smi=head.get('nvidia_smi'),
                                 backend=torch.device(args.device or 'cuda').type)
-        print(json.dumps({key(dtype): r}), flush=True)
+        print(json.dumps({name: r}), flush=True)
         if out:
             os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
             with open(out, 'w') as f:

@@ -99,7 +99,7 @@ def run(dtype: str, args) -> dict:
     full = {k: get_dataset(n, splits=['test'], size=EVAL_SIZE)[1]
             for k, n in SETS.items()}
     sets = {k: cut(d, args.test_size) for k, d in full.items()}
-    job = new_job(config(dtype), OptimizerConfig(lr=3e-4), seed=0,
+    job = new_job(config(dtype), OptimizerConfig(lr=3e-4), seed=args.seed,
                   device=args.device)
     job.training_parameters['set'] = IND
     pt = pretrain(job, tr, args.epochs)
@@ -123,7 +123,7 @@ def run(dtype: str, args) -> dict:
                                 **{k: parts[k] for k in mix})
         with Stopwatch(job.device) as train_sw:
             pc.finetune(ind_ft, moving, epochs=args.ft_epochs,
-                        batch_size=HEAD_BATCH, seed=HEAD_SEED)
+                        batch_size=HEAD_BATCH, seed=HEAD_SEED + args.seed)
         with Stopwatch(job.device) as score_sw:
             ind_scores = pc.llr_scores(te)
             row = {label: round(auroc(ind_scores, pc.llr_scores(ds)), 4)

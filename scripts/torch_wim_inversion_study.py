@@ -186,7 +186,7 @@ def run(dtype: str, args) -> dict:
               'conditions': {}, 'pretrain': {}, 'finetunes': {}}
     raw = {}
     for fam, f in families(dtype).items():
-        job = new_job(f['cfg'], OptimizerConfig(lr=3e-4), seed=0,
+        job = new_job(f['cfg'], OptimizerConfig(lr=3e-4), seed=args.seed,
                       device=args.device)
         job.training_parameters['set'] = IND
         report['pretrain'][fam] = pretrain(job, tr, args.epochs)
@@ -197,7 +197,7 @@ def run(dtype: str, args) -> dict:
                 c = dict(c, ft_epochs=args.ft_epochs or c['ft_epochs'])
                 jb = load_job(snap, device=args.device)
                 wim = WIMJob(job=jb)
-                wim.set_alternate_prior(seed=7, **f['alt'])
+                wim.set_alternate_prior(seed=7 + args.seed, **f['alt'])
                 # the moving set from the whole sets (a cut only shrinks
                 # evaluation)
                 moving = MixtureDataset(
@@ -208,7 +208,8 @@ def run(dtype: str, args) -> dict:
                     finetune, wim, tr, moving, te, [ood_eval],
                     epochs=c['ft_epochs'], alpha=c['alpha'],
                     train_size=args.ft_size, batch_size=FT_BATCH,
-                    test_batch_size=TEST_BATCH, ood_methods=METHODS, seed=0)
+                    test_batch_size=TEST_BATCH, ood_methods=METHODS,
+                    seed=args.seed)
                 ind_tw = collect_twins(wim, te_eval)
                 ood_tw = collect_twins(wim, np.asarray(ood_eval.data))
                 raw[key] = decompose(ind_tw, ood_tw, digits=None)

@@ -69,26 +69,28 @@ def config(dtype: str):
 def tune_and_score(job, trainset, testset, oodsets, moving, *, alpha: float,
                    ft_epochs: int, ft_size: int, alternate=None,
                    batch_size: int = FT_BATCH,
-                   test_batch_size: int = TEST_BATCH) -> dict:
+                   test_batch_size: int = TEST_BATCH, seed: int = 0) -> dict:
     """The JAX script's flow after pretraining (``wim_quality.py:51-73``):
     the OOD baseline on the original prior, the alternate prior
     (``ALTERNATE``; ``alternate``: its arrays, e.g. the JAX package's),
-    one WIM fine-tune against ``moving``, the post-tuning OOD results.
-    Returns {'pre', 'post', 'pre_eval', 'finetune'}."""
+    one WIM fine-tune against ``moving``, the post-tuning OOD results;
+    ``seed`` added to the prior's and the fine-tune's seeds.  Returns
+    {'pre', 'post', 'pre_eval', 'finetune'}."""
     with Stopwatch(job.device) as sw:
         pre = ood_detection_rates(job, testset, oodsets,
                                   batch_size=test_batch_size,
                                   method=PRE_METHODS, update_self_ood=False,
                                   recording=False)
     wim = WIMJob(job=job)
-    wim.set_alternate_prior(**ALTERNATE)
+    wim.set_alternate_prior(**dict(ALTERNATE,
+                                   seed=ALTERNATE['seed'] + seed))
     if alternate is not None:
         wim.set_alternate_prior_arrays(alternate)
     ft = timed_finetune(finetune, wim, trainset, moving, testset, oodsets,
                         epochs=ft_epochs, alpha=alpha, train_size=ft_size,
                         batch_size=batch_size,
                         test_batch_size=test_batch_size,
-                        ood_methods=POST_METHODS, seed=0)
+                        ood_methods=POST_METHODS, seed=seed)
     return {'pre': pre, 'post': job.ood_results[job.trained],
             'pre_eval': {'seconds': sw.seconds, 'launches': sw.launches,
                          'batches_run': sw.batches_run},
@@ -110,7 +112,7 @@ def run(dtype: str, args) -> dict:
     names = list(dict.fromkeys(args.ood))
     full = [get_dataset(n, splits=['test'], size=4000)[1] for n in names]
     oods = [cut(d, args.test_size) for d in full]
-    job = new_job(config(dtype), OptimizerConfig(lr=3e-4), seed=0,
+    job = new_job(config(dtype), OptimizerConfig(lr=3e-4), seed=args.seed,
                   device=args.device)
     job.training_parameters['set'] = args.ind
     pt = pretrain(job, tr, args.epochs)
@@ -118,7 +120,8 @@ def run(dtype: str, args) -> dict:
     moving = MixtureDataset(mix={'ood': args.mix, 'ind': 1.0 - args.mix},
                             length=MOVING_SIZE, ood=full[0], ind=test)
     out = tune_and_score(job, tr, te, oods, moving, alpha=args.alpha,
-                         ft_epochs=args.ft_epochs, ft_size=args.ft_size)
+                         ft_epochs=args.ft_epochs, ft_size=args.ft_size,
+                         seed=args.seed)
     pre_best, post_best = best(out['pre']), best(out['post'])
     print('pre :', pre_best, '\npost:', post_best, flush=True)
     return {

@@ -98,7 +98,7 @@ def run(dtype: str, args) -> dict:
     full = [get_dataset(n, splits=['test'], size=EVAL_SIZE)[1]
             for n in (NEAR, NOISE, FAR)]
     oodsets = [cut(d, args.test_size) for d in full]
-    job = new_job(config(dtype), OptimizerConfig(lr=3e-4), seed=0,
+    job = new_job(config(dtype), OptimizerConfig(lr=3e-4), seed=args.seed,
                   device=args.device)
     job.training_parameters['set'] = IND
     pt = pretrain(job, tr, args.epochs)
@@ -116,14 +116,15 @@ def run(dtype: str, args) -> dict:
             j = load_job(snap, device=args.device)
             j.training_parameters['set'] = IND
             wim = WIMJob(job=j)
-            wim.set_alternate_prior(**ALTERNATE)
+            wim.set_alternate_prior(**dict(
+                ALTERNATE, seed=ALTERNATE['seed'] + args.seed))
             moving = MixtureDataset(mix=mix, length=MOVING_SIZE,
                                     **{k: sets[k] for k in mix})
             finetunes[name] = timed_finetune(
                 finetune, wim, tr, moving, te, oodsets,
                 epochs=args.ft_epochs, alpha=alpha, train_size=args.ft_size,
                 batch_size=FT_BATCH, test_batch_size=TEST_BATCH,
-                ood_methods=METHODS, seed=0)
+                ood_methods=METHODS, seed=args.seed)
             post = j.ood_results[j.trained]
             results[name] = {'mix': mix, 'alpha': alpha,
                              'auroc': aurocs(post)}

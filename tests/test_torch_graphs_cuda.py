@@ -445,3 +445,162 @@ def test_odin_engine_graph_equals_eager(cuda_device):
     assert len(graph[3]) == 4
     for c in graph[3]:
         assert c['kernel_nodes_by_source'] == cuda_lib.by_source(per_batch)
+
+
+def _jit_program(program: str, dev, graphed: bool):
+    """One of the JAX package's last jitted programs on a fresh tiny
+    flagship job, graphed or not: (its host outputs, the captures of the
+    graphs it used, the wrappers' launches, the runs by graph name)."""
+    from joint_vae_tpu_torch.cli import aggregate as agg_cli
+    from joint_vae_tpu_torch.evals import sample
+    from joint_vae_tpu_torch.ft import job as ft_job
+    from joint_vae_tpu_torch.ft.poscod import PoscodJob
+    from joint_vae_tpu_torch.train import trainer
+    from joint_vae_tpu_torch.train.graphs import (batches_run,
+                                                  held_score_graphs)
+    import tempfile
+    cfg = flagship_config(tiny=True)
+    rng = np.random.default_rng(19)
+
+    def data(n, name):
+        return ArrayDataset(rng.uniform(0, 1, (n,) + cfg.input_shape)
+                            .astype(np.float32),
+                            rng.integers(0, cfg.num_labels, n), name)
+    job = new_job(cfg, OptimizerConfig(lr=1e-3), seed=2, device=dev)
+    ds = data(40, 'test')            # two full batches of 16, a tail of 8
+    reset_steps_run()
+    before, launched = cuda_lib.launch_counts(), None
+    caps = []
+    if program == 'mean_losses':
+        # two epochs with train steps between: a graph that read stale
+        # weights or sigma would differ from the eager calls; the
+        # launches counted around the scoring calls alone
+        step = make_train_step(job.model, job.opt_cfg, graphed=graphed)
+        x, y = _batches(cfg, 16)
+        out, launched = [], dict.fromkeys(before, 0)
+        for epoch in range(2):
+            for i in range(STEPS):
+                job.state, _ = step(job.state, x[i].to(dev), y[i].to(dev))
+            a = cuda_lib.launch_counts()
+            out.append(trainer._mean_losses(job, ds, 16, epoch,
+                                            graphed=graphed))
+            b = cuda_lib.launch_counts()
+            launched = {k: launched[k] + b[k] - a[k] for k in launched}
+        caps = list(step.graph.captures)
+    elif program == 'aggregate':
+        out = [agg_cli._scores(job, ds, 16, s, graphed=graphed)
+               for s in (0, 9)]
+    elif program == 'poscod':
+        pc = PoscodJob(job=job, graphed=graphed)
+        pc.finetune(data(28, 'ind'), data(28, 'moving'), epochs=2,
+                    batch_size=8, lr=1e-2, seed=1)
+        out = ([pc.head[k].cpu().reshape(-1) for k in ('w', 'b')],
+               [pc.llr_scores(ds, 16, seed=s) for s in (0, 2)])
+    elif program == 'sample':
+        out = [sample.select_correct_incorrect(job, ds, 30, batch_size=16,
+                                               seed=s, graphed=graphed)
+               for s in (3, 4)]
+    else:
+        wim = WIMJob(job=job)
+        wim.set_alternate_prior(init_mean=8.0, num_priors=1, seed=3)
+        gen = make_generator(dev, 5)
+        with tempfile.TemporaryDirectory() as d:
+            ft_job.record_latents(wim, [ds, data(12, 'other')], 16, gen, d,
+                                  graphed=graphed)
+            out = {}
+            for f in sorted(os.listdir(d)):
+                with open(os.path.join(d, f), 'rb') as fh:
+                    out[f] = fh.read()
+        out = (out, gen.get_state().cpu())
+    torch.cuda.synchronize()
+    if launched is None:
+        after = cuda_lib.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+    caps += [c for g in held_score_graphs(job).values() for c in g.captures]
+    return (out, caps, launched,
+            {n: dict(r) for n, r in batches_run.items()}, dict(steps_run))
+
+
+def _same_host(a, b, what=''):
+    if isinstance(a, dict):
+        assert set(a) == set(b), what
+        for k in a:
+            _same_host(a[k], b[k], '{}/{}'.format(what, k))
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), what
+        for i, (u, v) in enumerate(zip(a, b)):
+            _same_host(u, v, '{}[{}]'.format(what, i))
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), what
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert a.tobytes() == b.tobytes(), what
+    else:
+        assert a == b, (what, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('program', ['mean_losses', 'aggregate', 'poscod',
+                                     'sample', 'latents'])
+def test_jit_program_graph_equals_eager(program, cuda_device):
+    """The trainer's per-epoch losses (two epochs with graphed train steps
+    between), ``cli.aggregate``'s scores, Poscod's head and scores, the
+    sampling driver's scan and ``record_latents``' files, each graphed
+    against ``graphed=False`` on the tiny flagship bit for bit; graphed,
+    some batches replayed and each scoring capture holding, by name, the
+    kernel nodes of one eager batch's launches."""
+    eager = _jit_program(program, cuda_device, False)
+    graph = _jit_program(program, cuda_device, True)
+    _same_host(eager[0], graph[0], program)
+    runs = {n: r for n, r in graph[3].items()}
+    assert sum(r['replayed'] for r in runs.values()) > 0, runs
+    assert all(r['captured'] == 0 and r['replayed'] == 0
+               for r in eager[3].values())
+    scored = sum(r['eager'] for r in eager[3].values())
+    per_batch = {k: v // scored for k, v in eager[2].items()}
+    assert per_batch['same_grid_conv'] > 0
+    assert per_batch['same_grid_conv_dx'] == 0
+    assert {k: v * scored for k, v in per_batch.items()} == eager[2]
+    scoring = [c for c in graph[1] if c['name'] in runs]
+    assert scoring
+    for c in scoring:
+        assert c['kernel_nodes_by_source'] == cuda_lib.by_source(
+            per_batch), c['name']
+    for c in graph[1]:
+        if c['name'] == 'poscod_head_step':
+            assert not any(c['kernel_nodes_by_source'].values())
+
+
+@pytest.mark.cuda
+def test_capture_under_queued_replays_draws_eager_noise(cuda_device):
+    """A scoring graph's second entry (a ragged tail) captured while the
+    first entry's replays are still queued on the card, nothing pulled in
+    between, as the engines' held graphs run a set: every batch draws the
+    noise an eager run draws from the same seed (each body is slow before
+    its draw, so that the capture happens under a running replay)."""
+    from joint_vae_tpu_torch.train.graphs import ScoreGraph
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    w = torch.randn(2048, 2048, device=cuda_device, generator=g) / 48
+    xa = torch.randn(4096, 2048, device=cuda_device, generator=g)
+    xb = torch.randn(1000, 2048, device=cuda_device, generator=g)
+
+    def body(generator, x):
+        y = x
+        for _ in range(16):
+            y = torch.tanh(y @ w)
+        return {'d': y[:, :1] * 0 + torch.randn(x.shape, device=x.device,
+                                                generator=generator)}
+    order = [xa] * 6 + [xb] + [xa] * 12 + [xb] + [xa] * 2
+    got = {}
+    for graphed in (False, True):
+        graph = ScoreGraph(body, name='race', graphed=graphed)
+        gen = make_generator(cuda_device, 0)
+        outs = [graph(gen, x=x)['d'] for x in order]
+        torch.cuda.synchronize()
+        got[graphed] = [o.cpu() for o in outs]
+        assert graph.graphed == graphed
+        if graphed:
+            assert len(graph.captures) == 2
+    bad = [i for i, (e, h) in enumerate(zip(got[False], got[True]))
+           if not torch.equal(e, h)]
+    assert not bad, bad

@@ -12,8 +12,9 @@ share, ``torch_evidence.py``, and ``torch_determinism_probe.py``), the
 card-only step-graph tests, ``scripts/torch_graph_probe.py``, the job
 store's scripts (``scripts/torch_delete_jobs.py``,
 ``torch_rsync_jobs.py``), the step profiler
-(``scripts/torch_profile_step.py``) and the evaluation timer
-(``scripts/torch_eval_times.py``) imports
+(``scripts/torch_profile_step.py``), the evaluation timer
+(``scripts/torch_eval_times.py``) and the scores' repeat probe
+(``scripts/torch_score_repeat_probe.py``) imports
 jax,
 flax, optax, the JAX package or pandas (the card machine has no pandas:
 the port's result tables are its own), and importing them in a clean
@@ -34,7 +35,8 @@ EVIDENCE_SCRIPTS = ('torch_evidence.py', 'torch_wim_quality.py',
                     'torch_reproduce_sota.py', 'torch_prepare_data.py',
                     'torch_determinism_probe.py', 'torch_graph_probe.py',
                     'torch_delete_jobs.py', 'torch_rsync_jobs.py',
-                    'torch_profile_step.py', 'torch_eval_times.py')
+                    'torch_profile_step.py', 'torch_eval_times.py',
+                    'torch_score_repeat_probe.py')
 
 
 def _port_sources():
