@@ -234,29 +234,44 @@ and phase 15 counts them on the card in profiled replays.
    back and reloaded (``interop`` line);
 12. the device mesh (``joint_vae_tpu_torch/parallel``).  (a) A world of
    one rank over NCCL: ``train_model`` for 4 host-fed flagship steps of
-   1024 on a (1, 1) mesh against the same steps without one, run twice,
-   all under PyTorch's deterministic algorithms (the loss components
-   within 1e-6 relative, or within twice the spread between the two
-   plain runs where one is left), 8 forward and 7 dx launches per step; the eager step's ms with and without the mesh in turns
-   and the gradient all-reduce's own ms (CUDA events); the job saved as
-   a sharded checkpoint with and without ``AsyncCheckpointer`` (seconds
-   and bytes) and restored into a run with no mesh, arrays and optimizer
-   state byte-equal (``mesh_world1`` line).  (b) Two ranks spawned on the
-   one card over gloo (``--mesh-rank``; NCCL refuses two ranks on one
-   device), each under its own time limit: ``ood_detection_rates`` of
+   1024 on a (1, 1) mesh against the same steps without one, both
+   graphed, run twice, all under PyTorch's deterministic algorithms (the
+   loss components within 1e-6 relative, or within twice the spread
+   between the two plain runs where one is left), 8 forward and 7 dx
+   launches per eager or captured step; the eager step's ms with and
+   without the mesh in turns and the gradient all-reduce's own ms (CUDA
+   events), and the all-reduce and ``reduce_over_data`` each alone in a
+   CUDA graph (nodes by type, replay ms); the mesh programs graphed
+   against their eager selves from one state, bit for bit: the train
+   step in float32 and bfloat16 (4 steps of 1024; 8 forward and 7 dx
+   kernel nodes, as many NCCL kernel nodes as the all-reduce's own graph
+   holds, and the all-reduce issued once in the warm-up and once inside
+   the capture), the fine-tune step (3 steps of 128 + 128), and
+   ``ood_detection_rates(mesh=)`` (1,296 images a set at 512: every
+   entry equal, 8 conv and 1 combine kernel nodes a capture); then the
+   mesh step graphed and eager and the step graphed off the mesh in
+   turns (float32, bfloat16; the fine-tune step graphed and eager); the
+   job saved as a sharded checkpoint with and without
+   ``AsyncCheckpointer`` (seconds and bytes) and restored into a run with
+   no mesh, arrays and optimizer state byte-equal (``mesh_world1``
+   line).  (b) Two ranks spawned on the one card over gloo
+   (``--mesh-rank``; NCCL refuses two ranks on one device), each under
+   its own time limit, eager (gloo stages its collectives through host
+   memory, which a graph cannot capture): ``ood_detection_rates`` of
    phase 4's flagship job on cifar100's test set and cifar10 (10,000
    images each, batch 512, L=16) at ``model_axis=2`` (C=50 a rank: the
    combine on (50, N)) and at ``sample_axis=2`` (17 samples as 9 + 8),
    against this process's one-process card run (AUCs equal, means within
    rtol 1e-6), then 4 steps of 1024 at ``model_axis=2``, deterministic
-   as in (a) (the losses within 1e-5 relative, or the spread as in (a)); each rank's launches of each
-   run counted (320 conv and 40 combine per evaluation, 32 forward and 28
-   dx for the steps), both kernels held against their plain versions on
-   each rank at a rank's shapes, and all_reduce, all_gather, broadcast
-   and barrier on the card's tensors over gloo (``mesh_gloo`` line; two
+   as in (a) (the losses within 1e-5 relative, or the spread as in (a));
+   each rank's launches of each run counted (per eager or captured step
+   and batch), both kernels held against their plain versions on each
+   rank at a rank's shapes, and all_reduce, all_gather, broadcast and
+   barrier on the card's tensors over gloo (``mesh_gloo`` line; two
    processes share the card, so its times are no speed figure).  (c) The
-   same over NCCL with one rank per card when the machine has two cards
-   or more, else one line saying that it waits for such a machine;
+   same over NCCL with one rank per card, graphed, each capture holding
+   NCCL kernel nodes, when the machine has two cards or more, else one
+   line saying that it waits for such a machine (``mesh_nccl`` line);
 13. export to moxime/joint-vae's job layout (the export slice): a stub
    reference checkout written by ``tests/torch_reference_stub.py`` (the
    reference's ``cvae.py``, ``module/vae_layers/conv.py`` with its
@@ -400,7 +415,8 @@ and phase 15 counts them on the card in profiled replays.
 
 ``python3 chip_smoke.py --graphs`` builds the kernels and runs phase 15
 alone; ``--score-graphs`` phase 16; ``--imagenet64`` phase 17;
-``--jit-graphs`` phase 18.  A
+``--jit-graphs`` phase 18; ``--mesh`` phase 12; ``--mesh-nccl`` phase
+12 (c) and the one-process runs it is held to.  A
 Scorer, engine or both-prior batch runs as a scoring graph
 (``train/graphs.py::ScoreGraph``): a graph's first batch eager, its
 second captured, every later one a replay (the engines' graphs are held
@@ -4316,6 +4332,9 @@ MESH_NOISE_SEED = 5
 MESH_RANK_TIMEOUT = 420          # seconds, each spawned rank
 MESH_RUNS = ({'name': 'model2', 'model_axis': 2},
              {'name': 'sample2', 'sample_axis': 2})
+MESH_GRAPH_SET = 2 * OOD_BATCH + 272   # (a)'s graphed OOD: two batches, a tail
+MESH_TURNS = ('eager', 'graph', 'plain_graph', 'plain_graph', 'graph',
+              'eager')
 
 
 def _free_port() -> int:
@@ -4415,9 +4434,11 @@ def _job_arrays(job) -> dict:
 def mesh_world1(card: str, trainset, backend: str = 'nccl',
                 device: str = 'cuda', cfg=None) -> tuple:
     """(a): the host-fed flagship steps on a (1, 1) mesh over one rank of
-    ``backend`` against the same steps without a mesh; the steps and the
-    all-reduce timed; the sharded checkpoint, synchronous and
-    asynchronous, restored byte-equal into a run without a mesh."""
+    ``backend`` against the same steps without a mesh (both graphed); the
+    eager steps and the all-reduce timed, the all-reduce also alone in a
+    graph; the sharded checkpoint, synchronous and asynchronous, restored
+    byte-equal into a run without a mesh; on the card, the mesh programs
+    graphed against eager (:func:`mesh_graphs_world1`)."""
     import torch.distributed as dist
     from joint_vae_tpu_torch.models.cvnet import flagship_config
     from joint_vae_tpu_torch.parallel.mesh import (all_reduce_mean_,
@@ -4455,9 +4476,11 @@ def mesh_world1(card: str, trainset, backend: str = 'nccl',
             _count_reset()
             got = _recorded_train(meshed, trainset, mesh, MESH_BATCH)
             launches = _counts()
-        if launches != _want(len(got)):
+        # the mesh step graphed (a replay calls no wrapper)
+        body = _body_steps(len(got), 'world-1 mesh steps')
+        if launches != _want(body):
             raise AssertionError('world-1 mesh steps launched {}, want {}'
-                                 .format(launches, _want(len(got))))
+                                 .format(launches, _want(body)))
         if len(got) != MESH_STEPS:
             raise AssertionError('{} mesh steps'.format(len(got)))
         worst = _steps_gate(got, want, again, meshed.model_cfg,
@@ -4470,7 +4493,8 @@ def mesh_world1(card: str, trainset, backend: str = 'nccl',
         steps = {'plain': (plain.state, make_train_step(
                      plain.model, plain.opt_cfg, graphed=False)),
                  'mesh': (meshed.state, make_train_step(
-                     meshed.model, meshed.opt_cfg, mesh=mesh))}
+                     meshed.model, meshed.opt_cfg, mesh=mesh,
+                     graphed=False))}
 
         def step_ms(kind):
             st, fn = steps[kind]
@@ -4492,8 +4516,15 @@ def mesh_world1(card: str, trainset, backend: str = 'nccl',
             ar_ms = time_ms(lambda: all_reduce_mean_(flat, mesh, 'data',
                                                      force=True), 20)
             red_ms = time_ms(lambda: reduce_over_data(grads, mesh), 20)
+            collectives = {
+                'all_reduce': _collective_graph(lambda: all_reduce_mean_(
+                    flat, mesh, 'data', force=True)),
+                'reduce_over_data': _collective_graph(
+                    lambda: reduce_over_data(grads, mesh))}
+            del plain, steps
+            graphs = mesh_graphs_world1(mesh, collectives)
         else:
-            ar_ms = red_ms = None
+            ar_ms = red_ms = collectives = graphs = None
 
         # the sharded checkpoint: synchronous, then asynchronous
         ckpt = {}
@@ -4526,9 +4557,208 @@ def mesh_world1(card: str, trainset, backend: str = 'nccl',
                'step_ms_turns': [(k, round(v, 3)) for k, v in turns],
                'all_reduce_ms': ar_ms, 'all_reduce_floats': n_params,
                'reduce_over_data_ms': red_ms, 'checkpoint': ckpt,
-               'launches': launches}
+               'launches': launches, 'collective_graphs': collectives,
+               'graphs': graphs}
     print('mesh_world1', json.dumps(summary), flush=True)
     return launches, summary
+
+
+def _collective_graph(fn, reps: int = 20) -> dict:
+    """A collective alone in a CUDA graph: run once eagerly on the
+    capturing stream (its communicator exists before the capture), then
+    captured in the default ``capture_error_mode``; its nodes by type, the
+    NCCL kernel nodes among them, and the replay's device ms (CUDA
+    events)."""
+    from joint_vae_tpu_torch.train.graphs import kernel_nodes
+    side = torch.cuda.Stream()
+    cur = torch.cuda.current_stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    nodes = kernel_nodes(graph.raw_cuda_graph())
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return {'replay_ms': start.elapsed_time(end) / reps,
+            'nodes_by_type': nodes['by_type'],
+            'nccl_kernel_nodes': nodes['nccl']}
+
+
+def _nccl_nodes(capture: dict) -> dict:
+    """What a capture record says of the graph's collectives."""
+    return {k: capture[k] for k in ('nccl_kernel_nodes', 'nodes_by_type',
+                                    'kernel_nodes_by_source', 'capture_s')}
+
+
+def mesh_ood_bits(job_dir: str, mesh) -> dict:
+    """``ood_detection_rates(mesh=)`` of the flagship job on the world-1
+    mesh, graphed against eager: MESH_GRAPH_SET images of cifar100's test
+    set and of cifar10 at OOD_BATCH (two batches and a ragged tail a
+    set), every entry equal; 8 conv and 1 combine launches per eager or
+    captured batch."""
+    from joint_vae_tpu_torch.parallel.mesh import ensure_placed
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.train.graphs import held_score_graphs
+    testset, ood = _mesh_sets(MESH_GRAPH_SET)
+    n_batches = 2 * -(-MESH_GRAPH_SET // OOD_BATCH)
+    runs = {}
+    for graphed in (False, True):
+        job = load_job(job_dir)
+        job.state = ensure_placed(job.state, mesh)
+        _count_reset()
+        res = _mesh_ood(job, testset, ood, OOD_BATCH, 'cuda', mesh,
+                        graphed=graphed)
+        torch.cuda.synchronize()
+        scored = _scored(n_batches, 'world-1 mesh OOD graphed {}'.format(
+            graphed))
+        if _counts() != _want(0, scored):
+            raise AssertionError('world-1 mesh OOD (graphed {}): launched '
+                                 '{}, want {}'.format(graphed, _counts(),
+                                                      _want(0, scored)))
+        runs[graphed] = {'result': res, 'launches': _counts(),
+                         'batches_run': _batches_run(),
+                         'captures': [c for g in held_score_graphs(
+                             job).values() for c in g.captures]}
+        del job
+    if runs[True]['result'] != runs[False]['result']:
+        raise AssertionError('world-1 mesh OOD: graphed {} against eager '
+                             '{}'.format(runs[True]['result'],
+                                         runs[False]['result']))
+    caps = runs[True]['captures']
+    if len(caps) != 2 or any(c['kernel_nodes_by_source'] != {
+            'same_grid_conv': SITES_PER_BATCH, 'iws_combine': 1}
+            for c in caps):
+        raise AssertionError('world-1 mesh OOD: captures {}'.format(caps))
+    return {'set': MESH_GRAPH_SET, 'batch': OOD_BATCH,
+            'aucs': {m: e['auc'] for m, e in runs[True]['result'][
+                MESH_OOD].items()},
+            'entries_equal': True,
+            'launches': {'eager': runs[False]['launches'],
+                         'graphed': runs[True]['launches']},
+            'batches_run': runs[True]['batches_run'],
+            'captures': [_nccl_nodes(c) for c in caps]}
+
+
+def _mesh_turns(name: str, steps: dict, states: dict, feed) -> dict:
+    """ms per step of each mode of ``steps`` (TRAIN_WARMUP steps each
+    first, then TRAIN_TIMED steps a turn in MESH_TURNS' order,
+    synchronised), with the graphed mesh step's capture record."""
+    i = [0]
+
+    def run(mode, n):
+        for _ in range(n):
+            states[mode], _ = steps[mode](states[mode], *feed(i[0]))
+            i[0] += 1
+    for mode in steps:
+        run(mode, TRAIN_WARMUP)
+    got = {m: [] for m in steps}
+    for mode in (m for m in MESH_TURNS if m in steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(mode, TRAIN_TIMED)
+        torch.cuda.synchronize()
+        got[mode].append((time.perf_counter() - t0) * 1e3 / TRAIN_TIMED)
+    caps = steps['graph'].graph.captures
+    return {'case': name, 'ms_per_step': {m: float(np.mean(v))
+                                          for m, v in got.items()},
+            'turns': [m for m in MESH_TURNS if m in steps],
+            'capture': _nccl_nodes(caps[0]) if caps else None}
+
+
+def mesh_graph_timings(mesh, job_dir: str) -> list:
+    """The world-1 mesh's steps graphed and eager, and the same step
+    graphed off the mesh, in turns: the flagship's host-fed train step at
+    MESH_BATCH in float32 and bfloat16, the fine-tune step at
+    GRAPH_FT_BATCH + GRAPH_FT_BATCH (on the mesh only)."""
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.parallel.mesh import ensure_placed
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    rng = np.random.default_rng(19)
+    dev = torch.device('cuda')
+    modes = {'eager': (mesh, False), 'graph': (mesh, True),
+             'plain_graph': (None, True)}
+    cases = []
+    for dtype in ('float32', 'bfloat16'):
+        cfg = flagship_config(compute_dtype=dtype)
+        hx = rng.uniform(0, 1, (4, MESH_BATCH) + cfg.input_shape
+                         ).astype(np.float32)
+        hy = rng.integers(0, cfg.num_labels, (4, MESH_BATCH))
+        jobs, steps = {}, {}
+        for m, (on, graphed) in modes.items():
+            jobs[m] = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=0)
+            if on is not None:
+                jobs[m].state = ensure_placed(jobs[m].state, on)
+            steps[m] = make_train_step(jobs[m].model, jobs[m].opt_cfg,
+                                       mesh=on, graphed=graphed)
+        cases.append(_mesh_turns(
+            'train_' + dtype, steps, {m: j.state for m, j in jobs.items()},
+            lambda i: (to_device(hx[i % 4], dev), to_device(hy[i % 4], dev))))
+        del jobs, steps
+        torch.cuda.empty_cache()
+    cfg = flagship_config()
+    fx = rng.uniform(0, 1, (4, 2, GRAPH_FT_BATCH) + cfg.input_shape
+                     ).astype(np.float32)
+    fy = rng.integers(0, cfg.num_labels, (4, GRAPH_FT_BATCH))
+    pairs = {m: _wim_pair(job_dir, m == 'graph', mesh)
+             for m in ('eager', 'graph')}
+    cases.append(_mesh_turns(
+        'finetune', {m: p[1] for m, p in pairs.items()},
+        {m: p[0].state for m, p in pairs.items()},
+        lambda i: (to_device(fx[i % 4, 0], dev), to_device(fy[i % 4], dev),
+                   to_device(fx[i % 4, 1], dev))))
+    del pairs
+    torch.cuda.empty_cache()
+    return cases
+
+
+def mesh_graphs_world1(mesh, collectives: dict) -> dict:
+    """(a)'s graphs on the world-1 NCCL mesh: the mesh train step (float32
+    and bfloat16, MESH_STEPS steps of MESH_BATCH) and the mesh fine-tune
+    step (GRAPH_FT_BATCH + GRAPH_FT_BATCH) graphed against their eager
+    selves from one state, bit for bit, 8 forward and 7 dx kernel nodes a
+    train step graph; ``ood_detection_rates(mesh=)`` graphed against
+    eager; then the timings in turns.  ``collectives``: the all-reduce
+    alone in a graph (:func:`_collective_graph`), whose NCCL nodes each
+    step graph must hold too."""
+    t0 = time.perf_counter()
+    job_dir = _flagship_dir()
+    bits = {'train_float32': graph_train_bits(
+                'float32', batch=MESH_BATCH, mesh=mesh, steps=MESH_STEPS),
+            'train_bfloat16': graph_train_bits(
+                'bfloat16', batch=MESH_BATCH, mesh=mesh, steps=MESH_STEPS),
+            'finetune': graph_ft_bits(job_dir, mesh, GRAPH_FT_BATCH)}
+    want = collectives['all_reduce']['nccl_kernel_nodes']
+    for name, b in bits.items():
+        got = b['capture']['nccl_kernel_nodes']
+        if got != want:
+            raise AssertionError('world-1 mesh {}: {} NCCL kernel nodes in '
+                                 'its graph, the all-reduce alone holds {}'
+                                 .format(name, got, want))
+    ood = mesh_ood_bits(job_dir, mesh)
+    timings = mesh_graph_timings(mesh, job_dir)
+    return {'bits': {k: {**{kk: v for kk, v in b.items()
+                            if kk not in ('capture',)},
+                         'capture': _nccl_nodes(b['capture'])}
+                     for k, b in bits.items()},
+            'ood': ood, 'timings': timings,
+            'seconds': time.perf_counter() - t0}
 
 
 def _mesh_sets(size=None):
@@ -4541,19 +4771,23 @@ def _mesh_sets(size=None):
     return testset, ood
 
 
-def _mesh_ood(job, testset, ood, batch, device, mesh=None):
+def _mesh_ood(job, testset, ood, batch, device, mesh=None, graphed=None):
     from joint_vae_tpu_torch.evals.engines import ood_detection_rates
     from joint_vae_tpu_torch.train.state import make_generator
     return ood_detection_rates(
         job, testset, [ood], batch_size=batch, recording=False,
         from_where=('compute',), update_self_ood=False,
-        generator=make_generator(device, MESH_NOISE_SEED), mesh=mesh)
+        generator=make_generator(device, MESH_NOISE_SEED), mesh=mesh,
+        graphed=graphed)
 
 
-def _mesh_steps(job, trainset, device, mesh=None, batch=MESH_BATCH):
+def _mesh_steps(job, trainset, device, mesh=None, batch=MESH_BATCH,
+                captures=None):
     """MESH_STEPS steps of the flagship on the first batches of
     ``trainset``; each rank feeds its rows (all of them on the 'model'
-    axis)."""
+    axis).  Graphed by default (``train/graphs.py::graph_mode``: eager
+    over gloo on the card); ``captures`` gets the step graph's capture
+    records."""
     from joint_vae_tpu_torch.parallel.sharded_data import aligned_global_batch
     from joint_vae_tpu_torch.train.steps import make_train_step
     step = make_train_step(job.model, job.opt_cfg, mesh=mesh)
@@ -4567,6 +4801,8 @@ def _mesh_steps(job, trainset, device, mesh=None, batch=MESH_BATCH):
             xd, yd = aligned_global_batch(mesh, x, y)
         _, m = step(job.state, xd, yd)
         out.append({k: float(v) for k, v in m.items()})
+    if captures is not None:
+        captures.extend(step.graph.captures)
     return out
 
 
@@ -4578,6 +4814,9 @@ def mesh_rank(argv):
     from joint_vae_tpu_torch.parallel.mesh import (distributed_init,
                                                    ensure_placed, make_mesh)
     from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.train.graphs import (graph_mode,
+                                                  held_score_graphs,
+                                                  steps_run)
     with open(argv[0]) as f:
         spec = json.load(f)
     rank = int(argv[1])
@@ -4597,16 +4836,22 @@ def mesh_rank(argv):
         job.state = ensure_placed(job.state, mesh)
         _count_reset()
         t = time.perf_counter()
+        caps = []
         if run.get('steps'):
             with _deterministic():
                 got = _mesh_steps(job, testset, device, mesh,
-                                  spec['step_batch'])
+                                  spec['step_batch'], captures=caps)
         else:
             got = _mesh_ood(job, testset, ood, spec['batch'], device, mesh)
+            caps = [c for g in held_score_graphs(job).values()
+                    for c in g.captures]
         if device.startswith('cuda'):
             torch.cuda.synchronize()
         out['runs'][run['name']] = {
             'seconds': time.perf_counter() - t, 'launches': _counts(),
+            'steps_run': dict(steps_run), 'batches_run': _batches_run(),
+            'graphed': graph_mode(None, mesh),
+            'captures': [_nccl_nodes(c) for c in caps],
             'result': got, 'coords': mesh.coords}
     # the four collectives the port uses, on this device's tensors
     mesh = make_mesh(model_axis=spec['world'], device=device)
@@ -4735,11 +4980,10 @@ def mesh_check_ranks(ranks, ref_ood, ref_steps, cfg, n_batches,
     """Each rank's runs against the one-process card run: OOD AUCs equal
     and means within MESH_MEAN_RTOL, the steps' losses within
     MESH_STEP_RTOL (``_steps_gate``; ``ref_steps`` holds the one-process
-    steps twice), the launches of each run."""
+    steps twice), the launches of each run (per eager or captured step
+    and batch: graphed over NCCL, eager over gloo on the card)."""
     worst = {'mean_rel': 0.0, 'step_rel': 0.0, 'step_rel_all': 0.0,
              'plain_spread_all': 0.0}
-    want_ood = {'same_grid_conv': SITES_PER_BATCH * n_batches,
-                'same_grid_conv_dx': 0, 'iws_combine': n_batches}
     for r in ranks:
         if not all(r['collectives'].values()):
             raise AssertionError('{} rank {} collectives: {}'.format(
@@ -4753,7 +4997,8 @@ def mesh_check_ranks(ranks, ref_ood, ref_steps, cfg, n_batches,
                 worst['step_rel_all'] = max(worst['step_rel_all'],
                                             g['max_rel_err_all'])
                 worst['plain_spread_all'] = g['plain_spread_all']
-                want = _want(MESH_STEPS)
+                want = _want(_body_steps(MESH_STEPS, '{} rank {} {}'.format(
+                    what, r['rank'], name), run['steps_run']))
             else:
                 got = run['result'][MESH_OOD]
                 for m, e in ref_ood[MESH_OOD].items():
@@ -4770,7 +5015,8 @@ def mesh_check_ranks(ranks, ref_ood, ref_steps, cfg, n_batches,
                                                  what, r['rank'], name, m,
                                                  got[m]['mean'], e['mean']))
                     worst['mean_rel'] = max(worst['mean_rel'], err)
-                want = want_ood
+                want = _want(0, _scored(n_batches, '{} rank {} {}'.format(
+                    what, r['rank'], name), runs=run['batches_run']))
             if run['launches'] != want:
                 raise AssertionError('{} rank {} {}: launches {}, want {}'
                                      .format(what, r['rank'], name,
@@ -4786,14 +5032,12 @@ def _mesh_launch_keys(launches: dict, kernel: str) -> dict:
                                    for n, per_rank in launches['gloo'].items()}}
 
 
-def mesh_phase(card: str) -> tuple:
-    """Phase 12: (a), (b) and (c) of the section's comment."""
+def _mesh_refs() -> dict:
+    """The one-process card runs that (b) and (c) are held to: phase 4's
+    flagship job's OOD evaluation and its MESH_STEPS steps run twice."""
     from joint_vae_tpu_torch.save_load.jobs import load_job
     testset, ood = _mesh_sets()
-    w1_launches, w1 = mesh_world1(card, testset.subset(
-        np.arange(MESH_STEPS * MESH_BATCH)))
-
-    job_dir = os.path.join(WORK, 'flagship_job')       # phase 4's job
+    job_dir = _flagship_dir()                   # phase 4's job
     job = load_job(job_dir)
     t = time.perf_counter()
     ref_ood = _mesh_ood(job, testset, ood, OOD_BATCH, 'cuda')
@@ -4802,16 +5046,61 @@ def mesh_phase(card: str) -> tuple:
     with _deterministic():
         ref_steps = [_mesh_steps(load_job(job_dir), testset, 'cuda')
                      for _ in range(2)]
-    n_batches = 2 * -(-len(testset) // OOD_BATCH)
+    return {'job_dir': job_dir, 'cfg': job.model_cfg, 'ood': ref_ood,
+            'steps': ref_steps, 'seconds': ref_s,
+            'n_batches': 2 * -(-len(testset) // OOD_BATCH)}
+
+
+def mesh_nccl(card: str, refs: dict):
+    """(c): two ranks over NCCL, one a card, their steps and batches
+    graphed, held to ``refs``; the ``mesh_nccl`` line (None and a line
+    saying so on a machine with one card)."""
+    if torch.cuda.device_count() < 2:
+        print('mesh_nccl: the NCCL run over two cards waits for a machine '
+              'with two cards (this one has {})'.format(
+                  torch.cuda.device_count()), flush=True)
+        return None
+    t = time.perf_counter()
+    nccl = mesh_ranks('nccl', 2, refs['job_dir'])
+    line = {'card': card, 'ranks': 2,
+            'seconds': round(time.perf_counter() - t, 2),
+            **mesh_check_ranks(nccl, refs['ood'], refs['steps'], refs['cfg'],
+                               refs['n_batches'], 'nccl'),
+            'runs': {r['rank']: {n: {k: v[k] for k in (
+                'seconds', 'launches', 'steps_run', 'batches_run',
+                'graphed', 'captures')} for n, v in r['runs'].items()}
+                for r in nccl}}
+    for r in nccl:
+        for n, v in r['runs'].items():
+            if not v['graphed'] or not v['captures'] or any(
+                    c['nccl_kernel_nodes'] < 1 for c in v['captures']):
+                raise AssertionError('nccl rank {} {}: graphed {}, captures '
+                                     '{}'.format(r['rank'], n, v['graphed'],
+                                                 v['captures']))
+    print('mesh_nccl', json.dumps(line), flush=True)
+    return line
+
+
+def mesh_nccl_phase(card: str) -> None:
+    """``--mesh-nccl``: (c) and the one-process runs it is held to."""
+    mesh_nccl(card, _mesh_refs())
+
+
+def mesh_phase(card: str) -> tuple:
+    """Phase 12: (a), (b) and (c) of the section's comment."""
+    testset, _ = _mesh_sets()
+    w1_launches, w1 = mesh_world1(card, testset.subset(
+        np.arange(MESH_STEPS * MESH_BATCH)))
+    refs = _mesh_refs()
 
     t = time.perf_counter()
-    gloo = mesh_ranks('gloo', 2, job_dir)
+    gloo = mesh_ranks('gloo', 2, refs['job_dir'])
     gloo_s = time.perf_counter() - t
-    worst = mesh_check_ranks(gloo, ref_ood, ref_steps, job.model_cfg,
-                             n_batches, 'gloo')
+    worst = mesh_check_ranks(gloo, refs['ood'], refs['steps'], refs['cfg'],
+                             refs['n_batches'], 'gloo')
     line = {'card': card, 'world1': w1,
             'gloo': {'ranks': 2, 'seconds': round(gloo_s, 2),
-                     'one_process_ood_s': round(ref_s, 3), **worst,
+                     'one_process_ood_s': round(refs['seconds'], 3), **worst,
                      'runs': {r['rank']: {n: {'seconds': round(v['seconds'],
                                                                2),
                                               'launches': v['launches'],
@@ -4819,18 +5108,18 @@ def mesh_phase(card: str) -> tuple:
                                           for n, v in r['runs'].items()}
                               for r in gloo},
                      'kernels': {r['rank']: r['kernels'] for r in gloo},
+                     'graphed': [v['graphed'] for r in gloo
+                                 for v in r['runs'].values()],
                      'note': 'two processes share one card: correctness '
-                             'runs, their times are no speed figure'}}
+                             'runs, their times are no speed figure; '
+                             'eager: gloo stages its collectives through '
+                             'host memory, which a CUDA graph cannot '
+                             'capture (NCCL refuses two ranks on one '
+                             'card)'}}
     print('mesh_gloo', json.dumps(line['gloo']), flush=True)
-    if torch.cuda.device_count() >= 2:
-        nccl = mesh_ranks('nccl', 2, job_dir)
-        line['nccl'] = mesh_check_ranks(nccl, ref_ood, ref_steps,
-                                        job.model_cfg, n_batches, 'nccl')
-        print('mesh_nccl', json.dumps(line['nccl']), flush=True)
-    else:
-        print('mesh_nccl: the NCCL run over two cards waits for a machine '
-              'with two cards (this one has {})'.format(
-                  torch.cuda.device_count()), flush=True)
+    nccl = mesh_nccl(card, refs)
+    if nccl is not None:
+        line['nccl'] = nccl
     launches = {'world1': w1_launches,
                 'gloo': {n: [r['runs'][n]['launches'] for r in gloo]
                          for n in gloo[0]['runs']}}
@@ -5381,40 +5670,48 @@ def _bit_gate(runs: dict, what: str) -> dict:
 
 
 def graph_train_bits(dtype: str, cfg=None, batch: int = TRAIN_BATCH,
-                     want=_want) -> dict:
+                     want=_want, mesh=None, steps: int = GRAPH_STEPS) -> dict:
     """The flagship's (or ``cfg``'s) graphed train step against its eager
-    step from one state (``new_job`` seed 4 twice), GRAPH_STEPS host-fed
+    step from one state (``new_job`` seed 4 twice), ``steps`` host-fed
     steps of ``batch``: the first eager (the warm-up), the second captured
-    and replayed, the third replayed; launches ``want`` per step either
-    way (the flagship's 8 forward and 7 dx)."""
+    and replayed, the later ones replayed; launches ``want`` per step
+    either way (the flagship's 8 forward and 7 dx).  ``mesh``: the state
+    placed there and the mesh step (a mesh of one rank: the batch is this
+    rank's rows)."""
     from joint_vae_tpu_torch.device import to_device
     from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.parallel.mesh import ensure_placed
     from joint_vae_tpu_torch.save_load.jobs import new_job
     from joint_vae_tpu_torch.train.graphs import steps_run
     from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
     from joint_vae_tpu_torch.train.steps import make_train_step
     cfg = cfg or flagship_config(compute_dtype=dtype)
     rng = np.random.default_rng(21)
-    xs = rng.uniform(0, 1, (GRAPH_STEPS, batch) + cfg.input_shape
+    xs = rng.uniform(0, 1, (steps, batch) + cfg.input_shape
                      ).astype(np.float32)
-    ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, batch))
+    ys = rng.integers(0, cfg.num_labels, (steps, batch))
     dev = torch.device('cuda')
     runs = {}
     # under the port's defaults: the 'conv' route's backward runs cuDNN's
     # deterministic algorithms itself (models/conv.py::DeterministicConvFn)
     for graphed in (False, True):
         job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=4)
-        step = make_train_step(job.model, job.opt_cfg, graphed=graphed)
+        if mesh is not None:
+            job.state = ensure_placed(job.state, mesh)
+        step = make_train_step(job.model, job.opt_cfg, mesh=mesh,
+                               graphed=graphed)
         _count_reset()
         st, ms = job.state, []
-        for i in range(GRAPH_STEPS):
-            st, m = step(st, to_device(xs[i], dev), to_device(ys[i], dev))
-            ms.append(m.vector)
+        with _all_reduces_seen() as seen:
+            for i in range(steps):
+                st, m = step(st, to_device(xs[i], dev),
+                             to_device(ys[i], dev))
+                ms.append(m.vector)
         torch.cuda.synchronize()
         o = st.opt_state
         runs[graphed] = {
             'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
-            'steps_run': dict(steps_run),
+            'steps_run': dict(steps_run), 'all_reduce': seen,
             'tensors': {k: v.detach().cpu()
                         for k, v in _run_tensors(job).items()},
             'counts': (o.count, o.adam_count, st.step),
@@ -5422,23 +5719,62 @@ def graph_train_bits(dtype: str, cfg=None, batch: int = TRAIN_BATCH,
         del job, step, st
     if torch.backends.cudnn.deterministic:
         raise AssertionError('cuDNN\'s deterministic switch was left on')
-    out = _bit_gate(runs, 'train step ' + dtype)
-    out.update({'dtype': dtype, 'batch': batch, 'steps': GRAPH_STEPS,
+    what = '{}train step {}'.format('mesh ' if mesh is not None else '',
+                                    dtype)
+    out = _bit_gate(runs, what)
+    out.update({'dtype': dtype, 'batch': batch, 'steps': steps,
                 'cudnn_deterministic': False})
-    out.update(_graph_launch_gate(runs, want, '{} train steps'.format(dtype)))
+    out.update(_graph_launch_gate(runs, want, what + 's', steps))
+    if mesh is not None:
+        out['all_reduce'] = _all_reduce_gate(runs, steps, what)
     return out
 
 
-def _graph_launch_gate(runs: dict, want, what: str) -> dict:
-    """The launches of GRAPH_STEPS steps, eager and graphed: the wrappers
+@contextlib.contextmanager
+def _all_reduces_seen():
+    """{'eager': n, 'captured': n}: the all-reduces issued inside, by
+    whether their stream was capturing (a replay issues none: its graph
+    holds them)."""
+    import torch.distributed as dist
+    real, seen = dist.all_reduce, {'eager': 0, 'captured': 0}
+
+    def counting(*a, **k):
+        seen['captured' if torch.cuda.is_current_stream_capturing()
+             else 'eager'] += 1
+        return real(*a, **k)
+    dist.all_reduce = counting
+    try:
+        yield seen
+    finally:
+        dist.all_reduce = real
+
+
+def _all_reduce_gate(runs: dict, steps: int, what: str) -> dict:
+    """A one-rank mesh step issues one all-reduce (``reduce_over_data``):
+    eager, one a step; graphed, one in the warm-up and one inside the
+    capture, none in a replay."""
+    want = {False: {'eager': steps, 'captured': 0},
+            True: {'eager': 1, 'captured': 1}}
+    for graphed, r in runs.items():
+        if r['all_reduce'] != want[graphed]:
+            raise AssertionError('{} (graphed {}): all-reduces {}, want {}'
+                                 .format(what, graphed, r['all_reduce'],
+                                         want[graphed]))
+    return {('graph' if g else 'eager'): r['all_reduce']
+            for g, r in runs.items()}
+
+
+def _graph_launch_gate(runs: dict, want, what: str,
+                       steps: int = GRAPH_STEPS) -> dict:
+    """The launches of ``steps`` steps, eager and graphed: the wrappers
     count every eager step's (``want(steps)``) and, graphed, the warm-up's
     and the capture's; the one capture's graph holds as many same-grid
     kernel nodes, by function name, as the capture launched (a step's
     forward and dx launches, which run the same kernels)."""
     per_step = want(1)
     for graphed, r in runs.items():
-        body = _body_steps(GRAPH_STEPS, what, r['steps_run'])
-        if body != (2 if graphed else GRAPH_STEPS) or r['launches'] != want(
+        body = _body_steps(steps, what, r['steps_run'])
+        if body != (2 if graphed else steps) or r['launches'] != want(
                 body):
             raise AssertionError('{} (graphed {}): {} launched, steps run '
                                  '{}'.format(what, graphed, r['launches'],
@@ -5468,60 +5804,69 @@ def _flagship_dir() -> str:
     return job_dir
 
 
-def _wim_pair(job_dir: str, graphed: bool):
+def _wim_pair(job_dir: str, graphed: bool, mesh=None):
     """A WIM job on phase 9's alternate prior, a fresh optimizer state and
-    the loop's generator, and its fine-tune step."""
+    the loop's generator, and its fine-tune step (on ``mesh``, the state
+    placed there)."""
     from joint_vae_tpu_torch.ft.job import load_wim_job
+    from joint_vae_tpu_torch.parallel.mesh import ensure_placed
     from joint_vae_tpu_torch.train.optimizers import build_optimizer
     from joint_vae_tpu_torch.train.state import make_generator, named_params
     wim = load_wim_job(job_dir, seed=7, **WIM_PRIOR)
     job = wim.job
+    if mesh is not None:
+        job.state = ensure_placed(job.state, mesh)
     tx = build_optimizer(job.opt_cfg)
     job.state.opt_state = tx.init(named_params(job.model))
     job.state.generator = make_generator(job.device, 3)
     step = wim.make_finetune_step(WIM_ALPHA, tx=tx,
                                   train_L=job.model_cfg.latent_sampling,
-                                  graphed=graphed)
+                                  mesh=mesh, graphed=graphed)
     return job, step
 
 
-def graph_ft_bits(job_dir: str) -> dict:
-    """Phase 9's fine-tune step (64 + 64, host-fed) graphed against eager
-    from one state, GRAPH_STEPS steps; 16 forward and 14 dx launches per
-    step either way."""
+def graph_ft_bits(job_dir: str, mesh=None, batch: int = WIM_BATCH) -> dict:
+    """Phase 9's fine-tune step (``batch`` + ``batch``, host-fed; 64 + 64
+    by default) graphed against eager from one state, GRAPH_STEPS steps;
+    16 forward and 14 dx launches per step either way.  ``mesh``: the
+    mesh step (a mesh of one rank)."""
     from joint_vae_tpu_torch.device import to_device
     from joint_vae_tpu_torch.models.cvnet import flagship_config
     from joint_vae_tpu_torch.train.graphs import steps_run
     cfg = flagship_config()
     rng = np.random.default_rng(23)
-    xs = rng.uniform(0, 1, (GRAPH_STEPS, 2, WIM_BATCH) + cfg.input_shape
+    xs = rng.uniform(0, 1, (GRAPH_STEPS, 2, batch) + cfg.input_shape
                      ).astype(np.float32)
-    ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, WIM_BATCH))
+    ys = rng.integers(0, cfg.num_labels, (GRAPH_STEPS, batch))
     dev = torch.device('cuda')
     runs = {}
     for graphed in (False, True):
-        job, step = _wim_pair(job_dir, graphed)
+        job, step = _wim_pair(job_dir, graphed, mesh)
         _count_reset()
         st, ms = job.state, []
-        for i in range(GRAPH_STEPS):
-            st, m = step(st, to_device(xs[i, 0], dev),
-                         to_device(ys[i], dev), to_device(xs[i, 1], dev))
-            ms.append(m.vector)
+        with _all_reduces_seen() as seen:
+            for i in range(GRAPH_STEPS):
+                st, m = step(st, to_device(xs[i, 0], dev),
+                             to_device(ys[i], dev), to_device(xs[i, 1], dev))
+                ms.append(m.vector)
         torch.cuda.synchronize()
         o = st.opt_state
         runs[graphed] = {
             'metrics': torch.stack(ms).cpu(), 'launches': _counts(),
-            'steps_run': dict(steps_run),
+            'steps_run': dict(steps_run), 'all_reduce': seen,
             'tensors': {k: v.detach().cpu()
                         for k, v in _run_tensors(job).items()},
             'counts': (o.count, o.adam_count, st.step),
             'captures': step.graph.captures}
         del job, step, st
-    out = _bit_gate(runs, 'fine-tune step')
-    out.update({'batch_in': WIM_BATCH, 'batch_mix': WIM_BATCH,
+    what = ('mesh ' if mesh is not None else '') + 'fine-tune step'
+    out = _bit_gate(runs, what)
+    out.update({'batch_in': batch, 'batch_mix': batch,
                 'steps': GRAPH_STEPS})
     out.update(_graph_launch_gate(runs, lambda n: _ft_want(n, 0, 0),
-                                  'fine-tune steps'))
+                                  what + 's'))
+    if mesh is not None:
+        out['all_reduce'] = _all_reduce_gate(runs, GRAPH_STEPS, what)
     return out
 
 
@@ -7230,10 +7575,10 @@ def main():
 
 
 def phase_only(phase):
-    """``--graphs`` / ``--score-graphs`` / ``--imagenet64`` /
-    ``--jit-graphs``: build the kernels and run phase 15, 16, 17 or 18
-    alone (its ``graphs``, ``score_graphs``, ``imagenet64`` or
-    ``jit_graphs`` line)."""
+    """``--mesh`` / ``--graphs`` / ``--score-graphs`` / ``--imagenet64`` /
+    ``--jit-graphs``: build the kernels and run phase 12, 15, 16, 17 or
+    18 alone (its ``mesh_*``, ``graphs``, ``score_graphs``,
+    ``imagenet64`` or ``jit_graphs`` lines)."""
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
     from joint_vae_tpu_torch.device import set_float32_math
@@ -7249,6 +7594,10 @@ def phase_only(phase):
 if __name__ == '__main__':
     if len(sys.argv) > 1 and sys.argv[1] == '--mesh-rank':
         mesh_rank(sys.argv[2:])
+    elif sys.argv[1:] == ['--mesh']:
+        phase_only(mesh_phase)
+    elif sys.argv[1:] == ['--mesh-nccl']:
+        phase_only(mesh_nccl_phase)
     elif sys.argv[1:] == ['--graphs']:
         phase_only(graphs_phase)
     elif sys.argv[1:] == ['--score-graphs']:

@@ -47,8 +47,11 @@ ported.
 this rank's rows (a tail goes in whole), the decode splits its samples
 over 'sample', the classes are split over 'model' as the state is placed,
 and the losses and logits are gathered back by rows, so that every rank
-scores the whole set as the one-process run does; a mesh-fed batch runs
-eagerly (its collectives are not captured).  A multi-process run
+scores the whole set as the one-process run does.  A mesh-fed batch is
+a scoring graph too (``train/graphs.py``), its collectives (the class
+and sample gathers) captured and its entry keyed by the batch's mesh
+scope; the gathers by rows run outside it, and a mesh over gloo on a
+card runs eagerly.  A multi-process run
 skips the recorder replay tier (one rank replaying while the others run
 collectives would hang them); rank 0 writes the record files.
 """
@@ -343,9 +346,9 @@ def ood_detection_rates(job: Job, testset: Optional[ArrayDataset] = None,
     components sit in a recorder is re-scored without model forwards; only
     the remainder triggers fresh evaluation — and the in-distribution scores
     are only computed for methods some OOD set still needs.  ``graphed``
-    (default: True off a mesh) scores each batch as a CUDA graph on the
-    card, held on the job (module docstring); False runs the same body
-    eagerly.
+    (default: True, but on a mesh over gloo on a card) scores each batch
+    as a CUDA graph on the card, held on the job (module docstring);
+    False runs the same body eagerly.
     """
     cfg = job.model_cfg
     epoch = _epoch_of(job, epoch)
@@ -536,7 +539,7 @@ def accuracy(job: Job, testset: Optional[ArrayDataset] = None,
     (predictions recomputed from recorded tensors, zero model forwards, ref
     cvae.py:1268-1330); only the residue evaluates the model, each batch a
     CUDA graph on the card, held on the job (module docstring), unless
-    ``graphed=False`` or on a mesh."""
+    ``graphed=False`` or on a mesh over gloo on a card."""
     cfg = job.model_cfg
     epoch = _epoch_of(job, epoch)
     from_where = _multiprocess_tiers(from_where)

@@ -116,7 +116,7 @@ def both_prior_graph(wim: WIMJob, mesh=None,
     """The both-prior batch (the JAX flow's ``eval_batch``,
     ``joint_vae_tpu/ft/job.py:101-105``) as a scoring graph: the losses,
     their '@' twins and the sample-mean logits (``graphed=False``:
-    eager); eager on a mesh."""
+    eager; ``train/graphs.py::graph_mode`` on a mesh)."""
     job = wim.job
 
     def body(generator, x):
@@ -218,7 +218,7 @@ def record_latents(wim: WIMJob, datasets: Sequence[ArrayDataset],
     (ref ft/__main__.py:209-221 feeding ft/inspection.py).  On the card
     each batch replays a scoring graph (one across the sets, held on the
     job with ``generator``; ``graphed=False``: eager).  ``mesh``: every
-    rank runs the mesh-fed forwards and gathers, rank 0 writes (eager)."""
+    rank runs the mesh-fed forwards and gathers, rank 0 writes."""
     job = wim.job
     graph, generator = held_graph(job, 'latents',
                                   lambda g: _latents_graph(job, g),
@@ -282,9 +282,10 @@ def finetune(wim: WIMJob,
     """Run the WIM fine-tuning flow on the job's device; updates wim.job
     in place (its model, optimizer, sigma state and results).  ``mesh``:
     the trainer's contract (module docstring).  ``graphed`` (default: True
-    off a mesh) replays the fine-tune step and each both-prior batch as
-    CUDA graphs on the card (``WIMJob.make_finetune_step``,
-    :func:`both_prior_graph`), False runs them eagerly."""
+    but on a mesh over gloo on a card) replays the fine-tune step and each
+    both-prior batch as CUDA graphs on the card
+    (``WIMJob.make_finetune_step``, :func:`both_prior_graph`), False runs
+    them eagerly."""
     cfg = wim.cfg
     assert wim.alternate_prior_cfg is not None, 'set_alternate_prior first'
     moving_batch_size = moving_batch_size or batch_size

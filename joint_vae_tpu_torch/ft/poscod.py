@@ -125,11 +125,12 @@ class _HeadStep:
 
 @dataclasses.dataclass
 class PoscodJob:
-    """``graphed`` (default: True off a mesh) replays the frozen net's
+    """``graphed`` (default: True but on a mesh over gloo on a card,
+    ``train/graphs.py::graph_mode``) replays the frozen net's
     batches (its means, and with the head its scores) as a scoring graph
     held on the job, shared by :meth:`finetune` and :meth:`llr_scores`
     (each reseeds its generator), and the head's step as a step graph;
-    False runs both eagerly, as does a mesh."""
+    False runs both eagerly."""
     job: Job
     head: Optional[Dict[str, torch.Tensor]] = None
     graphed: Optional[bool] = None

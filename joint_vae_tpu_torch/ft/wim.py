@@ -191,7 +191,8 @@ class WIMJob:
                            graphed: Optional[bool] = None):
         """:meth:`finetune_batch` as a step ``step(state, x_in, y_in,
         x_mix, eps=None) -> (state, metrics)``, replayed as a CUDA graph
-        on the card unless ``graphed=False`` (a mesh step is eager)."""
+        on the card unless ``graphed=False`` (``train/graphs.py::
+        graph_mode``: a mesh over gloo on a card is eager)."""
         return FinetuneStep(self, alpha, tx, train_L, mesh, graphed)
 
 

@@ -26,8 +26,12 @@ one-process run gives on the same inputs.
 - **'sample'** splits the L+1 latent samples of an evaluation's decode;
   the per-sample losses are gathered before anything consumes them.
 
-The collectives are ``all_reduce``, ``all_gather``, ``broadcast`` and
-``barrier``: the ones that gloo also runs on CUDA tensors.
+The collectives are ``all_reduce``, ``all_gather`` (into one
+preallocated tensor), ``broadcast`` and ``barrier``: the ones that gloo
+also runs on CUDA tensors.  Those on a step's or an evaluation batch's
+path can be captured in a CUDA graph over NCCL (``train/graphs.py``):
+each takes its output buffer from the allocator on the capturing stream,
+and none reads a card value on the host.
 """
 
 import contextlib
@@ -43,12 +47,14 @@ import torch.distributed as dist
 
 class Mesh:
     """A mesh over the world's ranks: ``shape`` {axis: size} in axis
-    order, this rank's ``coords`` and the process group of each axis
-    (None in a world without torch.distributed)."""
+    order, this rank's ``coords``, the process group of each axis (None
+    in a world without torch.distributed) and their ``backend`` ('nccl',
+    'gloo'; None without groups)."""
 
     def __init__(self, shape: Dict[str, int], rank: int = 0,
                  groups: Optional[Dict[str, object]] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 backend: Optional[str] = None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = int(np.prod(list(self.shape.values())))
@@ -57,6 +63,14 @@ class Mesh:
         self.coords = {a: int(i) for a, i in zip(self.axis_names, idx)}
         self.groups = dict(groups or {})
         self.device = device
+        self.backend = backend if self.groups else None
+
+    @property
+    def host_staged(self) -> bool:
+        """Whether its collectives pass through host memory: gloo's on a
+        card, which a CUDA graph cannot capture."""
+        return (self.backend == 'gloo' and self.device is not None
+                and self.device.type == 'cuda')
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -114,13 +128,14 @@ def make_mesh(n_devices: Optional[int] = None,
     if device is None:
         device = (torch.device('cuda', torch.cuda.current_device())
                   if torch.cuda.is_available() else torch.device('cpu'))
-    groups = {}
+    groups, backend = {}, None
     if size > 1 or (dist.is_available() and dist.is_initialized()):
         from torch.distributed.device_mesh import init_device_mesh
-        kind = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+        backend = dist.get_backend()
+        kind = 'cuda' if backend == 'nccl' else 'cpu'
         dm = init_device_mesh(kind, dims, mesh_dim_names=names)
         groups = {a: dm.get_group(a) for a in names}
-    return Mesh(shape, rank, groups, torch.device(device))
+    return Mesh(shape, rank, groups, torch.device(device), backend)
 
 
 def distributed_init(coordinator_address: Optional[str] = None,
@@ -474,11 +489,21 @@ def all_reduce_mean_(x: torch.Tensor, mesh: Mesh, axis: str,
     return x
 
 
+# ``all_gather_into_tensor``'s newer name, where PyTorch has it
+_all_gather_single = getattr(dist, 'all_gather_single', None) or \
+    dist.all_gather_into_tensor
+
+
 def _all_gather_cat(x: torch.Tensor, group, parts: int, dim: int
                     ) -> torch.Tensor:
-    bufs = [torch.empty_like(x) for _ in range(parts)]
-    dist.all_gather(bufs, x.contiguous(), group=group)
-    return torch.cat(bufs, dim=dim)
+    """The group's blocks of ``x`` concatenated along ``dim`` in rank
+    order, gathered into one tensor (the blocks concatenated along dim
+    0)."""
+    full = x.new_empty((parts * x.shape[0],) + tuple(x.shape[1:]))
+    _all_gather_single(full, x.contiguous(), group=group)
+    if dim == 0:
+        return full
+    return torch.cat(full.view((parts,) + tuple(x.shape)).unbind(0), dim=dim)
 
 
 class _GatherBlock(torch.autograd.Function):

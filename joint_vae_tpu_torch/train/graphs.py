@@ -21,14 +21,23 @@ its own), and on the card:
   real step or batch (it moves the parameters, the moments, sigma and the
   generator; nothing is restored), so that every library handle, plan
   and kernel library is made before the capture;
-- then captures the body on that stream in the default
+- then captures the body on a capture stream in the default
   ``capture_error_mode``, with the run's generator registered
   (``register_generator_state``: each replay draws the numbers the eager
   body would), and replays it from then on.  A capture that fails
   raises; nothing falls back to eager runs.
 
-Every runner warms up and captures on one side stream per card, so
-that the warm-ups of every runner reuse the same cached memory.  The
+Every runner warms up on one side stream per card, so that the
+warm-ups of every runner reuse the same cached memory, and captures on
+one capture stream per card, which runs nothing else; the caller's
+stream joins it after a capture.  On PyTorch 2.11 a graph's replay drew
+the numbers of its generator at offset 0, now and then, when an eager
+draw from that generator (another entry's warm-up) had run on the
+stream the graph was captured on, or when the graph was captured on
+another stream than the last eager draw's: 0-9 of 40 runs as the
+engines' held graphs run a set, each of 40 with the card synchronised
+around the warm-ups, none with the capture stream apart
+(``scripts/torch_graph_race_probe.py``).  The
 entries of one runner share one private memory pool: they never replay
 at the same time, so a ragged tail's graph reuses the full batch's
 intermediates, and a graph's outputs are taken (copied or pulled to
@@ -53,10 +62,10 @@ instead: at capture the graph's kernel nodes are counted by their
 functions' names, per kernel source of ``ops/cuda_lib.py``, and must
 equal the launches the wrappers counted while capturing, or the capture
 raises.  ``captures`` records each capture's seconds, launches, kernel
-nodes, the bytes it added to the pool and whether the cache was given
-back first; :data:`steps_run` counts the
-step graphs' steps and :data:`batches_run` the scoring graphs' batches
-by graph name, each by how they ran.
+nodes, NCCL's kernel nodes and the nodes by type, the bytes it added to
+the pool and whether the cache was given back first; :data:`steps_run`
+counts the step graphs' steps and :data:`batches_run` the scoring
+graphs' batches by graph name, each by how they ran.
 
 A :class:`StepGraph` holds a step body ``body(state, **inputs) -> {name:
 0-dim tensor}`` that updates the state's tensors in place and reads every
@@ -72,16 +81,46 @@ the generator's; its outputs are static tensors that the next replay
 overwrites, so the caller takes copies or pulls them to the host first.
 
 The backward of a captured step accumulates each parameter's gradient on
-the stream its gradient accumulator was made on: the side stream, when
-the warm-up step makes them.  An autograd graph through the parameters
-built eagerly on the default stream and still alive at the capture
-(an eager forward's output kept) holds accumulators on that stream, and
-the capture then fails; drop it first.
+the stream its gradient accumulator was made on.  An autograd graph
+through the parameters built eagerly on the default stream and still
+alive at the capture (an eager forward's output kept) holds accumulators
+on that stream, and the capture then fails; drop it first.
+
+On a mesh (``parallel/mesh.py``) a step's or batch's collectives go
+into its graph when the mesh's groups are NCCL's (:func:`graph_mode`),
+as ``jax.jit`` compiles a sharded program's collectives into it.  What
+PyTorch 2.11 and NCCL 2.28 need, found on the card
+(``scripts/torch_nccl_graph_probe.py``):
+
+- a group's communicator is made by its first collective, which a
+  capture cannot hold (the capture is invalidated): the entry's eager
+  warm-up runs every collective of the body once before its capture;
+- ProcessGroupNCCL runs a captured collective on its own stream, joined
+  to the capture by events, and keeps it out of its watchdog's queue;
+  ``capture_begin`` waits until the watchdog has retired the eager ones,
+  so the default 'global' ``capture_error_mode`` holds, even right
+  after an eager collective;
+- a collective in a backward (``mesh.py::_AllReduceSum``) is issued from
+  autograd's device thread on the capturing stream, and is captured;
+- a collective reads no value on the host, and its output buffer comes
+  from the allocator on the capturing stream (the all-gather fills one
+  preallocated tensor);
+- an all-reduce in place on a group of one rank is no work for NCCL: the
+  graph holds no node of it (the one-rank mesh's), where two ranks give
+  NCCL's kernels (counted by name in ``captures``).
+
+The mesh scope that the caller entered (``mesh.py::mesh_scope``: a batch
+split over 'data' or whole, its samples split or not) decides the body's
+collectives, so each entry is keyed by it as well as by the inputs'
+shapes: a ragged tail run whole never replays a split batch's graph,
+though this rank's rows of the split batch may have the tail's shape.
+gloo stages each collective through host memory, which a capture cannot
+hold: a mesh over gloo on a card runs eagerly.
 
 On the CPU, which only a caller's explicit ``device='cpu'`` reaches, the
-same body runs eagerly on the same static buffers.  ``graphed=False``
-runs the body eagerly on the inputs as given (a mesh step or batch, and
-the eager reference that ``chip_smoke.py`` holds a graph against).
+same body runs eagerly on the same static buffers, on a mesh too.
+``graphed=False`` runs the body eagerly on the inputs as given (the
+eager reference that ``chip_smoke.py`` holds a graph against).
 """
 
 import ctypes
@@ -93,11 +132,14 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 
 from ..ops import cuda_lib
+from ..parallel.mesh import current_scope
 
 
 _HOW = ('eager', 'captured', 'replayed')
-# every runner's warm-up and capture stream, by card (module docstring)
+# every runner's warm-up stream and its capture stream, by card (module
+# docstring)
 _side_streams: Dict[torch.device, Any] = {}
+_capture_streams: Dict[torch.device, Any] = {}
 # every step graph's steps since :func:`reset_steps_run`, by how they ran:
 # 'eager' (the body called: an eager step, a warm-up, a step on the CPU),
 # 'captured' (the body recorded into a graph; that step then runs as a
@@ -110,12 +152,19 @@ batches_run: Dict[str, Dict[str, int]] = {}
 
 def graph_mode(graphed: Optional[bool], mesh) -> bool:
     """Whether a step or scoring batch runs as a graph: by default, off a
-    mesh; a mesh step or batch is eager (its collectives are not
-    captured) and asking it for a graph raises."""
-    if graphed and mesh is not None:
-        raise ValueError('a mesh step runs eagerly: graphed=True cannot '
-                         'be asked of it')
-    return mesh is None if graphed is None else bool(graphed)
+    mesh and on a mesh whose collectives a graph can hold (NCCL's, a mesh
+    without groups, any on the CPU, where the body runs on the static
+    buffers).  gloo on a card stages each collective through host memory,
+    which a capture cannot hold: such a mesh runs eagerly, and asking it
+    for a graph raises."""
+    if mesh is not None and mesh.host_staged:
+        if graphed:
+            raise ValueError(
+                'a mesh over gloo on a card runs eagerly (gloo stages its '
+                'collectives through host memory, which a CUDA graph '
+                'cannot capture): graphed=True cannot be asked of it')
+        return False
+    return True if graphed is None else bool(graphed)
 
 
 def reset_steps_run() -> None:
@@ -193,22 +242,25 @@ class GraphRunner:
         steps_run[how] += 1
 
     def _entry(self, owner: tuple, given: dict) -> _Entry:
-        """The buffers for ``given``'s shapes, dtypes and devices, filled
-        from ``given``.  A new ``owner`` drops the entries held."""
+        """The buffers for ``given``'s shapes, dtypes and devices in the
+        caller's mesh scope, filled from ``given``.  A new ``owner`` drops
+        the entries held."""
         if (len(owner) != len(self._owner)
                 or any(a is not b for a, b in zip(owner, self._owner))):
             self._entries.clear()
             self._pool = None
             self._owner = owner
-        key = tuple(
+        inputs = tuple(
             (k, tuple(v.shape), v.src.dtype if isinstance(v, Rows)
              else v.dtype, (v.src if isinstance(v, Rows) else v).device)
             for k, v in sorted(given.items()))
+        # the scope decides the body's collectives (module docstring)
+        key = (current_scope(), inputs)
         entry = self._entries.get(key)
         if entry is None:
             entry = self._entries[key] = _Entry(buffers={
                 k: torch.empty(shape, dtype=dt, device=dev)
-                for k, shape, dt, dev in key})
+                for k, shape, dt, dev in inputs})
         for k, v in given.items():
             if isinstance(v, Rows):
                 v.into(entry.buffers[k])
@@ -240,13 +292,19 @@ class GraphRunner:
                 t.record_stream(cur)
             return out
         if entry.graph is None:
-            self._capture(entry, generator, dev, side, fn)
+            stream = _capture_streams.get(dev)
+            if stream is None:
+                stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+            cur = torch.cuda.current_stream(dev)
+            stream.wait_stream(cur)
+            self._capture(entry, generator, dev, stream, fn)
+            cur.wait_stream(stream)
         entry.graph.replay()
         self._count('replayed')
         return entry.out
 
     def _capture(self, entry: _Entry, generator: Optional[torch.Generator],
-                 dev: torch.device, side, fn: Callable) -> None:
+                 dev: torch.device, stream, fn: Callable) -> None:
         # kept, to count its kernel nodes before it is instantiated
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:
@@ -261,7 +319,7 @@ class GraphRunner:
         grown = _malloced(dev)
         before = cuda_lib.launch_counts()
         t0 = time.perf_counter()
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(stream):
             graph.capture_begin(pool=self._pool)
             try:
                 entry.out = fn(entry.buffers)
@@ -288,6 +346,8 @@ class GraphRunner:
             'kernel_nodes': None if nodes is None else nodes['total'],
             'kernel_nodes_by_source': None if nodes is None
             else nodes['by_source'],
+            'nccl_kernel_nodes': None if nodes is None else nodes['nccl'],
+            'nodes_by_type': None if nodes is None else nodes['by_type'],
             'pool_bytes': _malloced(dev) - grown,
             'emptied_cache': emptied})
 
@@ -390,19 +450,20 @@ def held_graph(job, kind: str, make: Callable[[bool], ScoreGraph], *,
                generator: Optional[torch.Generator] = None, mesh=None,
                graphed: Optional[bool] = None):
     """The scoring graph of program ``kind`` on ``job`` (``make(graphed)``
-    builds it) and the generator of its batches.  Graphed (the default off
-    a mesh, :func:`graph_mode`), both are held on the job across calls,
-    one graph per kind (another ``key``, device, model or sigma state
-    replaces it), and the generator is reseeded with ``seed`` (as a fresh
-    generator of that seed draws); a caller's ``generator`` means new
-    captures.  Otherwise an eager graph and a fresh generator."""
+    builds it, its body on ``mesh``) and the generator of its batches.
+    Graphed (the default, :func:`graph_mode`), both are held on the job
+    across calls, one graph per kind (another ``key``, mesh, device,
+    model or sigma state replaces it), and the generator is reseeded with
+    ``seed`` (as a fresh generator of that seed draws); a caller's
+    ``generator`` means new captures.  Otherwise an eager graph and a
+    fresh generator."""
     dev = job.device
     if not graph_mode(graphed, mesh):
         return make(False), (generator if generator is not None else
                              torch.Generator(device=dev).manual_seed(
                                  int(seed)))
     held = vars(job).setdefault('_score_graphs', {})
-    key = (tuple(key), dev)
+    key = (tuple(key), mesh, dev)
     reads = (job.model, job.sigma_state.data, job.sigma_state.rmse)
     h = held.get(kind)
     if h is None or h[0] != key or any(a is not b
@@ -427,13 +488,21 @@ class _KernelNodeParams(ctypes.Structure):
                 ('kern', ctypes.c_void_p), ('ctx', ctypes.c_void_p)]
 
 
+# libcuda's CUgraphNodeType, by value
+_NODE_TYPES = ('kernel', 'memcpy', 'memset', 'host', 'graph', 'empty',
+               'wait_event', 'event_record', 'semaphore_signal',
+               'semaphore_wait', 'mem_alloc', 'mem_free', 'batch_mem_op',
+               'conditional')
+
+
 def kernel_nodes(raw_graph: int) -> Optional[dict]:
-    """The kernel nodes of a ``cudaGraph_t``: ``{'total': n, 'by_source':
-    {source: n}}``, those of each kernel source of ``ops/cuda_lib.py``
-    told apart by their functions' names (libcuda's ``cuGraphGetNodes``,
-    ``cuGraphNodeGetType``, ``cuGraphKernelNodeGetParams``,
-    ``cuFuncGetName``); None where libcuda cannot be loaded.  A call that
-    fails raises."""
+    """The nodes of a ``cudaGraph_t``: ``{'total': kernel nodes,
+    'by_source': {source: n}, 'nccl': n, 'by_type': {type: n}}``, the
+    kernel nodes of each kernel source of ``ops/cuda_lib.py`` and NCCL's
+    (a name holding 'nccl') told apart by their functions' names (libcuda's
+    ``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``); None where libcuda
+    cannot be loaded.  A call that fails raises."""
     try:
         cu = ctypes.CDLL('libcuda.so.1')
     except OSError:
@@ -446,15 +515,21 @@ def kernel_nodes(raw_graph: int) -> Optional[dict]:
     n = ctypes.c_size_t(0)
     check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), 'cuGraphGetNodes')
     nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
+    if n.value:                 # an empty graph: no array to fill
+        check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
+              'cuGraphGetNodes')
     kind = ctypes.c_int(0)
     params = _KernelNodeParams()
     name = ctypes.c_char_p()
-    total, by_source = 0, dict.fromkeys(cuda_lib.KERNEL_FUNCTIONS, 0)
+    total, nccl, by_type = 0, 0, {}
+    by_source = dict.fromkeys(cuda_lib.KERNEL_FUNCTIONS, 0)
     for node in nodes:
         node = ctypes.c_void_p(node)
         check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
               'cuGraphNodeGetType')
+        t = (_NODE_TYPES[kind.value] if kind.value < len(_NODE_TYPES)
+             else str(kind.value))
+        by_type[t] = by_type.get(t, 0) + 1
         if kind.value != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         total += 1
@@ -468,7 +543,10 @@ def kernel_nodes(raw_graph: int) -> Optional[dict]:
             check(cu.cuKernelGetName(ctypes.byref(name),
                                      ctypes.c_void_p(params.kern)),
                   'cuKernelGetName')
-        source = cuda_lib.source_of(name.value.decode())
+        fn = name.value.decode()
+        source = cuda_lib.source_of(fn)
         if source is not None:
             by_source[source] += 1
-    return {'total': total, 'by_source': by_source}
+        nccl += 'nccl' in fn.lower()
+    return {'total': total, 'by_source': by_source, 'nccl': nccl,
+            'by_type': by_type}

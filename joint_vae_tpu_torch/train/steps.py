@@ -186,18 +186,19 @@ def make_train_step(model: CVNet, opt_cfg: OptimizerConfig,
     measures, ``grad_norm`` (of the masked gradient) and ``train_acc``
     when the model classifies — views of one packed float32 vector.
 
-    ``graphed`` (default: True off a mesh) replays the step as a CUDA
-    graph on the card (``train/graphs.py``; its first step eager, the
-    second captured); False runs it eagerly.  The same body runs either
-    way, and on the CPU on the graph's static buffers.
+    ``graphed`` (default: True, but on a mesh over gloo on a card:
+    ``graphs.py::graph_mode``) replays the step as a CUDA graph on the
+    card (``train/graphs.py``; its first step eager, the second captured,
+    a mesh step's collectives inside it); False runs it eagerly.  The
+    same body runs either way, and on the CPU on the graph's static
+    buffers.
 
     On a ``mesh`` (the state placed there, ``mesh.py::ensure_placed``)
     x and y are this rank's rows of the global batch and the step is the
     global batch's (``parallel/shard_steps.py``): one all-reduce over
     'data', the sigma state rebuilt from the global mse, the clipping
     norm summed over 'model'.  ``split_sampling_per_shard=False`` draws
-    the local noise shape, the same on every rank.  A mesh step is eager
-    (``graphed=True`` raises)."""
+    the local noise shape, the same on every rank."""
     return TrainStep(model, opt_cfg, warmup, warmup_gamma, frozen_modules,
                      mesh, split_sampling_per_shard, graphed)
 

@@ -35,6 +35,8 @@ and feeds its rows of each global batch (``aligned_global_batch``) to the
 train step on the mesh (its collectives: ``parallel/shard_steps.py``), so
 the data order and the noise are the one-process run's.  The
 device-resident set is off on a mesh.  A multi-process run needs a mesh; its evaluations are mesh-fed.
+The mesh step and the mesh-fed batches are graphs too, their collectives
+captured (``train/graphs.py::graph_mode``).
 """
 
 import logging
@@ -49,8 +51,9 @@ from ..data.loaders import ArrayDataset, DataLoader, get_dataset
 from ..device import to_device
 from ..evals.engines import accuracy, ood_detection_rates
 from ..models.evaluate import evaluate
-from ..parallel.mesh import (ensure_placed, eval_batch_putters, mesh_scope,
-                             rows_split, world)
+from ..parallel.mesh import (current_scope, ensure_placed,
+                             eval_batch_putters, mesh_scope, rows_split,
+                             world)
 from ..parallel.shard_steps import reduce_over_data
 from ..parallel.sharded_data import aligned_global_batch
 from ..save_load.jobs import Job, mark, save_job
@@ -101,8 +104,9 @@ def train_model(job: Job,
     (``get_dataset``), its test split as the testset.  ``device_data``
     feeds the steps from a copy of the training set on the device;
     ``mesh`` trains on a device mesh (module docstring); ``graphed``
-    (default: True off a mesh) replays the step and the engines' scoring
-    batches as CUDA graphs on the card, False runs them eagerly."""
+    (default: True, but on a mesh over gloo on a card) replays the step
+    and the engines' scoring batches as CUDA graphs on the card, False
+    runs them eagerly."""
     if trainset is None:
         name = job.training_parameters.get('set') or 'cifar10'
         trainset, ts = get_dataset(name)
@@ -296,19 +300,20 @@ def _mean_loss_graph(job: Job, mesh=None, graphed: bool = True
     """The per-epoch losses' batch (the JAX trainer's ``eval_batch``,
     ``joint_vae_tpu/train/trainer.py:331``): the batch means of every
     loss and measure, with labels, as a scoring graph (``graphed=False``:
-    eager); a mesh batch's means are averaged over the ranks."""
+    eager); a batch that the caller's mesh scope splits over 'data' has
+    its means averaged over the ranks, inside the graph."""
     ref = weakref.ref(job)          # the job holds the graph
 
     def body(generator, x, y):
         job = ref()
-        split = rows_split(mesh, x.shape[0])
-        with mesh_scope(mesh, rows=split):
-            out = evaluate(job.model, x, y, sigma_state=job.sigma_state,
-                           train=False, generator=generator)
+        out = evaluate(job.model, x, y, sigma_state=job.sigma_state,
+                       train=False, generator=generator)
         row = {**{'loss/' + k: torch.mean(v) for k, v in out.losses.items()},
                **{'measure/' + k: torch.mean(v)
                   for k, v in out.measures.items()}}
-        return reduce_over_data(row, mesh) if split else row
+        scope = current_scope()
+        return (reduce_over_data(row, mesh) if scope is not None
+                and scope.rows else row)
     return ScoreGraph(body, name='mean_losses', graphed=graphed)
 
 
@@ -317,13 +322,14 @@ def _mean_losses(job: Job, dataset: ArrayDataset, batch_size: int,
     """-> (mean per-component losses, mean measures incl. rmse/dB) with
     labels (validation/test history tracking); the latent noise comes from
     a generator seeded with the epoch, and the batch means are pulled from
-    the card once.  On the card each batch replays a scoring graph
+    the card once.  Each batch replays a scoring graph on the card
     (``graphed=False``: eager), held on the job across epochs and sets
     with its generator (``train/graphs.py::held_graph``): the train step
     moves the parameters and the sigma state in place, which the graph
     reads.  ``mesh``: each batch is fed over 'data'
-    (``eval_batch_putters``) and its means are averaged over the ranks;
-    eager."""
+    (``eval_batch_putters``) and runs in the mesh scope that the global
+    batch's size decides (split over 'data', its means averaged over the
+    ranks, or whole on every rank)."""
     dev = job.device
     graph, gen = held_graph(job, 'mean_losses',
                             lambda g: _mean_loss_graph(job, mesh, g),
@@ -331,8 +337,10 @@ def _mean_losses(job: Job, dataset: ArrayDataset, batch_size: int,
     put_x = put_y = lambda a: to_device(a, dev)
     if mesh is not None:
         put_x, put_y = eval_batch_putters(mesh, 1 + len(dataset.shape))
-    per_batch = [graph(gen, x=put_x(x), y=put_y(y))
-                 for x, y in DataLoader(dataset, batch_size, shuffle=False)]
+    per_batch = []
+    for x, y in DataLoader(dataset, batch_size, shuffle=False):
+        with mesh_scope(mesh, rows=rows_split(mesh, len(x))):
+            per_batch.append(graph(gen, x=put_x(x), y=put_y(y)))
     sums: Dict[str, float] = {}
     for row in pull_metrics(per_batch):
         for k, v in row.items():

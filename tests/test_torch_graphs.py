@@ -19,8 +19,10 @@ input buffers: the code that the card captures.  With the noise injected
   way round, bit-equal, and a step after the reload equal bit for bit to
   the same step without it;
 - the host counts and every tensor of a graph-mode run equal to an eager
-  run's; the static buffers reused; a mesh step asked for a graph
-  raises.
+  run's; the static buffers reused; ``graph_mode`` on a mesh: NCCL's
+  graphed by default, a mesh over gloo on a card eager and refusing a
+  graph, the CPU's on the static buffers (the mesh steps themselves:
+  ``tests/test_torch_mesh_graphs.py``).
 """
 
 import dataclasses
@@ -46,6 +48,7 @@ from joint_vae_tpu_torch.save_load.from_jax import (opt_state_to_jax,
                                                     state_dict_to_jax)
 from joint_vae_tpu_torch.train import device_data as tdd
 from joint_vae_tpu_torch.ops import cuda_lib
+from joint_vae_tpu_torch.parallel.mesh import Mesh
 from joint_vae_tpu_torch.train.graphs import PackedMetrics, Rows, StepGraph
 from joint_vae_tpu_torch.train.optimizers import (OptimizerConfig,
                                                   build_optimizer,
@@ -343,8 +346,9 @@ def test_static_buffers_and_gathers():
     g.reset_sums()
     assert not g.sums.any()
     with pytest.raises(ValueError):
-        graph_mode(True, object())
-    assert graph_mode(None, object()) is False
+        graph_mode(True, _mesh_of('gloo', 'cuda'))
+    assert graph_mode(None, _mesh_of('gloo', 'cuda')) is False
+    assert graph_mode(None, _mesh_of('nccl', 'cuda')) is True
     assert graph_mode(None, None) is True
 
 
@@ -399,14 +403,42 @@ def test_kernel_sources_by_function_name():
         'same_grid_conv': 15, 'iws_combine': 0}
 
 
-def test_mesh_step_refuses_a_graph():
+def _mesh_of(backend, device):
+    """A one-rank mesh whose 'data' group is of ``backend`` (None: no
+    groups) on ``device``: what ``graph_mode`` reads of a mesh."""
+    return Mesh({'data': 1, 'model': 1},
+                groups={'data': object()} if backend else None,
+                device=torch.device(device), backend=backend)
+
+
+@pytest.mark.parametrize('backend,device,default', [
+    ('gloo', 'cuda', None), ('nccl', 'cuda', True), ('gloo', 'cpu', True),
+    (None, 'cuda', True)])
+def test_mesh_step_refuses_a_graph(backend, device, default):
+    """``graph_mode`` on a mesh: gloo on a card stages its collectives
+    through host memory, so its train and fine-tune steps refuse
+    ``graphed=True`` and run eagerly by default; NCCL's graph by default,
+    and so does a mesh on the CPU (the body on the graph's static
+    buffers) or without groups; ``graphed=False`` is eager on every
+    mesh."""
     jcfg = graft._flagship_cfg(tiny=True)
     jjob = _jjob(jcfg, {}, seed=6)
     model = port_model(jcfg, jjob.state)
-    with pytest.raises(ValueError, match='eagerly'):
-        make_train_step(model, OptimizerConfig(), mesh=object(),
-                        graphed=True)
-    with pytest.raises(ValueError, match='eagerly'):
-        twim.WIMJob(job=None).make_finetune_step(
-            0.1, tx=build_optimizer(OptimizerConfig()), mesh=object(),
-            graphed=True)
+    mesh = _mesh_of(backend, device)
+    tx = build_optimizer(OptimizerConfig())
+    if default is None:
+        with pytest.raises(ValueError, match='gloo'):
+            make_train_step(model, OptimizerConfig(), mesh=mesh,
+                            graphed=True)
+        with pytest.raises(ValueError, match='gloo'):
+            twim.WIMJob(job=None).make_finetune_step(0.1, tx=tx, mesh=mesh,
+                                                     graphed=True)
+    else:
+        assert make_train_step(model, OptimizerConfig(), mesh=mesh,
+                               graphed=True).graph.graphed
+    assert make_train_step(model, OptimizerConfig(),
+                           mesh=mesh).graph.graphed is bool(default)
+    assert twim.WIMJob(job=None).make_finetune_step(
+        0.1, tx=tx, mesh=mesh).graph.graphed is bool(default)
+    assert not make_train_step(model, OptimizerConfig(), mesh=mesh,
+                               graphed=False).graph.graphed

@@ -6,7 +6,9 @@ generator's draws, and a capture that fails raising; the Scorer's graph
 against its eager self in both dtypes, its reseeded default noise, each
 capture's kernel nodes by name; the OOD engine's graph with ODIN's
 input gradient in it against its eager self; float32 training repeating
-from a seed under the port's defaults (no ``cudnn.deterministic``).
+from a seed under the port's defaults (no ``cudnn.deterministic``); a
+mesh step over NCCL on a world of one rank, graphed against eager with
+its all-reduce inside the capture.
 Every test here
 needs a CUDA card and skips without one; the file imports neither jax nor
 the JAX package:
@@ -604,3 +606,84 @@ def test_capture_under_queued_replays_draws_eager_noise(cuda_device):
     bad = [i for i, (e, h) in enumerate(zip(got[False], got[True]))
            if not torch.equal(e, h)]
     assert not bad, bad
+
+
+_MESH_STEP = """
+import json, socket
+import numpy as np
+import torch
+import torch.distributed as dist
+from joint_vae_tpu_torch.models.cvnet import flagship_config
+from joint_vae_tpu_torch.parallel.mesh import (distributed_init,
+                                               ensure_placed, make_mesh)
+from joint_vae_tpu_torch.save_load.jobs import new_job
+from joint_vae_tpu_torch.train.graphs import reset_steps_run, steps_run
+from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+from joint_vae_tpu_torch.train.steps import make_train_step
+with socket.socket() as s:
+    s.bind(('localhost', 0))
+    port = s.getsockname()[1]
+distributed_init('localhost:{}'.format(port), 1, 0, backend='nccl')
+mesh = make_mesh()
+cfg = flagship_config(tiny=True)
+rng = np.random.default_rng(0)
+xs = torch.from_numpy(rng.uniform(0, 1, (4, 16) + cfg.input_shape)
+                      .astype(np.float32)).cuda()
+ys = torch.from_numpy(rng.integers(0, cfg.num_labels, (4, 16))).cuda()
+real, seen = dist.all_reduce, []
+def counting(*a, **k):
+    seen.append(torch.cuda.is_current_stream_capturing())
+    return real(*a, **k)
+dist.all_reduce = counting
+got = {}
+for graphed in (False, True):
+    job = new_job(cfg, OptimizerConfig(lr=2e-3), seed=1)
+    job.state = ensure_placed(job.state, mesh)
+    step = make_train_step(job.model, job.opt_cfg, mesh=mesh,
+                           graphed=graphed)
+    reset_steps_run()
+    del seen[:]
+    st, ms = job.state, []
+    for i in range(4):
+        st, m = step(st, xs[i], ys[i])
+        ms.append(m.vector)
+    torch.cuda.synchronize()
+    got[graphed] = {'metrics': torch.stack(ms).cpu(),
+                    'params': {k: v.detach().cpu()
+                               for k, v in job.model.state_dict().items()},
+                    'steps_run': dict(steps_run), 'all_reduce': list(seen),
+                    'captures': step.graph.captures}
+    del job, step, st
+e, g = got[False], got[True]
+print(json.dumps({
+    'graphed_default': make_train_step(new_job(cfg, seed=1).model,
+                                       OptimizerConfig(),
+                                       mesh=mesh).graph.graphed,
+    'metrics_equal': torch.equal(e['metrics'], g['metrics']),
+    'params_equal': all(torch.equal(e['params'][k], g['params'][k])
+                        for k in e['params']),
+    'steps_run': [e['steps_run'], g['steps_run']],
+    'all_reduce': [e['all_reduce'], g['all_reduce']],
+    'kernel_nodes_by_source': g['captures'][0]['kernel_nodes_by_source']}))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_mesh_step_graph_equals_eager_over_nccl(cuda_device):
+    """A world of one rank over NCCL: the mesh step graphs by default, and
+    4 graphed steps equal 4 eager ones bit for bit; the step's all-reduce
+    runs in the warm-up and inside the capture, none in a replay.  In a
+    child process: the process group, and a failed capture's generator
+    state, stay there."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, '-c', _MESH_STEP], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert r['graphed_default'] is True
+    assert r['metrics_equal'] and r['params_equal'], r
+    assert r['steps_run'] == [{'eager': 4, 'captured': 0, 'replayed': 0},
+                              {'eager': 1, 'captured': 1, 'replayed': 3}]
+    assert r['all_reduce'] == [[False] * 4, [False, True]]
+    assert r['kernel_nodes_by_source']['same_grid_conv'] > 0

@@ -16,8 +16,8 @@ flagship cvae whose weights come from one JAX job directory:
 - the per-epoch losses across two epochs with steps between equal to a
   fresh eager call at each epoch, from one graph held on the job;
 - a ragged tail's own entry, new entries for a new generator or owner,
-  the runs counted by graph name and by how, and a mesh call asked for a
-  graph refused.
+  the runs counted by graph name and by how, and a call on a mesh over
+  gloo on a card asked for a graph refused.
 """
 
 import dataclasses
@@ -44,6 +44,7 @@ from joint_vae_tpu_torch.evals import sample as tsample
 from joint_vae_tpu_torch.ft import job as tft
 from joint_vae_tpu_torch.ft import poscod as tposcod
 from joint_vae_tpu_torch.ft import wim as twim
+from joint_vae_tpu_torch.parallel.mesh import Mesh
 from joint_vae_tpu_torch.save_load import jobs as tjobs
 from joint_vae_tpu_torch.train import trainer as ttrainer
 from joint_vae_tpu_torch.train.graphs import (StepGraph, batches_run,
@@ -337,7 +338,9 @@ def test_step_graph_owner_named_by_its_caller():
 def test_mesh_call_asked_for_a_graph_raises(program, tmp_path):
     _, tjob, _ = _jobs(tmp_path)
     tds = _sets()[1]
-    mesh = object()                 # refused before it is used
+    # a mesh over gloo on a card, refused before it is used
+    mesh = Mesh({'data': 1, 'model': 1}, groups={'data': object()},
+                device=torch.device('cuda'), backend='gloo')
     with pytest.raises(ValueError, match='mesh'):
         if program == 'mean_losses':
             ttrainer._mean_losses(tjob, tds, BATCH, 0, mesh=mesh,

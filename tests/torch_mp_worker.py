@@ -290,8 +290,103 @@ def run_wim(kw, mesh, load_wim_job, finetune, PoscodJob, load_job):
             'llr': llr, 'head': {k: v.numpy() for k, v in pc.head.items()}}
 
 
+def _entry_keys(graph) -> list:
+    """A graph's entries as (scope's (rows, samples) or None, input
+    shapes), in the order they were made."""
+    return [(None if sc is None else (sc.rows, sc.samples),
+             tuple((k, shape) for k, shape, _, _ in inputs))
+            for sc, inputs in graph._entries]
+
+
+def case_graphs(kw):
+    """The mesh programs graphed (on the CPU their bodies run on the
+    graphs' static buffers) and eager (``graphed=False``): ``train_model``
+    on a (2, 2) mesh with the generator's noise, graphed with zero noise
+    too; WIM ``finetune``; ``ood_detection_rates`` at model_axis=2 and at
+    sample_axis=2 (data 2 both) and the per-epoch mean losses, each on
+    sets whose batches of 6 run split over 'data' (3 rows a rank) before
+    a tail of 3 that runs whole."""
+    import joint_vae_tpu_torch.models.evaluate as ev
+    from joint_vae_tpu_torch.evals.engines import ood_detection_rates
+    from joint_vae_tpu_torch.ft.job import finetune, load_wim_job
+    from joint_vae_tpu_torch.parallel.mesh import ensure_placed
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.train import trainer
+    from joint_vae_tpu_torch.train.graphs import held_score_graphs
+    from joint_vae_tpu_torch.train.state import make_generator
+    from joint_vae_tpu_torch.utils.print_log import EpochOutput
+    out = {}
+    mesh = _mesh({'model_axis': 2})
+    real_draw, make = ev.reparameterize, trainer.make_train_step
+    for name, graphed in (('eager', False), ('graph', True),
+                          ('graph_zero_noise', True)):
+        if name == 'graph_zero_noise':
+            zero_noise()
+        job = load_job(kw['job_dir'], device='cpu')
+        steps, made = [], []
+
+        def recording(*a, **k):
+            step = make(*a, **k)
+            made.append(step)
+
+            def run(state, x, y, eps=None):
+                state, m = step(state, x, y, eps)
+                steps.append({k_: float(v) for k_, v in m.items()})
+                return state, m
+            return run
+        trainer.make_train_step = recording
+        try:
+            trainer.train_model(job, dataset(kw['n_train'], 1), None,
+                                epochs=kw['epochs'],
+                                batch_size=kw['batch_size'],
+                                outputs=EpochOutput(stdout=False), seed=3,
+                                final_test=False, final_ood=False,
+                                mesh=mesh, graphed=graphed)
+        finally:
+            trainer.make_train_step = make
+            ev.reparameterize = real_draw
+        out['train_' + name] = {
+            'steps': steps, 'history': _history(job),
+            'weights': weights(job.model, mesh),
+            'graphed': made[0].graph.graphed,
+            'entries': len(made[0].graph._entries)}
+
+    test, ood = dataset(15, 2), dataset(15, 9, name='noise')
+    for name, graphed in (('eager', False), ('graph', True)):
+        wim = load_wim_job(kw['job_dir'], device='cpu',
+                           distribution='gaussian', mean_shift=0.5, seed=2)
+        finetune(wim, dataset(64, 1), dataset(32, 5, name='moving'),
+                 dataset(32, 2), [dataset(32, 9, name='noise')], epochs=1,
+                 alpha=0.1, batch_size=16, test_batch_size=16, seed=4,
+                 mesh=mesh, graphed=graphed)
+        out['wim_' + name] = {'ood': wim.job.ood_results,
+                              'weights': weights(wim.job.model, mesh)}
+
+        job = load_job(kw['job_dir'], device='cpu')
+        job.state = ensure_placed(job.state, mesh)
+        out['losses_' + name] = trainer._mean_losses(
+            job, test, 6, 0, mesh=mesh, graphed=graphed)
+        if graphed:
+            out['losses_entries'] = _entry_keys(
+                held_score_graphs(job)['mean_losses'])
+
+        for axes in ({'model_axis': 2}, {'sample_axis': 2}):
+            m = _mesh(axes)
+            job = load_job(kw['job_dir'], device='cpu')
+            job.state = ensure_placed(job.state, m)
+            key = 'ood_model2' if 'model_axis' in axes else 'ood_sample2'
+            out[key + '_' + name] = ood_detection_rates(
+                job, test, [ood], batch_size=6, recording=False,
+                from_where=('compute',), generator=make_generator('cpu', 5),
+                mesh=m, graphed=graphed)
+            if graphed:
+                out[key + '_entries'] = _entry_keys(
+                    held_score_graphs(job)['ood'])
+    return out
+
+
 CASES = {'train': case_train, 'ood': case_ood, 'ckpt': case_ckpt,
-         'wim': case_wim}
+         'wim': case_wim, 'graphs': case_graphs}
 
 
 def main(argv):
