@@ -51,8 +51,8 @@ def infer_kind(values: Sequence) -> str:
     present = [v for v in values if not is_missing(v)]
     missing = len(present) < len(values)
     if not present:
-        return 'float' if values and all(_is_float(v) for v in values) \
-            else 'object'
+        # pandas makes a column of missing cells float64 once one is NaN
+        return 'float' if any(_is_float(v) for v in values) else 'object'
     if all(_is_bool(v) for v in present):
         return 'object' if missing else 'bool'
     if all(_is_int(v) for v in present):

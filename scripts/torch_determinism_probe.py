@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Which operation makes the port's float32 training differ between runs?
 One train-step gradient of a configuration at batch 256 (``--config``:
-``scripts/torch_quality_run.py``'s shapes32, or the flagship of
-``models/cvnet.py::flagship_config``), computed ``--repeats`` times from
+``scripts/torch_quality_run.py``'s shapes32, the flagship of
+``models/cvnet.py::flagship_config``, or that flagship with a resnet18
+trunk, ``chip_smoke.py``'s ResNet flagship), computed ``--repeats`` times from
 one state, one batch and one noise seed on the CUDA card; prints one JSON
 line: the parameters whose gradient differs between the repeats (in the
 model's order: a difference in a layer's data gradient reaches every
@@ -11,6 +12,7 @@ of each gradient to compare two processes, and the warnings PyTorch gave.
 
     python scripts/torch_determinism_probe.py                    # the port's defaults
     python scripts/torch_determinism_probe.py --config flagship
+    python scripts/torch_determinism_probe.py --config resnet
     python scripts/torch_determinism_probe.py --mode cudnn       # cudnn.deterministic
     python scripts/torch_determinism_probe.py --mode deterministic
     python scripts/torch_determinism_probe.py --dtype bfloat16
@@ -24,6 +26,7 @@ process each) is the one probed; the JSON line names its checkout.
 """
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -58,7 +61,7 @@ def main(argv=None):
     p.add_argument('--dtype', default='float32',
                    choices=['float32', 'bfloat16'])
     p.add_argument('--config', default='shapes32',
-                   choices=['shapes32', 'flagship'])
+                   choices=['shapes32', 'flagship', 'resnet'])
     p.add_argument('--repeats', type=int, default=4)
     args = p.parse_args(argv)
     import joint_vae_tpu_torch
@@ -72,8 +75,10 @@ def main(argv=None):
         torch.backends.cudnn.deterministic = True
     elif args.mode == 'deterministic':
         torch.use_deterministic_algorithms(True, warn_only=True)
-    cfg = (flagship_config(compute_dtype=args.dtype)
-           if args.config == 'flagship' else config(args.dtype))
+    cfg = (config(args.dtype) if args.config == 'shapes32'
+           else flagship_config(compute_dtype=args.dtype))
+    if args.config == 'resnet':
+        cfg = dataclasses.replace(cfg, features='resnet18')
     job = new_job(cfg, seed=0)
     g = torch.Generator().manual_seed(0)
     x = torch.rand((BATCH,) + job.model_cfg.input_shape, generator=g).cuda()

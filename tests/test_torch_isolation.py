@@ -1,8 +1,11 @@
 """The port stands alone: no module of ``joint_vae_tpu_torch``, nothing in
 ``chip_smoke.py``, nothing in the card-only kernel tests, nothing in
-the reference-layout writer and the stub reference checkout that
-``chip_smoke.py`` shares with the tests (``tests/torch_reference_layout.py``,
-``tests/torch_reference_stub.py``) and nothing in the port's quality run
+the reference-layout writer, the stub reference checkout and the choices
+recorder that ``chip_smoke.py`` shares with the tests
+(``tests/torch_reference_layout.py``, ``tests/torch_reference_stub.py``,
+``tests/torch_choices.py``), nothing in the trunk's gradient scripts
+(``scripts/time_torch_trunk_grads.py``, ``torch_trunk_gate_spread.py``)
+and nothing in the port's quality run
 (``scripts/torch_quality_run.py``), its conv timer
 (``scripts/time_torch_conv.py``) or its evidence scripts
 (``scripts/torch_wim_quality.py``, ``torch_wim_study.py``,
@@ -46,6 +49,9 @@ def _port_sources():
            os.path.join(ROOT, 'tests', 'test_torch_graphs_cuda.py'),
            os.path.join(ROOT, 'tests', 'torch_reference_layout.py'),
            os.path.join(ROOT, 'tests', 'torch_reference_stub.py'),
+           os.path.join(ROOT, 'tests', 'torch_choices.py'),
+           os.path.join(ROOT, 'scripts', 'time_torch_trunk_grads.py'),
+           os.path.join(ROOT, 'scripts', 'torch_trunk_gate_spread.py'),
            os.path.join(ROOT, 'scripts', 'torch_quality_run.py'),
            os.path.join(ROOT, 'scripts', 'time_torch_conv.py')]
     out += [os.path.join(ROOT, 'scripts', f) for f in EVIDENCE_SCRIPTS]
@@ -77,7 +83,7 @@ def test_clean_import_loads_no_jax():
     code = ('import sys; sys.path.insert(0, {root!r}); '
             'sys.path.insert(0, {tests!r}); '
             'import chip_smoke, torch_reference_layout, '
-            'torch_reference_stub, '
+            'torch_reference_stub, torch_choices, '
             'joint_vae_tpu_torch.serve, '
             'joint_vae_tpu_torch.cli.serve, joint_vae_tpu_torch.save_load.jobs, '
             'joint_vae_tpu_torch.train.trainer, joint_vae_tpu_torch.cli.test, '

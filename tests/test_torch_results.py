@@ -17,7 +17,7 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
-from hypothesis import HealthCheck, given, settings, strategies as st
+from hypothesis import HealthCheck, example, given, settings, strategies as st
 
 from joint_vae_tpu.results import tables as jtables
 from joint_vae_tpu.results import texify as jtexify
@@ -171,6 +171,7 @@ def test_results_dataframe_matches_pandas(tmp_path, models, sort, tpr, tnr,
     st.none(), st.floats(allow_nan=True, allow_infinity=False, width=64),
     st.integers(-5, 5), st.booleans(), st.sampled_from(['a', 'b c', '"q"'])),
     min_size=1, max_size=6))
+@example(values=[None, float('nan')])   # missing cells only, one a NaN
 def test_column_kinds_and_csv_follow_pandas(tmp_path, values):
     """One column of mixed cells: its kind, iteration values and csv
     bytes as pandas infers and writes them."""
