@@ -177,7 +177,11 @@ and phase 15 counts them on the card in profiled replays.
    ``load_job`` with the BatchNorm statistics compared exactly, 6 forward
    and 6 dx launches per step and 6 forward per eval batch, 10 timed
    steps and one profiled, the trunk's cuDNN time apart from the conv
-   kernel's; the training gate at batch 64),
+   kernel's; the training gate at batch 64, the trunk convs' weight
+   gradients at TRUNK_WGRAD_TOL, every other gradient at 1e-4),
+   the float32 step repeated: 2 graphed steps of 1024 from one state,
+   batch and noise, run twice, every gradient, tensor and metric
+   bit-equal (``float32_repeat``),
    card against CPU on 8 inputs (every loss and score at
    the serving tolerance), ``Scorer`` on 4 batches of 512 at L=16 (6 conv
    and 1 combine launches per batch); ``resnet50`` and ``densenet121`` at
@@ -263,14 +267,24 @@ and phase 15 counts them on the card in profiled replays.
    against this process's one-process card run (AUCs equal, means within
    rtol 1e-6), then 4 steps of 1024 at ``model_axis=2``, deterministic
    as in (a) (the losses within 1e-5 relative, or the spread as in (a));
-   each rank's launches of each run counted (per eager or captured step
-   and batch), both kernels held against their plain versions on each
-   rank at a rank's shapes, and all_reduce, all_gather, broadcast and
-   barrier on the card's tensors over gloo (``mesh_gloo`` line; two
-   processes share the card, so its times are no speed figure).  (c) The
-   same over NCCL with one rank per card, graphed, each capture holding
-   NCCL kernel nodes, when the machine has two cards or more, else one
-   line saying that it waits for such a machine (``mesh_nccl`` line);
+   then imagenet64 (a new job, seed 0: C=1000, K=256, its prior and
+   class head split over 'model', 500 classes a rank) the same way:
+   ``ood_detection_rates`` at ``model_axis=2`` on a test and an OOD set
+   of 2,048 synthetic 3x64x64 images at batch 256, L=16 (the combine on
+   (500, N)), and 2 steps of 256, each held to this process's
+   one-process card run as the flagship's; each rank's launches of each
+   run counted (per eager or captured step and batch: 8 conv and 1
+   combine a flagship batch, 18 and 1 an imagenet64 batch, 8 forward and
+   7 dx a flagship step, 18 and 17 an imagenet64 step), both kernels
+   held against their plain versions on each rank at a rank's shapes of
+   both geometries (imagenet64's combine at C=500, K=256, L=16, N=256;
+   its 5x5 head at the OOD batch's and the step's decode), and
+   all_reduce, all_gather, broadcast and barrier on the card's tensors
+   over gloo (``mesh_gloo`` line; two processes share the card, so its
+   times are no speed figure).  (c) The same, imagenet64 included, over
+   NCCL with one rank per card, graphed, each capture holding NCCL
+   kernel nodes, when the machine has two cards or more, else one line
+   saying that it waits for such a machine (``mesh_nccl`` line);
 13. export to moxime/joint-vae's job layout (the export slice): a stub
    reference checkout written by ``tests/torch_reference_stub.py`` (the
    reference's ``cvae.py``, ``module/vae_layers/conv.py`` with its
@@ -473,14 +487,21 @@ gradient zero to rounding would move a weight 2 lr apart on the two
 devices.  From the same gradient the card's parameter update lies
 within OPT_TOL = 1e-5 (|cpu| + rms(cpu)) of the CPU's beyond one float32
 ulp of the parameter, and Adam's second moment within 1e-5 in the
-gradients' form.  The ResNet flagship's trunk convs are the exception:
-cuDNN computes their float32 weight gradients, which lie up to 2.46e-4
-from float64 at resnet18's stage-3 3x3 convs (2x2 maps) where the CPU's
-float32 lies within 1.4e-5 (``scripts/time_torch_trunk_grads.py``,
-inference mode, no choice involved; ROADMAP Queue 2 item 9).  In the
-gate they read 1.046e-4 to 1.295e-4 over 5 seeds and 3 repeats
-(``scripts/torch_trunk_gate_spread.py``), so those 20 tensors'
-gradients are held at TRUNK_WGRAD_TOL = 2.6e-4, twice the worst.
+gradients' form.  The ResNet flagship's 20 trunk conv weight gradients
+are the exception, held at TRUNK_WGRAD_TOL = 2.6e-4: on the card they are
+an im2col product summed in float32 (``models/conv.py::
+DeterministicConvFn``), which lies within 1.95e-5 of float64 in
+inference mode where cuDNN's wgrad lay 2.29e-4 away
+(``scripts/time_torch_trunk_grads.py``), yet in training mode the float32
+program itself lies about 1e-4 from float64 at the last stages, on the
+card as on the CPU (1.05e-4 and 1.04e-4 there): training-mode BatchNorm
+over the batch's values at 1x1 maps leaves each conv's weight gradient
+orthogonal to its weight, so the float32 roundings of every op around
+it (the convs, BatchNorm's moments and backward) carry into it; with
+those ops in float64 it lies within 1.5e-5 (``--cpu-only``).  The gate
+reads them at 1.055e-4 to 1.333e-4 over 5 seeds, every repeat of a seed
+the same to the last digit (``scripts/torch_trunk_gate_spread.py``);
+each step names its worst tensor.
 
 Phase 10's ResNet flagship trains at batch 64 (batch statistics over 8
 values at the trunk's 1x1 maps make a step chaotic,
@@ -545,13 +566,14 @@ BN_STATS_RTOL = 1e-5
 # the card's Adam update and second moment against the same optimizer on
 # the card's gradient in float64 (float32 rounds each of its few ops)
 OPT_TOL = 1e-5
-# the ResNet flagship's trunk convs' weight gradients (cuDNN's float32
-# wgrad) in phase 10's gate: 1.046e-4 to 1.295e-4 over 5 seeds x 3
-# repeats on an H100 (scripts/torch_trunk_gate_spread.py); held to twice
-# the worst
+# the ResNet flagship's trunk conv weight gradients in phase 10's gate: the
+# float32 program's own distance from float64 at training-mode BatchNorm's
+# 1x1 maps (the module docstring), 1.055e-4 to 1.333e-4 over 5 seeds on an
+# H100 (scripts/torch_trunk_gate_spread.py); held to about twice the worst
 TRUNK_WGRAD_TOL = 2.6e-4
-# the backward spans of SameGridConvFn (record_function)
-SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw')
+# the backward spans of SameGridConvFn and of the trunk convs' im2col dw
+# (record_function)
+SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw', 'trunk_conv_dw')
 PROFILE_GAP_S = 0.05     # the card idle around a profiled step
 METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
 # phase 6: the flagship's test set and three same-size companions, as
@@ -1383,7 +1405,7 @@ def _bucket(name: str) -> str:
 def profile_train_step(step, state, xb, yb) -> dict:
     """Device time of one train step by kernel (torch.profiler): each
     kernel launched by an operator is given to the backward span it ran
-    in (SPANS: the same-grid dx and dw) or else to a group by its name —
+    in (SPANS: the same-grid dx and dw, the trunk convs' dw) or else to a group by its name —
     the same-grid kernel, cuDNN (the strided convs, both directions),
     cuBLAS, the optimizer's foreach kernels, copies, the rest (elementwise
     and reductions); the busy share; and the host's time by operator.
@@ -1472,20 +1494,21 @@ def _ratio(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_close(card: dict, cpu: dict, tol: float, what: str,
-                cudnn_wgrad=()) -> dict:
+                apart=(), apart_tol: float = None) -> dict:
     """Each tensor of the card's against the float64 CPU's, elementwise
-    |card - cpu| <= tol (|cpu| + rms(cpu)), TRUNK_WGRAD_TOL for the tensors
-    named in ``cudnn_wgrad`` (raises otherwise).  Returns the worst ratio
-    over every tensor, over those held to ``tol`` and over
-    ``cudnn_wgrad``."""
-    worst = {'worst': 0.0, 'worst_at_tol': 0.0, 'worst_trunk_wgrad': 0.0}
+    |card - cpu| <= tol (|cpu| + rms(cpu)), ``apart_tol`` for the tensors
+    named in ``apart`` (raises otherwise).  Returns the worst ratio over
+    every tensor, over ``apart`` and over the rest, and the worst
+    tensor's name."""
+    worst = {'worst': 0.0, 'worst_apart': 0.0, 'worst_rest': 0.0,
+             'worst_name': None}
     for k, want in cpu.items():
         r = _ratio(card[k], want)
-        trunk = k in cudnn_wgrad
-        part = 'worst_trunk_wgrad' if trunk else 'worst_at_tol'
-        worst['worst'], worst[part] = max(worst['worst'], r), max(worst[part],
-                                                                  r)
-        bound = TRUNK_WGRAD_TOL if trunk else tol
+        part = 'worst_apart' if k in apart else 'worst_rest'
+        if r > worst['worst']:
+            worst['worst'], worst['worst_name'] = r, k
+        worst[part] = max(worst[part], r)
+        bound = apart_tol if k in apart else tol
         if not r <= bound:
             raise AssertionError('card vs CPU {} {}: {} beyond {}'.format(
                 what, k, r, bound))
@@ -1514,10 +1537,9 @@ def check_update(after: dict, cpu_after: dict, before: dict,
     return worst
 
 
-def cudnn_wgrad_names(model) -> set:
-    """The parameters whose gradient cuDNN's float32 weight gradient
-    computes unaided: the trunk convs' (``models/resnet.py::TrunkConv``,
-    ``F.conv2d`` under autograd)."""
+def trunk_conv_weights(model) -> set:
+    """The trunk convs' weights (``models/resnet.py::TrunkConv``), whose
+    gradients the gate holds at TRUNK_WGRAD_TOL."""
     from joint_vae_tpu_torch.models.resnet import TrunkConv
     return {n + '.weight' for n, m in model.named_modules()
             if isinstance(m, TrunkConv)}
@@ -1603,7 +1625,7 @@ class CardGradient:
 
 
 def step_gate(record, card_step, cpu_step, card, twin, feed: CardGradient,
-              what: str, wgrad=()) -> dict:
+              what: str, apart=()) -> dict:
     """One step of a training gate (the module docstring's form).  Loads
     the card's train state ``card`` into the CPU's float64 ``twin``; runs
     ``record()``, the program's own forward and gradient on the card's
@@ -1613,7 +1635,8 @@ def step_gate(record, card_step, cpu_step, card, twin, feed: CardGradient,
     optimizer fed the card's gradient of the step (read from Adam's first
     moment).  Holds the recording's loss to the card step's bit for bit,
     the step's gradient, loss, parameter update, Adam's second moment,
-    BatchNorm statistics and sigma state, and the flips."""
+    BatchNorm statistics and sigma state, and the flips; the gradients
+    of ``apart`` at TRUNK_WGRAD_TOL."""
     tc = _torch_choices()
     load_state(twin, card)
     before = {k: v.detach().clone() for k, v in
@@ -1640,7 +1663,8 @@ def step_gate(record, card_step, cpu_step, card, twin, feed: CardGradient,
         'loss_cuda': m_card['total'], 'loss_cpu': m_cpu['total'],
         'loss_rel_err': max(loss_err.values()),
         'grad_err_over_abs_plus_rms': check_close(
-            feed.card, feed.seen, GRAD_TOL, what + ' gradient', wgrad),
+            feed.card, feed.seen, GRAD_TOL, what + ' gradient', apart,
+            TRUNK_WGRAD_TOL),
         'update_err_over_abs_plus_rms': check_update(
             dict(card.model.named_parameters()),
             dict(twin.model.named_parameters()), before, what),
@@ -1667,9 +1691,11 @@ def gate_summary(rows: list) -> dict:
     def worst(key, part=None):
         return max(r[key][part] if part else r[key] for r in rows)
     return {
-        'grad_worst': worst('grad_err_over_abs_plus_rms', 'worst_at_tol'),
-        'grad_worst_trunk_wgrad': worst('grad_err_over_abs_plus_rms',
-                                        'worst_trunk_wgrad'),
+        'grad_worst': worst('grad_err_over_abs_plus_rms', 'worst_rest'),
+        'grad_worst_trunk_conv_weights': worst('grad_err_over_abs_plus_rms',
+                                               'worst_apart'),
+        'grad_worst_tensors': [r['grad_err_over_abs_plus_rms']['worst_name']
+                               for r in rows],
         'loss_worst_rel_err': worst('loss_rel_err'),
         'update_worst': worst('update_err_over_abs_plus_rms'),
         'nu_worst': worst('nu_err_over_abs_plus_rms'),
@@ -1709,7 +1735,7 @@ def train_gate(cfg, batch: int = GATE_BATCH, seeds: tuple = (1, 5)) -> dict:
     rec_step = make_train_step(scratch.model, opt, graphed=False)
     cpu_step = make_train_step(twin.model, opt, graphed=False)
     cpu_step.tx = feed = CardGradient(cpu_step.tx)
-    wgrad = cudnn_wgrad_names(card.model)
+    trunk = trunk_conv_weights(card.model)
 
     def record():
         load_state(scratch, card)
@@ -1718,11 +1744,11 @@ def train_gate(cfg, batch: int = GATE_BATCH, seeds: tuple = (1, 5)) -> dict:
         record,
         lambda: card_step(card, *data['cuda'][:2], eps=data['cuda'][2])[1],
         lambda: cpu_step(twin, *data['cpu'][:2], eps=data['cpu'][2])[1],
-        card, twin, feed, 'step {}'.format(i), wgrad)
+        card, twin, feed, 'step {}'.format(i), trunk)
         for i in range(GATE_STEPS)]
     res = {'batch': batch, 'steps': GATE_STEPS, 'seeds': list(seeds),
            'reference': 'CPU float64', 'tensors': len(feed.seen),
-           'trunk_wgrad_tensors': len(wgrad),
+           'trunk_conv_weights': len(trunk),
            'bn_stats': len(_bn_stats(card.model)), 'rows': rows}
     res.update(gate_summary(rows))
     return res
@@ -3552,6 +3578,7 @@ RESNET_SITES, RESNET_DX = 6, 6
 # batch statistics over 8 values at the trunk's 1x1 maps make a training
 # step chaotic in float32 (tests/test_torch_resnet.py); the gate takes 64
 RESNET_GATE_BATCH = 64
+RESNET_REPEAT_STEPS = 2          # float32 steps run twice from one state
 TRUNK_ARCHS = ('resnet50', 'densenet121')
 DRIVER_SETS = ('cifar10', 'svhn', 'lsunc')     # phase 6's OOD sets
 
@@ -3564,6 +3591,60 @@ def resnet_config():
 def _sites(cfg) -> int:
     """Same-grid launches of one evaluate of a flagship-shaped model."""
     return RESNET_SITES if cfg.features.startswith('resnet') else SITES_PER_BATCH
+
+
+def resnet_repeat_bits(cfg, batch: int = TRAIN_BATCH) -> dict:
+    """The ResNet flagship's float32 train step repeated: RESNET_REPEAT_STEPS
+    graphed host-fed steps of ``batch`` from one state (``new_job`` seed 4),
+    one batch stream and the job's noise, run twice in this process under
+    the port's defaults; each step's gradient (Adam's first moment holds
+    it) and every tensor of :func:`_run_tensors` and metric bit-equal
+    (the trunk convs' deterministic dx and im2col dw,
+    ``models/conv.py::DeterministicConvFn``)."""
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.optimizers import OptimizerConfig
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    rng = np.random.default_rng(13)
+    xs = rng.uniform(0, 1, (RESNET_REPEAT_STEPS, batch) + cfg.input_shape
+                     ).astype(np.float32)
+    ys = rng.integers(0, cfg.num_labels, (RESNET_REPEAT_STEPS, batch))
+    dev = torch.device('cuda')
+    runs = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        job = new_job(cfg, OptimizerConfig(lr=TRAIN_LR), seed=4)
+        step = make_train_step(job.model, job.opt_cfg)
+        st, ms, grads = job.state, [], []
+        for i in range(RESNET_REPEAT_STEPS):
+            st, m = step(st, to_device(xs[i], dev), to_device(ys[i], dev))
+            ms.append(m.vector)
+            grads.append({k: v.detach().cpu() for k, v in
+                          st.opt_state.mu.items()})
+        torch.cuda.synchronize()
+        runs.append({'metrics': torch.stack(ms).cpu(), 'grads': grads,
+                     'tensors': {k: v.detach().cpu()
+                                 for k, v in _run_tensors(job).items()}})
+        del job, step, st
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError('cuDNN\'s deterministic switch was left on')
+    a, b = runs
+    diff = ['step {} gradient {}'.format(i, k)
+            for i, (ga, gb) in enumerate(zip(a['grads'], b['grads']))
+            for k in ga if not torch.equal(ga[k], gb[k])]
+    diff += [k for k in a['tensors'] if not torch.equal(a['tensors'][k],
+                                                        b['tensors'][k])]
+    if not torch.equal(a['metrics'], b['metrics']):
+        diff.append('metrics')
+    if diff:
+        raise AssertionError('ResNet flagship float32 steps do not repeat: '
+                             '{} differ, first {}'.format(len(diff),
+                                                          diff[:8]))
+    return {'batch': batch, 'steps': RESNET_REPEAT_STEPS,
+            'gradients_equal': sum(len(g) for g in a['grads']),
+            'tensors_equal': len(a['tensors']),
+            'metrics_equal': int(a['metrics'].numel()),
+            'seconds': time.perf_counter() - t0}
 
 
 def resnet_serve_gate(job_dir: str) -> dict:
@@ -3904,6 +3985,7 @@ def trunks_and_drivers(card: str) -> tuple:
     train_launches, summary, job = train(
         card, cfg=cfg, sites=RESNET_SITES, dx=RESNET_DX, name='resnet_train',
         gate_batch=RESNET_GATE_BATCH)
+    repeat = resnet_repeat_bits(cfg)
     resnet_dir = os.path.join(WORK, 'resnet_train_job')
     serve_gate = resnet_serve_gate(resnet_dir)
     serve = resnet_scorer(job)
@@ -3925,7 +4007,7 @@ def trunks_and_drivers(card: str) -> tuple:
               'launches_serve': serve['launches'],
               'serve_card_vs_cpu_worst_rel': max(serve_gate.values()),
               'train_card_vs_cpu': summary['card_vs_cpu'],
-              'trunks': trunks, 'card': card}
+              'float32_repeat': repeat, 'trunks': trunks, 'card': card}
     print('resnet', json.dumps(resnet), flush=True)
     phase_s = time.perf_counter() - t_phase
     line = {'phase_seconds': phase_s, 'test_set': OOD_SET_SIZE,
@@ -4447,6 +4529,14 @@ MESH_NOISE_SEED = 5
 MESH_RANK_TIMEOUT = 420          # seconds, each spawned rank
 MESH_RUNS = ({'name': 'model2', 'model_axis': 2},
              {'name': 'sample2', 'sample_axis': 2})
+# (b)/(c)'s imagenet64 pair (C=1000, K=256 at model 2: a rank's combine on
+# (500, N)): a test and an OOD set of MESH_IM64_SET synthetic images at
+# batch 256, L=16, then MESH_IM64_STEPS steps of 256
+MESH_IM64_SET, MESH_IM64_BATCH, MESH_IM64_STEPS = 2048, 256, 2
+MESH_IM64_RUNS = ({'name': 'im64_model2', 'model_axis': 2,
+                   'geometry': 'imagenet64'},
+                  {'name': 'im64_steps2', 'model_axis': 2,
+                   'steps': MESH_IM64_STEPS, 'geometry': 'imagenet64'})
 MESH_GRAPH_SET = 2 * OOD_BATCH + 272   # (a)'s graphed OOD: two batches, a tail
 MESH_TURNS = ('eager', 'graph', 'plain_graph', 'plain_graph', 'graph',
               'eager')
@@ -4897,8 +4987,8 @@ def _mesh_ood(job, testset, ood, batch, device, mesh=None, graphed=None):
 
 
 def _mesh_steps(job, trainset, device, mesh=None, batch=MESH_BATCH,
-                captures=None):
-    """MESH_STEPS steps of the flagship on the first batches of
+                captures=None, steps: int = MESH_STEPS):
+    """``steps`` steps of the job's model on the first batches of
     ``trainset``; each rank feeds its rows (all of them on the 'model'
     axis).  Graphed by default (``train/graphs.py::graph_mode``: eager
     over gloo on the card); ``captures`` gets the step graph's capture
@@ -4907,7 +4997,7 @@ def _mesh_steps(job, trainset, device, mesh=None, batch=MESH_BATCH,
     from joint_vae_tpu_torch.train.steps import make_train_step
     step = make_train_step(job.model, job.opt_cfg, mesh=mesh)
     out = []
-    for i in range(MESH_STEPS):
+    for i in range(steps):
         x, y = trainset[i * batch:(i + 1) * batch]
         if mesh is None:
             xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
@@ -4919,6 +5009,21 @@ def _mesh_steps(job, trainset, device, mesh=None, batch=MESH_BATCH,
     if captures is not None:
         captures.extend(step.graph.captures)
     return out
+
+
+def _im64_mesh_sets():
+    """(b)/(c)'s imagenet64 sets: a test set and an OOD set of
+    MESH_IM64_SET synthetic 3x64x64 images, from one numpy seed (the same
+    in every process)."""
+    from joint_vae_tpu_torch.data.loaders import ArrayDataset
+    from joint_vae_tpu_torch.models.cvnet import imagenet64_config
+    cfg = imagenet64_config()
+    rng = np.random.default_rng(29)
+    shape = (MESH_IM64_SET,) + cfg.input_shape
+    return tuple(ArrayDataset(
+        (scale * rng.uniform(0, 1, shape)).astype(np.float32),
+        rng.integers(0, cfg.num_labels, MESH_IM64_SET), name, synthetic=True)
+        for name, scale in (('im64_mesh_test', 1.0), ('im64_mesh_ood', 0.3)))
 
 
 def mesh_rank(argv):
@@ -4942,12 +5047,16 @@ def mesh_rank(argv):
         set_float32_math()
         device = 'cuda:{}'.format(torch.cuda.current_device())
     out = {'rank': rank, 'device': device, 'runs': {}}
-    testset, ood = _mesh_sets(spec.get('size'))
+    sets = {'flagship': _mesh_sets(spec.get('size')),
+            'imagenet64': _im64_mesh_sets()}
+    geometry = {'flagship': spec, 'imagenet64': spec['im64']}
     for run in spec['runs']:
+        geo = geometry[run.get('geometry', 'flagship')]
+        testset, ood = sets[run.get('geometry', 'flagship')]
         mesh = make_mesh(model_axis=run.get('model_axis', 1),
                          sample_axis=run.get('sample_axis', 1),
                          device=device)
-        job = load_job(spec['job_dir'], device=device)
+        job = load_job(geo['job_dir'], device=device)
         job.state = ensure_placed(job.state, mesh)
         _count_reset()
         t = time.perf_counter()
@@ -4955,9 +5064,10 @@ def mesh_rank(argv):
         if run.get('steps'):
             with _deterministic():
                 got = _mesh_steps(job, testset, device, mesh,
-                                  spec['step_batch'], captures=caps)
+                                  geo['step_batch'], captures=caps,
+                                  steps=run['steps'])
         else:
-            got = _mesh_ood(job, testset, ood, spec['batch'], device, mesh)
+            got = _mesh_ood(job, testset, ood, geo['batch'], device, mesh)
             caps = [c for g in held_score_graphs(job).values()
                     for c in g.captures]
         if device.startswith('cuda'):
@@ -4968,6 +5078,9 @@ def mesh_rank(argv):
             'graphed': graph_mode(None, mesh),
             'captures': [_nccl_nodes(c) for c in caps],
             'result': got, 'coords': mesh.coords}
+        del job, caps
+        if device.startswith('cuda'):
+            torch.cuda.empty_cache()
     # the four collectives the port uses, on this device's tensors
     mesh = make_mesh(model_axis=spec['world'], device=device)
     g = mesh.group('model')
@@ -4988,6 +5101,8 @@ def mesh_rank(argv):
     if device.startswith('cuda'):
         out['kernels'] = mesh_kernel_checks(rank, spec['world'],
                                             spec['step_batch'])
+        out['kernels']['imagenet64'] = mesh_im64_kernel_checks(
+            spec['world'], spec['im64'])
     with open(os.path.join(spec['out'], 'rank-{}.json'.format(rank)),
               'w') as f:
         json.dump(out, f)
@@ -4995,37 +5110,32 @@ def mesh_rank(argv):
     dist.destroy_process_group()
 
 
-def mesh_kernel_checks(rank: int, parts: int, step_batch: int) -> dict:
+def _rank_kernel_checks(cfg, batch: int, parts: int, decodes: dict,
+                        seed: int) -> dict:
     """Both kernels on this rank against their plain versions at the
-    shapes a rank of the mesh gives them: the combine on a block of
-    C / parts classes (L=16, N=512, K=128); the conv at the decoder's
-    last same-grid site at each batch this rank decodes: all L samples
-    on the 'model' axis, its block of the L+1 samples less the mean one
-    on the 'sample' axis (``mesh.py::sample_blocks``), and the train
-    step's L=1 decode of its rows."""
-    from joint_vae_tpu_torch.models.cvnet import CVNet, flagship_config
+    shapes a rank of a model axis of ``parts`` gives them for ``cfg``: the
+    combine on a block of C / parts classes (test L, N = ``batch``, K);
+    the conv at the decoder's last same-grid site at each batch this rank
+    decodes (``decodes``: name -> images)."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet
     from joint_vae_tpu_torch.ops.iws import iws_combine, iws_combine_plain
     from joint_vae_tpu_torch.ops.same_grid_conv import (same_grid_conv,
                                                         same_grid_conv_plain)
-    from joint_vae_tpu_torch.parallel.mesh import sample_blocks
-    g = torch.Generator(device='cuda').manual_seed(11)
-    args, _ = iws_inputs(16, OOD_BATCH, 100 // parts, 128, g, mean_scale=17)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    shape = [cfg.test_latent_sampling, batch, cfg.num_labels // parts,
+             cfg.latent_dim]
+    args, _ = iws_inputs(*shape, g, mean_scale=17)
     got = iws_combine(*args)
     want = iws_combine_plain(*args)
     iws_err = (got - want).abs().max().item()
     if not torch.all((got - want).abs() <= IWS_ATOL + IWS_RTOL * want.abs()):
         raise AssertionError('iws_combine on a class block: {}'.format(
             iws_err))
-    cfg = flagship_config()
-    L = cfg.test_latent_sampling
-    a, b = sample_blocks(L + 1, parts)[rank]
-    decodes = {'model': L * OOD_BATCH,
-               'sample': (max(b, 1) - max(a, 1)) * OOD_BATCH,
-               'steps': cfg.latent_sampling * step_batch}
+    del args, got, want
     model = CVNet(cfg)
     tol = CONV_TOL[torch.float32]
     conv = {}
-    for axis, n in decodes.items():
+    for what, n in decodes.items():
         site = same_grid_sites(model, n, 1)[-1]
         x, _, kd = site_inputs(site, torch.float32, g)
         got = same_grid_conv(x, kd, site['lo'], site['lo'])
@@ -5034,18 +5144,46 @@ def mesh_kernel_checks(rank: int, parts: int, step_batch: int) -> dict:
         if not torch.all((got - want).abs() <= tol * (
                 want.abs() + want.square().mean().sqrt())):
             raise AssertionError('same_grid_conv at n={}: {}'.format(n, err))
-        conv[axis] = {'max_abs_err': err, 'site': site['site'], 'n': n}
+        conv[what] = {'max_abs_err': err, 'site': site['site'], 'n': n}
         del x, kd, got, want
-    return {'iws_combine': {'max_abs_err': iws_err,
-                            'shape': [16, OOD_BATCH, 100 // parts, 128]},
+    torch.cuda.empty_cache()
+    return {'iws_combine': {'max_abs_err': iws_err, 'shape': shape},
             'same_grid_conv': conv}
 
 
-def mesh_ranks(backend: str, world: int, job_dir: str, device: str = 'cuda',
-               size=None, batch: int = OOD_BATCH,
+def mesh_kernel_checks(rank: int, parts: int, step_batch: int) -> dict:
+    """:func:`_rank_kernel_checks` for the flagship (L=16, N=512, K=128):
+    the decodes of all L samples on the 'model' axis, of its block of the
+    L+1 samples less the mean one on the 'sample' axis
+    (``mesh.py::sample_blocks``), and of the train step's L=1 rows."""
+    from joint_vae_tpu_torch.models.cvnet import flagship_config
+    from joint_vae_tpu_torch.parallel.mesh import sample_blocks
+    cfg = flagship_config()
+    L = cfg.test_latent_sampling
+    a, b = sample_blocks(L + 1, parts)[rank]
+    return _rank_kernel_checks(cfg, OOD_BATCH, parts, {
+        'model': L * OOD_BATCH,
+        'sample': (max(b, 1) - max(a, 1)) * OOD_BATCH,
+        'steps': cfg.latent_sampling * step_batch}, 11)
+
+
+def mesh_im64_kernel_checks(parts: int, im64: dict) -> dict:
+    """:func:`_rank_kernel_checks` for imagenet64's runs (L=16, N at the
+    OOD batch, K=256, C=500 a rank at model 2): its last same-grid site,
+    the 5x5 head, at the OOD batch's decode and at the step's."""
+    from joint_vae_tpu_torch.models.cvnet import imagenet64_config
+    cfg = imagenet64_config()
+    return _rank_kernel_checks(cfg, im64['batch'], parts, {
+        'ood': cfg.test_latent_sampling * im64['batch'],
+        'steps': cfg.latent_sampling * im64['step_batch']}, 12)
+
+
+def mesh_ranks(backend: str, world: int, job_dir: str, im64_dir: str,
+               device: str = 'cuda', size=None, batch: int = OOD_BATCH,
                step_batch: int = MESH_BATCH) -> list:
     """Spawn the ranks of (b)/(c), each under its own time limit; a rank
-    that fails or hangs fails the phase."""
+    that fails or hangs fails the phase.  ``job_dir``: the flagship's job,
+    ``im64_dir``: the imagenet64 job of the MESH_IM64_RUNS."""
     out = os.path.join(WORK, 'mesh_{}'.format(backend))
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -5053,7 +5191,10 @@ def mesh_ranks(backend: str, world: int, job_dir: str, device: str = 'cuda',
             'device': device, 'job_dir': job_dir, 'out': out, 'size': size,
             'batch': batch, 'step_batch': step_batch,
             'runs': list(MESH_RUNS) + [{'name': 'steps2', 'model_axis': 2,
-                                        'steps': MESH_STEPS}]}
+                                        'steps': MESH_STEPS}]
+            + list(MESH_IM64_RUNS),
+            'im64': {'job_dir': im64_dir, 'batch': MESH_IM64_BATCH,
+                     'step_batch': MESH_IM64_BATCH}}
     path = os.path.join(out, 'spec.json')
     with open(path, 'w') as f:
         json.dump(spec, f)
@@ -5090,52 +5231,52 @@ def mesh_ranks(backend: str, world: int, job_dir: str, device: str = 'cuda',
     return res
 
 
-def mesh_check_ranks(ranks, ref_ood, ref_steps, cfg, n_batches,
-                     what) -> dict:
-    """Each rank's runs against the one-process card run: OOD AUCs equal
+def mesh_check_ranks(ranks, refs: dict, what) -> dict:
+    """Each rank's runs against the one-process card runs ``refs`` of their
+    geometry (``_mesh_refs``: 'flagship' and 'imagenet64'): OOD AUCs equal
     and means within MESH_MEAN_RTOL, the steps' losses within
-    MESH_STEP_RTOL (``_steps_gate``; ``ref_steps`` holds the one-process
-    steps twice), the launches of each run (per eager or captured step
-    and batch: graphed over NCCL, eager over gloo on the card)."""
-    worst = {'mean_rel': 0.0, 'step_rel': 0.0, 'step_rel_all': 0.0,
-             'plain_spread_all': 0.0}
+    MESH_STEP_RTOL (``_steps_gate``; a ref holds its one-process steps
+    twice), the launches of each run (per eager or captured step and
+    batch: graphed over NCCL, eager over gloo on the card).  Returns the
+    worst readings by geometry."""
+    worst = {g: {'mean_rel': 0.0, 'step_rel': 0.0, 'step_rel_all': 0.0,
+                 'plain_spread_all': 0.0} for g in refs}
     for r in ranks:
         if not all(r['collectives'].values()):
             raise AssertionError('{} rank {} collectives: {}'.format(
                 what, r['rank'], r['collectives']))
         for name, run in r['runs'].items():
-            if name == 'steps2':
-                g = _steps_gate(run['result'], ref_steps[0], ref_steps[1],
-                                cfg, MESH_STEP_RTOL,
-                                '{} rank {} {}'.format(what, r['rank'], name))
-                worst['step_rel'] = max(worst['step_rel'], g['max_rel_err'])
-                worst['step_rel_all'] = max(worst['step_rel_all'],
-                                            g['max_rel_err_all'])
-                worst['plain_spread_all'] = g['plain_spread_all']
-                want = _want(_body_steps(MESH_STEPS, '{} rank {} {}'.format(
-                    what, r['rank'], name), run['steps_run']))
+            geo = 'imagenet64' if name.startswith('im64_') else 'flagship'
+            ref, w = refs[geo], worst[geo]
+            tag = '{} rank {} {}'.format(what, r['rank'], name)
+            if name.endswith('steps2'):
+                g = _steps_gate(run['result'], ref['steps'][0],
+                                ref['steps'][1], ref['cfg'], MESH_STEP_RTOL,
+                                tag)
+                w['step_rel'] = max(w['step_rel'], g['max_rel_err'])
+                w['step_rel_all'] = max(w['step_rel_all'],
+                                        g['max_rel_err_all'])
+                w['plain_spread_all'] = g['plain_spread_all']
+                want = ref['want'](_body_steps(ref['n_steps'], tag,
+                                               run['steps_run']))
             else:
-                got = run['result'][MESH_OOD]
-                for m, e in ref_ood[MESH_OOD].items():
+                got = run['result'][ref['ood_set']]
+                for m, e in ref['ood'][ref['ood_set']].items():
                     if got[m]['auc'] != e['auc']:
-                        raise AssertionError('{} rank {} {} {}: AUC {} '
-                                             'against {}'.format(
-                                                 what, r['rank'], name, m,
-                                                 got[m]['auc'], e['auc']))
+                        raise AssertionError('{} {}: AUC {} against {}'.format(
+                            tag, m, got[m]['auc'], e['auc']))
                     err = abs(got[m]['mean'] - e['mean']) / max(
                         abs(e['mean']), 1e-30)
                     if not err <= MESH_MEAN_RTOL:
-                        raise AssertionError('{} rank {} {} {}: mean {} '
-                                             'against {}'.format(
-                                                 what, r['rank'], name, m,
-                                                 got[m]['mean'], e['mean']))
-                    worst['mean_rel'] = max(worst['mean_rel'], err)
-                want = _want(0, _scored(n_batches, '{} rank {} {}'.format(
-                    what, r['rank'], name), runs=run['batches_run']))
+                        raise AssertionError('{} {}: mean {} against {}'
+                                             .format(tag, m, got[m]['mean'],
+                                                     e['mean']))
+                    w['mean_rel'] = max(w['mean_rel'], err)
+                want = ref['want'](0, _scored(ref['n_batches'], tag,
+                                              runs=run['batches_run']))
             if run['launches'] != want:
-                raise AssertionError('{} rank {} {}: launches {}, want {}'
-                                     .format(what, r['rank'], name,
-                                             run['launches'], want))
+                raise AssertionError('{}: launches {}, want {}'.format(
+                    tag, run['launches'], want))
     return worst
 
 
@@ -5147,23 +5288,46 @@ def _mesh_launch_keys(launches: dict, kernel: str) -> dict:
                                    for n, per_rank in launches['gloo'].items()}}
 
 
-def _mesh_refs() -> dict:
-    """The one-process card runs that (b) and (c) are held to: phase 4's
-    flagship job's OOD evaluation and its MESH_STEPS steps run twice."""
+def _mesh_ref(job_dir: str, sets: tuple, batch: int, step_batch: int,
+              steps: int, want) -> dict:
+    """The one-process card runs of one geometry that (b) and (c) are held
+    to: the job's OOD evaluation of ``sets`` (a test and an OOD set) at
+    ``batch`` and its ``steps`` steps of ``step_batch`` run twice."""
     from joint_vae_tpu_torch.save_load.jobs import load_job
-    testset, ood = _mesh_sets()
-    job_dir = _flagship_dir()                   # phase 4's job
+    testset, ood = sets
     job = load_job(job_dir)
     t = time.perf_counter()
-    ref_ood = _mesh_ood(job, testset, ood, OOD_BATCH, 'cuda')
+    ref_ood = _mesh_ood(job, testset, ood, batch, 'cuda')
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t
+    cfg = job.model_cfg
+    del job
     with _deterministic():
-        ref_steps = [_mesh_steps(load_job(job_dir), testset, 'cuda')
+        ref_steps = [_mesh_steps(load_job(job_dir), testset, 'cuda',
+                                 batch=step_batch, steps=steps)
                      for _ in range(2)]
-    return {'job_dir': job_dir, 'cfg': job.model_cfg, 'ood': ref_ood,
-            'steps': ref_steps, 'seconds': ref_s,
-            'n_batches': 2 * -(-len(testset) // OOD_BATCH)}
+    torch.cuda.empty_cache()
+    return {'job_dir': job_dir, 'cfg': cfg, 'ood': ref_ood,
+            'ood_set': ood.name, 'steps': ref_steps, 'seconds': ref_s,
+            'n_batches': 2 * -(-len(testset) // batch), 'n_steps': steps,
+            'want': want}
+
+
+def _mesh_refs() -> dict:
+    """(b) and (c)'s one-process card runs: phase 4's flagship job on
+    cifar100's test set and MESH_OOD (MESH_STEPS steps of MESH_BATCH), and
+    a new imagenet64 job (seed 0) on the MESH_IM64_RUNS' sets
+    (MESH_IM64_STEPS steps of MESH_IM64_BATCH)."""
+    from joint_vae_tpu_torch.models.cvnet import imagenet64_config
+    from joint_vae_tpu_torch.save_load.jobs import new_job, save_job
+    im64_dir = os.path.join(WORK, 'mesh_im64_job')
+    shutil.rmtree(im64_dir, ignore_errors=True)
+    save_job(new_job(imagenet64_config(), seed=0), im64_dir)
+    return {'flagship': _mesh_ref(_flagship_dir(), _mesh_sets(), OOD_BATCH,
+                                  MESH_BATCH, MESH_STEPS, _want),
+            'imagenet64': _mesh_ref(im64_dir, _im64_mesh_sets(),
+                                    MESH_IM64_BATCH, MESH_IM64_BATCH,
+                                    MESH_IM64_STEPS, _im64_want)}
 
 
 def mesh_nccl(card: str, refs: dict):
@@ -5176,11 +5340,11 @@ def mesh_nccl(card: str, refs: dict):
                   torch.cuda.device_count()), flush=True)
         return None
     t = time.perf_counter()
-    nccl = mesh_ranks('nccl', 2, refs['job_dir'])
+    nccl = mesh_ranks('nccl', 2, refs['flagship']['job_dir'],
+                      refs['imagenet64']['job_dir'])
     line = {'card': card, 'ranks': 2,
             'seconds': round(time.perf_counter() - t, 2),
-            **mesh_check_ranks(nccl, refs['ood'], refs['steps'], refs['cfg'],
-                               refs['n_batches'], 'nccl'),
+            **mesh_check_ranks(nccl, refs, 'nccl'),
             'runs': {r['rank']: {n: {k: v[k] for k in (
                 'seconds', 'launches', 'steps_run', 'batches_run',
                 'graphed', 'captures')} for n, v in r['runs'].items()}
@@ -5208,14 +5372,17 @@ def mesh_phase(card: str) -> tuple:
         np.arange(MESH_STEPS * MESH_BATCH)))
     refs = _mesh_refs()
 
+    torch.cuda.empty_cache()
     t = time.perf_counter()
-    gloo = mesh_ranks('gloo', 2, refs['job_dir'])
+    gloo = mesh_ranks('gloo', 2, refs['flagship']['job_dir'],
+                      refs['imagenet64']['job_dir'])
     gloo_s = time.perf_counter() - t
-    worst = mesh_check_ranks(gloo, refs['ood'], refs['steps'], refs['cfg'],
-                             refs['n_batches'], 'gloo')
+    worst = mesh_check_ranks(gloo, refs, 'gloo')
     line = {'card': card, 'world1': w1,
             'gloo': {'ranks': 2, 'seconds': round(gloo_s, 2),
-                     'one_process_ood_s': round(refs['seconds'], 3), **worst,
+                     'one_process_ood_s': {g: round(r['seconds'], 3)
+                                           for g, r in refs.items()},
+                     **worst,
                      'runs': {r['rank']: {n: {'seconds': round(v['seconds'],
                                                                2),
                                               'launches': v['launches'],

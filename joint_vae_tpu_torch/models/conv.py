@@ -38,8 +38,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
-from ..ops.same_grid_conv import SameGridConvFn
+from ..ops.same_grid_conv import SameGridConvFn, im2col_dw
 from ..parallel.mesh import batch_moments
 
 FEATURES_ARCHS = {
@@ -405,12 +406,26 @@ class DeterministicConvFn(torch.autograd.Function):
     that a captured step's graph holds the deterministic kernels.  The
     forward is ``F.conv2d``'s, and on the CPU the gradients are the
     autograd of ``F.conv2d`` bit for bit (the same ``convolution_backward``
-    call)."""
+    call).
+
+    With ``im2col`` the weight gradient is instead the im2col product of
+    ``ops/same_grid_conv.py::im2col_dw`` (summed in float32, or float64
+    for float64 inputs; span ``trunk_conv_dw``): cuDNN's float32 weight
+    gradient lies up to 2.46e-4 (|ref| + rms) from float64 at resnet18's
+    stage-3 convs on the H100, the CPU's float32 within 1.39e-5
+    (``scripts/time_torch_trunk_grads.py``).  The trunks' convs
+    (``models/resnet.py::TrunkConv``) take it on CUDA tensors in float32
+    and float64; on the CPU they keep ``F.conv2d``'s: a resnet18:8
+    cvae's 12 Adam steps follow the JAX package's within 1e-4 with it
+    (``tests/test_torch_resnet.py``), and part by step 7 with the
+    product's other rounding (Adam's first steps move a weight whose
+    gradient is zero to rounding by about lr either way).  The conv
+    stacks' 'conv' route keeps cuDNN's."""
 
     @staticmethod
-    def forward(ctx, x, w, stride: int, padding: int):
+    def forward(ctx, x, w, stride: int, padding: int, im2col: bool = False):
         ctx.save_for_backward(x, w)
-        ctx.stride, ctx.padding = stride, padding
+        ctx.stride, ctx.padding, ctx.im2col = stride, padding, im2col
         return F.conv2d(x, w, stride=stride, padding=padding)
 
     @staticmethod
@@ -418,15 +433,24 @@ class DeterministicConvFn(torch.autograd.Function):
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         s, p = ctx.stride, ctx.padding
-        was = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            gx, gw, _ = torch.ops.aten.convolution_backward(
-                gy, x, w, None, [s, s], [p, p], [1, 1], False, [0, 0], 1,
-                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        finally:
-            torch.backends.cudnn.deterministic = was
-        return gx, gw, None, None
+        need_x, need_w = ctx.needs_input_grad[:2]
+        cudnn_w = need_w and not ctx.im2col
+        gx = gw = None
+        if need_x or cudnn_w:
+            was = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                gx, gw, _ = torch.ops.aten.convolution_backward(
+                    gy, x, w, None, [s, s], [p, p], [1, 1], False, [0, 0], 1,
+                    [need_x, cudnn_w, False])
+            finally:
+                torch.backends.cudnn.deterministic = was
+        if need_w and ctx.im2col:
+            with record_function('trunk_conv_dw'):
+                gw = im2col_dw(x.permute(0, 2, 3, 1), gy.permute(0, 2, 3, 1),
+                               w.shape[2], w.shape[3], s, ((p, p), (p, p))
+                               ).permute(3, 2, 0, 1).contiguous()
+        return gx, gw, None, None, None
 
 
 class ConvLayer(nn.Module):

@@ -15,7 +15,13 @@ Port of ``joint_vae_tpu/models/resnet.py``:
 
 The convolutions are bias-free ``F.conv2d`` (cuDNN on the card) with
 OIHW weights; activations stay NHWC between them, so each conv sees a
-channels-last view.  BatchNorm is ``models/conv.py::BatchNorm`` (flax
+channels-last view.  In float32 and float64 a conv's backward is
+``models/conv.py::DeterministicConvFn``'s: dx on cuDNN's deterministic
+algorithms, so that a train step repeats from a seed, and on the card dw
+the im2col product summed in float32 (float64), as precise as the CPU's
+float32 wgrad where cuDNN's is not; on the CPU dw stays the autograd of
+``F.conv2d`` bit for bit.  bfloat16 keeps ``F.conv2d``'s autograd, which
+repeats.  BatchNorm is ``models/conv.py::BatchNorm`` (flax
 semantics: biased batch variance, momentum 0.99, epsilon 1e-5), and the
 running statistics of a training pass go to ``bn_updates`` as in the
 conv stacks.  Max-pooling pads with -inf and average-pooling floors, as
@@ -31,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .conv import BatchNorm
+from .conv import BatchNorm, DeterministicConvFn
 
 RESNET_LAYERS = {
     'resnet18': (2, 2, 2, 2),
@@ -70,7 +76,9 @@ DENSENET_TV = {
 
 class TrunkConv(nn.Module):
     """A bias-free conv (flax ``nn.Conv(use_bias=False)``) on NHWC
-    activations; ``weight`` is OIHW, the layout ``F.conv2d`` takes."""
+    activations; ``weight`` is OIHW, the layout ``F.conv2d`` takes.  A
+    float32 or float64 input goes through ``DeterministicConvFn``, with
+    the im2col weight gradient on a CUDA tensor (module docstring)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding: int = 0):
@@ -88,8 +96,12 @@ class TrunkConv(nn.Module):
         return wt.permute(2, 3, 1, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                     stride=self.stride, padding=self.padding)
+        xc, wt = x.permute(0, 3, 1, 2), self.weight.to(x.dtype)
+        if x.dtype in (torch.float32, torch.float64):
+            y = DeterministicConvFn.apply(xc, wt, self.stride, self.padding,
+                                          x.is_cuda)
+        else:
+            y = F.conv2d(xc, wt, stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 

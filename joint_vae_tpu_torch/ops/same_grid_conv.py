@@ -24,7 +24,10 @@ Gradients (the JAX package's ``_bwd`` leaves both to XLA's conv vjp):
 - dw, a per-tap reduction ``dw[a, b] = sum x_shift(a, b)^T g``, is
   :func:`same_grid_conv_dw`: matrix products (cuBLAS) over an im2col
   copy of x, a chunk of images at a time, summed in float32 whatever x's
-  dtype; no hand-written kernel.
+  dtype; no hand-written kernel.  :func:`im2col_dw` is the same product
+  at any stride and symmetric or asymmetric pads; the ResNet and DenseNet
+  trunks' float32 convs take it on the card too (``models/conv.py::
+  DeterministicConvFn``).
   cuDNN's float32 weight gradient (TF32 off) is not precise enough at the
   flagship's same-grid shapes on the H100: off by 3.3% of its rms at
   conv_2 and 1.3% at deconv_1 at batch 1024 (``chip_smoke.py`` prints
@@ -99,34 +102,38 @@ def same_grid_conv_dx_plain(g: torch.Tensor, kernel: torch.Tensor,
                                 tw - 1 - pw_lo)
 
 
-def _im2col(xp: torch.Tensor, th: int, tw: int, h: int, w: int
-            ) -> torch.Tensor:
-    """(n * h * w, th * tw * ci) windows of the padded NHWC ``xp``, in
-    (tap row, tap column, channel) order along a row (a copy)."""
+def _im2col(xp: torch.Tensor, th: int, tw: int, h: int, w: int,
+            stride: int = 1) -> torch.Tensor:
+    """(n * h * w, th * tw * ci) windows of the padded NHWC ``xp`` at
+    ``stride`` for the (h, w) output grid, in (tap row, tap column,
+    channel) order along a row (a copy)."""
     n, _, _, ci = xp.shape
     sn, sh, sw, sc = xp.stride()
-    return xp.as_strided((n, h, w, th, tw, ci), (sn, sh, sw, sh, sw, sc),
+    return xp.as_strided((n, h, w, th, tw, ci),
+                         (sn, stride * sh, stride * sw, sh, sw, sc),
                          xp.storage_offset()).reshape(n * h * w, th * tw * ci)
 
 
-def same_grid_conv_dw(x: torch.Tensor, g: torch.Tensor, th: int, tw: int,
-                      ph_lo: int, pw_lo: int) -> torch.Tensor:
-    """dw (th, tw, ci, co) of the same-grid conv of x (n, h, w, ci) at pads
-    (ph_lo, pw_lo) whose output gradient is g (n, h, w, co):
-    im2col(x)^T g over chunks of images, the sum over all of them
-    accumulated in float32 (float64 for float64 x) and cast to x's dtype
-    once at the end, as XLA reduces the JAX package's dw.  A bfloat16
-    chunk's product comes out of the GEMM in float32 (``out_dtype`` on
-    the card; float32 operands on the CPU)."""
-    n, h, w, ci = x.shape
-    co = g.shape[3]
-    xp = F.pad(x, (0, 0, pw_lo, tw - 1 - pw_lo, ph_lo, th - 1 - ph_lo))
+def im2col_dw(x: torch.Tensor, g: torch.Tensor, th: int, tw: int,
+              stride: int, pads: tuple) -> torch.Tensor:
+    """dw (th, tw, ci, co) of the conv of x (n, h, w, ci) at ``stride``
+    and ``pads`` ((top, bottom), (left, right)) whose output gradient is
+    g (n, ho, wo, co): im2col(x)^T g over chunks of images, each chunk's
+    copy within IM2COL_BYTES, the sum over all of them accumulated in
+    float32 (float64 for float64 x) and cast to x's dtype once at the
+    end, as XLA reduces the JAX package's dw.  A bfloat16 chunk's product
+    comes out of the GEMM in float32 (``out_dtype`` on the card; float32
+    operands on the CPU)."""
+    n, _, _, ci = x.shape
+    _, ho, wo, co = g.shape
+    (pt, pb), (pl, pr) = pads
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
     k = th * tw * ci
-    chunk = max(1, IM2COL_BYTES // (h * w * k * x.element_size()))
+    chunk = max(1, IM2COL_BYTES // (ho * wo * k * x.element_size()))
     acc = torch.promote_types(x.dtype, torch.float32)
     dw = torch.zeros((k, co), dtype=acc, device=x.device)
     for i in range(0, n, chunk):
-        cols = _im2col(xp[i:i + chunk], th, tw, h, w)
+        cols = _im2col(xp[i:i + chunk], th, tw, ho, wo, stride)
         gi = g[i:i + chunk].reshape(-1, co)
         if x.dtype == acc:
             dw.addmm_(cols.t(), gi)
@@ -135,6 +142,15 @@ def same_grid_conv_dw(x: torch.Tensor, g: torch.Tensor, th: int, tw: int,
         else:
             dw.addmm_(cols.t().to(acc), gi.to(acc))
     return dw.reshape(th, tw, ci, co).to(x.dtype)
+
+
+def same_grid_conv_dw(x: torch.Tensor, g: torch.Tensor, th: int, tw: int,
+                      ph_lo: int, pw_lo: int) -> torch.Tensor:
+    """dw (th, tw, ci, co) of the same-grid conv of x (n, h, w, ci) at pads
+    (ph_lo, pw_lo) whose output gradient is g (n, h, w, co): the stride-1
+    case of :func:`im2col_dw`."""
+    return im2col_dw(x, g, th, tw, 1, ((ph_lo, th - 1 - ph_lo),
+                                       (pw_lo, tw - 1 - pw_lo)))
 
 
 def _check(x: torch.Tensor, kernel: torch.Tensor, ph_lo: int, pw_lo: int):

@@ -3,6 +3,7 @@
 the reference run's discrete choices imposed.
 
     python3 scripts/time_torch_trunk_grads.py
+    python3 scripts/time_torch_trunk_grads.py --cpu-only    # no card needed
 
 ``models/resnet.py::ResNetFeatures('resnet18')`` at full width, batch 64
 of 32x32 inputs, random weights from a numpy seed, the loss a random
@@ -15,19 +16,30 @@ held against the CPU in float64 by its rms-relative error
 - ``cpu_f64_ulp``: the CPU in float64 at the input moved by one float32
   ulp (up or down at random per element);
 - ``cpu_f32``: the CPU in float32;
-- ``card_cudnn``, ``card_cudnn_deterministic`` and ``card_no_cudnn``: the
-  card in float32 through cuDNN (its default algorithms, then
-  ``cudnn.deterministic``) and with cuDNN off (PyTorch's own CUDA
-  convolutions);
+- ``cpu_f32_bn64``, ``cpu_f32_conv64`` and ``cpu_f32_conv_bn64``: the CPU
+  in float32 with each BatchNorm, each trunk conv, or both computed in
+  float64 (their inputs and weights cast up, their outputs rounded to
+  float32): which ops' float32 roundings set the training-mode error;
+- ``card``: the card in float32 on the port's route
+  (``models/conv.py::DeterministicConvFn`` with the im2col weight
+  gradient: cuDNN's forward, its deterministic dx, dw a cuBLAS product);
+- ``card_no_cudnn``: the same with cuDNN off (PyTorch's own CUDA
+  convolutions for the forward and dx);
+- ``card_cudnn_autograd`` and ``card_cudnn_autograd_deterministic``: the
+  card in float32 through ``F.conv2d``'s own autograd on cuDNN (its
+  default algorithms, then ``cudnn.deterministic``), cuDNN's float32 wgrad
+  for dw: the trunk's route before the im2col product;
 
 each plain (its own ReLU masks and max-pool argmaxes) and ``_imposed``:
 with the reference run's choices imposed (``tests/torch_choices.py``),
 beside the number of elements where the imposed choice differs from the
 run's own and the worst such element's distance to its tie (in units of
 the rms of its op's input).  Prints the card's name and power limit, then
-one JSON line per mode with the worst tensors.
+one JSON line per mode with the worst tensors.  ``--cpu-only`` runs the
+CPU's cases alone, without a card.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -40,11 +52,62 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, 'tests'))
 
+import torch.nn.functional as F  # noqa: E402
+
 from joint_vae_tpu_torch.device import set_float32_math  # noqa: E402
-from joint_vae_tpu_torch.models.resnet import ResNetFeatures  # noqa: E402
+from joint_vae_tpu_torch.models.conv import BatchNorm  # noqa: E402
+from joint_vae_tpu_torch.models.resnet import (ResNetFeatures,  # noqa: E402
+                                               TrunkConv)
+from joint_vae_tpu_torch.parallel.mesh import batch_moments  # noqa: E402
 from torch_choices import Choices, moved_ulp  # noqa: E402
 
 N = 64
+CASES = ('cpu_f64_ulp', 'cpu_f32', 'cpu_f32_bn64', 'cpu_f32_conv64',
+         'cpu_f32_conv_bn64', 'card', 'card_no_cudnn', 'card_cudnn_autograd',
+         'card_cudnn_autograd_deterministic')
+
+
+def _bn64(self, x, train=False, updates=None):
+    """``BatchNorm.forward`` in float64, rounded to x's dtype."""
+    xd = x.double()
+    if train:
+        mean, var = batch_moments(xd, tuple(range(xd.ndim - 1)))
+    else:
+        mean, var = self.running_mean.double(), self.running_var.double()
+    mul = torch.rsqrt(var + self.eps) * self.weight.double()
+    return ((xd - mean) * mul + self.bias.double()).to(x.dtype)
+
+
+def _conv64(self, x):
+    """``TrunkConv.forward`` in float64, rounded to x's dtype."""
+    y = F.conv2d(x.double().permute(0, 3, 1, 2), self.weight.double(),
+                 stride=self.stride, padding=self.padding)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+@contextlib.contextmanager
+def route(name: str):
+    """The backend switches and the trunk conv's route of a case."""
+    real, real_bn = TrunkConv.forward, BatchNorm.forward
+
+    def autograd(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                     stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+    torch.backends.cudnn.enabled = name != 'card_no_cudnn'
+    torch.backends.cudnn.deterministic = name.endswith('deterministic')
+    if 'autograd' in name:
+        TrunkConv.forward = autograd
+    if name.endswith(('_conv64', '_conv_bn64')):
+        TrunkConv.forward = _conv64
+    if name.endswith('bn64'):
+        BatchNorm.forward = _bn64
+    try:
+        yield
+    finally:
+        TrunkConv.forward, BatchNorm.forward = real, real_bn
+        torch.backends.cudnn.enabled = True
+        torch.backends.cudnn.deterministic = False
 
 
 def grads(model, x, w, dev, dt, train, choices=None, impose=False):
@@ -72,12 +135,14 @@ def grads(model, x, w, dev, dt, train, choices=None, impose=False):
 
 
 def main():
-    if not torch.cuda.is_available():
-        raise SystemExit('needs a CUDA card')
+    cpu_only = sys.argv[1:] == ['--cpu-only']
+    if not cpu_only and not torch.cuda.is_available():
+        raise SystemExit('needs a CUDA card (or --cpu-only)')
     set_float32_math()
-    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    if not cpu_only:
+        print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                              '--format=csv,noheader'], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
     rng = np.random.default_rng(0)
     model = ResNetFeatures('resnet18')
     with torch.no_grad():
@@ -93,22 +158,16 @@ def main():
         choices = Choices()
         ref, _ = grads(model, x, w, 'cpu', torch.float64, train, choices)
         runs, flips = {}, {}
-        cases = [('cpu_f64_ulp', x_ulp, 'cpu', torch.float64),
-                 ('cpu_f32', x, 'cpu', torch.float32),
-                 ('card_cudnn', x, 'cuda', torch.float32),
-                 ('card_cudnn_deterministic', x, 'cuda', torch.float32),
-                 ('card_no_cudnn', x, 'cuda', torch.float32)]
-        for name, xin, dev, dt in cases:
-            torch.backends.cudnn.enabled = name != 'card_no_cudnn'
-            torch.backends.cudnn.deterministic = name.endswith(
-                'deterministic')
-            try:
+        for name in CASES:
+            if cpu_only and not name.startswith('cpu'):
+                continue
+            xin = x_ulp if name == 'cpu_f64_ulp' else x
+            dev = 'cpu' if name.startswith('cpu') else 'cuda'
+            dt = torch.float64 if name == 'cpu_f64_ulp' else torch.float32
+            with route(name):
                 runs[name], _ = grads(model, xin, w, dev, dt, train)
                 runs[name + '_imposed'], s = grads(model, xin, w, dev, dt,
                                                    train, choices, True)
-            finally:
-                torch.backends.cudnn.enabled = True
-                torch.backends.cudnn.deterministic = False
             flips[name] = {k: s[k] for k in ('choices', 'flips',
                                              'flips_by_kind',
                                              'worst_distance')}
@@ -126,15 +185,10 @@ def main():
             'median': {r: float(np.median(list(e.values())))
                        for r, e in err.items()},
             'worst_element': {r: max(e.values()) for r, e in elem.items()},
-            'top_element_card_cudnn_imposed': sorted(
-                elem['card_cudnn_imposed'].items(),
-                key=lambda kv: -kv[1])[:4],
-            'flips': flips,
-            'top_card_cudnn': sorted(err['card_cudnn'].items(),
-                                     key=lambda kv: -kv[1])[:6],
-            'top_card_cudnn_imposed': sorted(
-                err['card_cudnn_imposed'].items(),
-                key=lambda kv: -kv[1])[:6]}),
+            'top_element_imposed': {
+                r: sorted(elem[r].items(), key=lambda kv: -kv[1])[:4]
+                for r in elem if r.endswith('_imposed')},
+            'flips': flips}),
               flush=True)
 
 

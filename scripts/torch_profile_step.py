@@ -4,7 +4,7 @@ under ``torch.profiler``: the graphed program beside its eager self.
 
     python scripts/torch_profile_step.py [--steps 10] [--batch 512] [--eval]
         [--dtype bfloat16|float32] [--eager] [--device cuda|cpu]
-        [--tiny] [--geometry flagship|imagenet64] [--out FILE]
+        [--tiny] [--geometry flagship|imagenet64|resnet] [--out FILE]
     PYTHONPATH=DIR python scripts/torch_profile_step.py ...   # DIR's port
 
 The counterpart of ``scripts/profile_step.py`` (the JAX step under
@@ -13,7 +13,9 @@ default, as there), ``--eager`` (the eager program alone), ``--device`` and
 ``--tiny`` (the tiny flagship: a rehearsal on the CPU, where no graph is
 captured and no device time is recorded) and ``--geometry`` (the model:
 the flagship by default, or ``imagenet64``, ``models/cvnet.py::
-imagenet64_config``, which the port on the path must have).  Without ``--eval`` the
+imagenet64_config``, which the port on the path must have, or ``resnet``,
+the flagship with a resnet18 trunk, ``chip_smoke.py``'s ResNet
+flagship).  Without ``--eval`` the
 program is the host-fed train step (``train/steps.py``, bench.py's Adam
 at lr 1e-4); with it, one ``Scorer`` batch at the flagship's test L and
 the seven methods of ``bench.py``'s eval mode.
@@ -24,7 +26,7 @@ then two steps under the profiler, the first traced and dropped (a
 session's first kernel records can be lost) and the second kept.  The
 kept step's device time is grouped by kernel name and by span: the
 innermost ``record_function`` span of the port (the same-grid conv's
-``same_grid_conv_dx`` / ``_dw``), else the autograd node or the operator
+``same_grid_conv_dx`` / ``_dw``, the trunk convs' ``trunk_conv_dw``), else the autograd node or the operator
 that launched the kernel.  A replay runs its kernels without operators,
 so each replayed kernel takes the span of the eager step's kernel at the
 same position of the launch sequence (the capture is the eager body's
@@ -33,6 +35,7 @@ had most of the time in the eager step.  Prints one JSON line.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -47,7 +50,7 @@ if REPO not in sys.path:
     # commit's, to time two trees one process each) can run instead
     sys.path.append(REPO)
 METHODS = ('iws', 'elbo', 'zdist', 'mse', 'soft', 'iws-2s', 'elbo-2s')
-SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw')
+SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw', 'trunk_conv_dw')
 WARMUP = 3
 # the card idle around the kept step, so that the skew between the host's
 # and the card's clocks puts none of its records outside its window
@@ -174,6 +177,8 @@ def _program(args, graphed: bool, dev: torch.device):
     cfg = (cvnet.imagenet64_config(compute_dtype=args.dtype)
            if args.geometry == 'imagenet64' else
            cvnet.flagship_config(tiny=args.tiny, compute_dtype=args.dtype))
+    if args.geometry == 'resnet':
+        cfg = dataclasses.replace(cfg, features='resnet18')
     job = new_job(cfg, OptimizerConfig(lr=1e-4), seed=0, device=dev)
     rng = np.random.default_rng(0)
     x = rng.uniform(0, 1, (args.batch,) + cfg.input_shape).astype(np.float32)
@@ -207,7 +212,7 @@ def main(argv=None) -> int:
     p.add_argument('--tiny', action='store_true',
                    help='the tiny flagship (a rehearsal)')
     p.add_argument('--geometry', default='flagship',
-                   choices=['flagship', 'imagenet64'])
+                   choices=['flagship', 'imagenet64', 'resnet'])
     p.add_argument('--out', default=None, help='also write the JSON here')
     args = p.parse_args(argv)
     if args.tiny and args.geometry != 'flagship':

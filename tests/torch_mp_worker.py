@@ -163,19 +163,23 @@ def case_train(kw):
         return run
     trainer.make_train_step = recording
     refused = None
-    if kw.get('refuse'):
-        try:
-            trainer.train_model(job, dataset(16, 1), None, epochs=1,
-                                batch_size=16)
-        except ValueError as e:
-            refused = str(e)
-    shape = tuple(kw.get('shape', (1, 6, 6)))
-    trainer.train_model(job, dataset(kw['n_train'], 1, shape=shape),
-                        None,
-                        epochs=kw['epochs'], batch_size=kw['batch_size'],
-                        test_batch_size=kw.get('test_batch_size', 16),
-                        outputs=EpochOutput(stdout=False), seed=3,
-                        final_test=False, final_ood=False, mesh=mesh)
+    try:
+        if kw.get('refuse'):
+            try:
+                trainer.train_model(job, dataset(16, 1), None, epochs=1,
+                                    batch_size=16)
+            except ValueError as e:
+                refused = str(e)
+        shape = tuple(kw.get('shape', (1, 6, 6)))
+        trainer.train_model(job, dataset(kw['n_train'], 1, shape=shape,
+                                         classes=kw.get('classes', 4)),
+                            None,
+                            epochs=kw['epochs'], batch_size=kw['batch_size'],
+                            test_batch_size=kw.get('test_batch_size', 16),
+                            outputs=EpochOutput(stdout=False), seed=3,
+                            final_test=False, final_ood=False, mesh=mesh)
+    finally:
+        trainer.make_train_step = make
     out = {'steps': steps, 'history': _history(job),
            'split': sorted(split_names(job.model)),
            'weights': weights(job.model, mesh), 'refused': refused,
@@ -211,7 +215,9 @@ def case_ood(kw):
     """``ood_detection_rates`` on the mesh for each of ``kw['runs']`` (a
     dict each: the mesh axes, ``batch_size``, one set of ``n_test``
     in-distribution and one of ``n_ood`` OOD images), after a placement
-    of the state; {run name: the results and that run's warning log}."""
+    of the state; {run name: the results and that run's warning log}.
+    ``kw['shape']`` and ``kw['classes']``: the images' shape and the
+    labels' range (tests/test_parallel.py's by default)."""
     import logging
     from joint_vae_tpu_torch.evals.engines import ood_detection_rates
     from joint_vae_tpu_torch.parallel.mesh import ensure_placed
@@ -229,9 +235,11 @@ def case_ood(kw):
         mesh = _mesh(run)
         job = load_job(kw['job_dir'], device='cpu')
         job.state = ensure_placed(job.state, mesh)
-        ood = dataset(run['n_ood'], 9, name='noise')
+        sets = dict(shape=tuple(kw.get('shape', (1, 6, 6))),
+                    classes=kw.get('classes', 4))
+        ood = dataset(run['n_ood'], 9, name='noise', **sets)
         res = ood_detection_rates(
-            job, dataset(run['n_test'], 2), [ood],
+            job, dataset(run['n_test'], 2, **sets), [ood],
             batch_size=run['batch_size'], recording=False,
             from_where=('compute',), generator=make_generator('cpu', 5),
             mesh=mesh)
@@ -385,8 +393,39 @@ def case_graphs(kw):
     return out
 
 
+def case_im64(kw):
+    """imagenet64 on the mesh: ``case_ood`` on the narrowed twin's job
+    (``kw['ood']``), ``case_train`` on it at each of ``kw['train']`` (a
+    dict of mesh axes per run), and one train step of the full-width
+    model made by ``new_job(imagenet64_config(), seed=kw['full_seed'])``
+    on a (data 1, model 2) mesh on ``kw['full']``'s batch and injected
+    noise, its metrics and this rank's prior block's shape."""
+    import torch
+    from joint_vae_tpu_torch.models.cvnet import imagenet64_config
+    from joint_vae_tpu_torch.parallel.mesh import ensure_placed
+    from joint_vae_tpu_torch.save_load.jobs import new_job
+    from joint_vae_tpu_torch.train.steps import make_train_step
+    sets = {k: kw[k] for k in ('job_dir', 'shape', 'classes')}
+    out = {'ood': case_ood(dict(sets, runs=kw['ood']))}
+    for name, axes in kw['train'].items():
+        out['train_' + name] = case_train(dict(sets, **kw['train_args'],
+                                               **axes))
+    full = kw['full']
+    mesh = _mesh({'model_axis': 2})
+    job = new_job(imagenet64_config(), seed=kw['full_seed'], device='cpu')
+    job.state = ensure_placed(job.state, mesh)
+    step = make_train_step(job.model, job.opt_cfg, mesh=mesh)
+    _, m = step(job.state, torch.from_numpy(full['x']),
+                torch.from_numpy(full['y']), torch.from_numpy(full['eps']))
+    out['full_step'] = {
+        'metrics': {k: float(v) for k, v in m.items()},
+        'prior_mean_block': tuple(job.model.get_parameter(
+            'prior.mean').shape)}
+    return out
+
+
 CASES = {'train': case_train, 'ood': case_ood, 'ckpt': case_ckpt,
-         'wim': case_wim, 'graphs': case_graphs}
+         'wim': case_wim, 'graphs': case_graphs, 'im64': case_im64}
 
 
 def main(argv):
