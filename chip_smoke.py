@@ -32,8 +32,11 @@ and phase 15 counts them on the card in profiled replays.
    combine at L=16, N=512, C=100, K=128 in both modes, a ragged C=37,
    N=137 case, the OOD evaluation's ragged last batch N=272, the
    flagship's shape with prior means at the flagship's scale 17,
-   L=128 at N=64 and N=512, C=1000, K=256, and C=1 at N=256 with means
-   at the WIM alternate prior's scale 8 (``IWS_CASES``), each timed
+   L=128 at N=64 and N=512, C=1000, K=256, C=1 at N=256 with means
+   at the WIM alternate prior's scale 8, and past K=352 on the streamed
+   kernel: [fashion]'s K=512 and [fashion-vgg16]'s K=1024 at L=128,
+   C=10, scale 17, K=512 at C=100, a ragged K=353 and K=1025
+   (``IWS_CASES``), each timed
    as called back to back and replayed from a CUDA graph, beside the
    composite of PyTorch calls that the JAX package's default path
    computes (``library_ms``, its deviation from the plain version
@@ -412,7 +415,35 @@ and phase 15 counts them on the card in profiled replays.
    of two jobs, a Poscod fine-tune and its scores, ``record_latents``):
    first call and ms per call, one profiled call of each mode, capture
    seconds and pool bytes (``jit_graphs`` line);
-19. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
+19. the JAX package's named training configurations
+   (``configs/default.ini``; ``CONFIG_SECTIONS``, every section but
+   [cifar100], the flagship, [wim-default], WIM's parameters, and
+   [imagenet], which both packages refuse) at full width in float32 on
+   the registry's synthetic sets: each trained by ``python -m
+   joint_vae_tpu_torch.cli.train --config <section>`` in a subprocess
+   (one epoch of 4 batches of its batch size, its validation split and
+   final test; its OOD evaluation is the one below), four at once,
+   while this process holds each same-grid site against its plain
+   version with its route at the main path's shapes (the forward at the
+   test batch and test L and at the train batch, the dx at the train
+   batch; each distinct launch once over the sections) and runs the
+   section's training gate (``train_gate``: 3 steps at batch 8 against
+   the CPU in float64; a conv bias right before a training-mode
+   BatchNorm within BN_BIAS_ROUNDING times the CPU's own float32
+   residue); then each saved job: 4 steps trained, saved and loaded
+   exactly, 10 graphed steps timed (the conv at each site and its dx per
+   eager or captured step, the capture's kernel nodes), served through
+   its Scorer's graph at its test batch and L (the conv at each site
+   and, for a cvae, one combine per eager or captured batch, as kernel
+   nodes in the capture too), card vs CPU at phase 4's tolerance on 8
+   uniform inputs (the CPU in float32) and on 8 of its test images (the
+   CPU in float64; ``section_card_vs_cpu``),
+   ``ood_detection_rates`` on its test set and two same-size sets of
+   1,024 with the same launches; on [tilted] WIM with [wim-default]'s
+   alternate prior: ``wim_gate`` and ``cli.ft`` with 1,024 training
+   images, its launches counted (``config`` lines, one per section, and
+   the ``configs`` line);
+20. print one JSON line ``{"kernels": [...]}`` (``launches_test_cli``:
    phase 8's recompute; ``launches_wim_ft``: phase 9's first run;
    ``launches_resnet_step``, ``launches_resnet_serve`` and
    ``launches_drivers``: phase 10's; ``launches_interop_*``: phase 11's;
@@ -423,12 +454,14 @@ and phase 15 counts them on the card in profiled replays.
    ``launches_score_graphs``: phase 16's, the same of its scoring
    graphs; ``launches_imagenet64`` and ``imagenet64``: phase 17's by
    main path, and its sites' summed times; ``launches_jit_graphs``:
-   phase 18's graphed bit-gate runs, by program);
-20. print ``{"ok": true, "device": {...}}`` as the last line.
+   phase 18's graphed bit-gate runs, by program; ``launches_configs``:
+   phase 19's by section and path);
+21. print ``{"ok": true, "device": {...}}`` as the last line.
 
 ``python3 chip_smoke.py --graphs`` builds the kernels and runs phase 15
 alone; ``--score-graphs`` phase 16; ``--imagenet64`` phase 17;
-``--jit-graphs`` phase 18; ``--mesh`` phase 12; ``--mesh-nccl`` phase
+``--jit-graphs`` phase 18; ``--configs`` phase 19; ``--mesh`` phase 12;
+``--mesh-nccl`` phase
 12 (c) and the one-process runs it is held to.  A
 Scorer, engine or both-prior batch runs as a scoring graph
 (``train/graphs.py::ScoreGraph``): a graph's first batch eager, its
@@ -530,6 +563,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -571,6 +605,10 @@ OPT_TOL = 1e-5
 # 1x1 maps (the module docstring), 1.055e-4 to 1.333e-4 over 5 seeds on an
 # H100 (scripts/torch_trunk_gate_spread.py); held to about twice the worst
 TRUNK_WGRAD_TOL = 2.6e-4
+# a conv bias right before a training-mode BatchNorm (phase 19's
+# [vgg-baseline]): its gradient, zero but for rounding, within this many
+# times the CPU's own float32 residue (:func:`bn_bias_limits`)
+BN_BIAS_ROUNDING = 8.0
 # the backward spans of SameGridConvFn and of the trunk convs' im2col dw
 # (record_function)
 SPANS = ('same_grid_conv_dx', 'same_grid_conv_dw', 'trunk_conv_dw')
@@ -633,6 +671,8 @@ def same_grid_sites(model, n_images: int, L: int):
     sites = []
     for stack_name, n in (('features_stack', n_images), ('imager', L * n_images)):
         stack = getattr(model, stack_name)
+        if not hasattr(stack, 'plans'):   # none, or an MLP's dense imager
+            continue
         c, h, w = stack.input_shape
         for i, pl in enumerate(stack.plans):
             if pl.ltype in ('conv', 'deconv'):
@@ -645,6 +685,23 @@ def same_grid_sites(model, n_images: int, L: int):
                                   'lo': layer.pads[0]})
             c, h, w = pl.out_shape
     return sites
+
+
+def site_elems(site) -> int:
+    """The elements of one image's x or y at a site as launched, the
+    larger (a sub-pixel site's y packs stride^2 phases)."""
+    co = site['co'] * (site['layer'].stride ** 2
+                       if site['route'] == 'subpixel' else 1)
+    return site['h'] * site['w'] * max(site['ci'], co)
+
+
+def site_launches(sites) -> int:
+    """The conv launches of one forward over ``sites``: a site whose batch
+    passes the kernel's int32 shapes launches once per ``batch_chunks``
+    range (at L=128 and 512 images, deconv32's 32-channel 32x32 sites
+    launch twice)."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import batch_chunks
+    return sum(len(batch_chunks(s['n'], site_elems(s))) for s in sites)
 
 
 def site_inputs(site, dt, g):
@@ -747,30 +804,38 @@ def check_conv(sites, tag: str = 'conv'):
     return rows, total
 
 
-def check_tail_conv(sites) -> float:
-    """The conv at every site for the OOD evaluation's ragged last batch
-    (10,000 = 19 x 512 + 272 images: n=272 at the features, 16 x 272 =
-    4,352 at the decoder), float32, against its plain version in the
-    conv's form.  Returns the largest error."""
+def check_sites(sites, what: str, seed: int) -> list:
+    """Each site's conv in float32 at its shape against its plain version
+    in the conv's form (:func:`conv_gate`): the kernel its shape
+    dispatches (``kernel_route``), its largest error and its ms."""
     from joint_vae_tpu_torch.ops.same_grid_conv import (
         kernel_route, same_grid_conv, same_grid_conv_plain)
-    g = torch.Generator(device='cuda').manual_seed(6)
-    worst = 0.0
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    rows = []
     for site in sites:
         x, _, kd = site_inputs(site, torch.float32, g)
         lo = site['lo']
         y = same_grid_conv(x, kd, lo, lo)
         ref = same_grid_conv_plain(x, kd, lo, lo)
-        conv_gate(y, ref, 'same_grid_conv at the ragged tail ' + site['site'])
-        err = (y - ref).abs().max().item()
-        worst = max(worst, err)
-        print('conv_tail', json.dumps({
-            'site': site['site'], 'launched_shape': list(x.shape) + list(kd.shape),
-            'kernel': kernel_route(x.dtype, x.shape[3], kd.shape[3]),
-            'max_abs_err': err}), flush=True)
+        conv_gate(y, ref, '{} {}'.format(what, site['site']))
+        rows.append({'site': site['site'], 'route': site['route'],
+                     'launched_shape': list(x.shape) + list(kd.shape),
+                     'kernel': kernel_route(x.dtype, x.shape[3], kd.shape[3]),
+                     'max_abs_err': (y - ref).abs().max().item(),
+                     'ms': time_ms(lambda: same_grid_conv(x, kd, lo, lo), 5)})
         del x, kd, y, ref
-    torch.cuda.empty_cache()
-    return worst
+    return rows
+
+
+def check_tail_conv(sites) -> float:
+    """The conv at every site for the OOD evaluation's ragged last batch
+    (10,000 = 19 x 512 + 272 images: n=272 at the features, 16 x 272 =
+    4,352 at the decoder), float32, against its plain version in the
+    conv's form (``conv_tail`` lines).  Returns the largest error."""
+    rows = check_sites(sites, 'same_grid_conv at the ragged tail', 6)
+    for r in rows:
+        print('conv_tail', json.dumps(r), flush=True)
+    return max(r['max_abs_err'] for r in rows)
 
 
 def sass_counts(name: str) -> dict:
@@ -835,7 +900,11 @@ def hgmma_counts(sass: dict) -> dict:
 # K=256), and C=1 at the WIM evaluation's batch of 256 with the
 # alternate prior's scale (init_mean 8): a class-conditional one-mean
 # alternate prior (force_conditional, which load_wim_job restores)
-# reaches the kernel there
+# reaches the kernel there.  Then the streamed kernel (K > 352): the
+# named sections [fashion] (K=512) and [fashion-vgg16] (K=1024) at their
+# test L=128, C=10 and the prior scale 17, a flagship-width prior at
+# K=512, the first K the resident kernel cannot hold (353, ragged, on the
+# 4-byte copies) and K=1025 (one k in its last chunk)
 IWS_CASES = ((16, 512, 100, 128, 0.1, (True, False)),
              (16, 137, 37, 128, 0.1, (True, False)),
              (16, 272, 100, 128, 0.1, (True, False)),
@@ -843,7 +912,12 @@ IWS_CASES = ((16, 512, 100, 128, 0.1, (True, False)),
              (128, 64, 100, 128, 0.1, (True,)),
              (128, 512, 100, 128, 0.1, (True,)),
              (16, 512, 1000, 256, 0.1, (True,)),
-             (16, 256, 1, 128, 8.0, (True, False)))
+             (16, 256, 1, 128, 8.0, (True, False)),
+             (128, 512, 10, 512, 17.0, (True,)),
+             (128, 512, 10, 1024, 17.0, (True,)),
+             (16, 512, 100, 512, 0.1, (True, False)),
+             (16, 137, 37, 353, 0.1, (True, False)),
+             (128, 64, 10, 1025, 0.1, (True,)))
 LANES_PER_SM, SM_CLOCK_HZ = 128, 1.98e9     # float32 lanes, H100 SXM boost
 
 
@@ -854,12 +928,16 @@ def iws_inputs(L: int, N: int, C: int, K: int, g: torch.Generator,
     0.3 of its class mean (means ``mean_scale`` N(0,1) per latent: 0.1,
     or 17 as the flagship's prior draws them), log_pxq about -1e3 with
     noise of a scale drawn per input in [0.25, 2.5] (so that the sum term
-    still spreads across inputs at L=128).  Returns the kernel's five
-    inputs and each input's class."""
+    still spreads across inputs at L=128).  Past K=256 the noise of z
+    shrinks as 1 / sqrt(K), so that its share of the spread over l stays
+    K=256's: at K=512 and L=128, 0.3 would spread the weights over l by
+    several units and leave every input's sum term near its least value.
+    Returns the kernel's five inputs and each input's class."""
     mean = mean_scale * torch.randn((C, K), generator=g, device='cuda')
     y = torch.randint(0, C, (N,), generator=g, device='cuda')
-    z = (mean[y][None] + 0.3 * torch.randn((L, N, K), generator=g,
-                                           device='cuda')).contiguous()
+    noise = 0.3 * min(1.0, (256.0 / K) ** 0.5)
+    z = (mean[y][None] + noise * torch.randn((L, N, K), generator=g,
+                                             device='cuda')).contiguous()
     sd = 0.25 + 2.25 * torch.rand((N,), generator=g, device='cuda')
     lp = -1e3 + sd * torch.randn((L, N), generator=g, device='cuda')
     vp = 0.5 + torch.rand((C,), generator=g, device='cuda')
@@ -975,7 +1053,12 @@ def check_iws():
                    'share_of_bound': b / t['ms'],
                    'floor_2instr_ms': 2.0 * L * C * N * K / (
                        sms * LANES_PER_SM * SM_CLOCK_HZ) * 1e3,
+                   # the bytes against the two-instruction floor
+                   'bound_2instr_ms': max(
+                       nbytes / HBM_BYTES_PER_S, 2.0 * L * C * N * K / (
+                           sms * LANES_PER_SM * SM_CLOCK_HZ)) * 1e3,
                    'max_abs_err': err,
+                   'max_abs_plain': ref.abs().max().item(),
                    'sum_term': [sum_term.min().item(), sum_term.max().item()],
                    'sum_term_std': spread}
             rows.append(row)
@@ -1486,23 +1569,73 @@ def _torch_choices():
 
 
 def _ratio(got: torch.Tensor, want: torch.Tensor) -> float:
-    """max |got - want| / (|want| + rms(want)) over every element."""
-    want = want.double()
+    """max |got - want| / (|want| + rms(want)) over every element.  An
+    element that is NaN on both sides (a vib's sigma rmse: it reconstructs
+    nothing) counts as equal; NaN on one side only fails."""
+    got, want = got.cpu().double(), want.double()
+    nan = got.isnan() & want.isnan()
+    got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
     rms = want.square().mean().sqrt()
-    return ((got.cpu().double() - want).abs()
-            / (want.abs() + rms + 1e-30)).max().item()
+    return ((got - want).abs() / (want.abs() + rms + 1e-30)).max().item()
+
+
+def bn_invariant_biases(model) -> list:
+    """The conv biases that a BatchNorm right after their conv takes out of
+    the training loss (a conv stack's ``conv_i`` followed by ``bn_i``,
+    ``batch_norm`` on the features).  Their gradient, the batch sum of
+    the BatchNorm's input gradient, is zero but for rounding: the card's
+    float32 sum cancels to a residue of its terms' rounding and the CPU's
+    float64 one to 1e-17, and a tensor of such residues has no scale of
+    its own.  The gate holds each to the CPU's own float32 residue
+    (:func:`bn_bias_limits`)."""
+    out = []
+    for name, mod in model.named_modules():
+        for i, pl in enumerate(getattr(mod, 'plans', ())):
+            conv = getattr(mod, 'conv_{}'.format(i), None)
+            if (getattr(pl, 'batch_norm', False) and conv is not None
+                    and getattr(conv, 'bias', None) is not None):
+                out.append('{}.conv_{}.bias'.format(name, i) if name else
+                           'conv_{}.bias'.format(i))
+    return out
+
+
+def bn_bias_limits(seen32: dict, seen64: dict, names: list) -> dict:
+    """Each BatchNorm-invariant bias's limit: BN_BIAS_ROUNDING times the
+    largest residue of the same step's gradient in float32 on the CPU
+    (the card's choices imposed) against float64, over the tensor."""
+    out = {}
+    for k in names:
+        r = (seen32[k].double() - seen64[k].double()).abs().max()
+        if not r > 0:
+            raise AssertionError('{}: no float32 residue on the CPU'.format(k))
+        out[k] = BN_BIAS_ROUNDING * r
+    return out
 
 
 def check_close(card: dict, cpu: dict, tol: float, what: str,
-                apart=(), apart_tol: float = None) -> dict:
+                apart=(), apart_tol: float = None,
+                absolute: dict = None) -> dict:
     """Each tensor of the card's against the float64 CPU's, elementwise
     |card - cpu| <= tol (|cpu| + rms(cpu)), ``apart_tol`` for the tensors
-    named in ``apart`` (raises otherwise).  Returns the worst ratio over
-    every tensor, over ``apart`` and over the rest, and the worst
+    named in ``apart``, and |card - cpu| <= the limit that ``absolute``
+    gives a tensor (:func:`bn_bias_limits`); raises otherwise.
+    Returns the worst ratio over every tensor, over ``apart``, over the
+    rest and over ``absolute`` (|card - cpu| / limit), and the worst
     tensor's name."""
     worst = {'worst': 0.0, 'worst_apart': 0.0, 'worst_rest': 0.0,
-             'worst_name': None}
+             'worst_absolute': 0.0, 'worst_name': None}
+    absolute = absolute or {}
     for k, want in cpu.items():
+        if k in absolute:
+            err = (card[k].cpu().double() - want.double()).abs()
+            r = (err / absolute[k]).max().item()
+            worst['worst_absolute'] = max(worst['worst_absolute'], r)
+            if not r <= 1.0:
+                raise AssertionError(
+                    'card vs CPU {} {}: {} of its limit {} (largest error '
+                    '{})'.format(what, k, r, float(absolute[k]),
+                                 err.max().item()))
+            continue
         r = _ratio(card[k], want)
         part = 'worst_apart' if k in apart else 'worst_rest'
         if r > worst['worst']:
@@ -1625,7 +1758,7 @@ class CardGradient:
 
 
 def step_gate(record, card_step, cpu_step, card, twin, feed: CardGradient,
-              what: str, apart=()) -> dict:
+              what: str, apart=(), cpu32=None) -> dict:
     """One step of a training gate (the module docstring's form).  Loads
     the card's train state ``card`` into the CPU's float64 ``twin``; runs
     ``record()``, the program's own forward and gradient on the card's
@@ -1636,9 +1769,13 @@ def step_gate(record, card_step, cpu_step, card, twin, feed: CardGradient,
     moment).  Holds the recording's loss to the card step's bit for bit,
     the step's gradient, loss, parameter update, Adam's second moment,
     BatchNorm statistics and sigma state, and the flips; the gradients
-    of ``apart`` at TRUNK_WGRAD_TOL."""
+    of ``apart`` at TRUNK_WGRAD_TOL; with ``cpu32`` (a float32 CPU twin,
+    its step and its :class:`CardGradient`), the conv biases before a
+    training-mode BatchNorm at :func:`bn_bias_limits`."""
     tc = _torch_choices()
     load_state(twin, card)
+    if cpu32 is not None:
+        load_state(cpu32[0], card)
     before = {k: v.detach().clone() for k, v in
               twin.model.named_parameters()}
     mu = {k: v.clone() for k, v in card.opt_state.mu.items()}
@@ -1653,6 +1790,16 @@ def step_gate(record, card_step, cpu_step, card, twin, feed: CardGradient,
     with tc.Float64(), choices.imposing() as replay:
         m_cpu = {k: v.item() for k, v in cpu_step().items()}
     flips = check_flips(replay.summary(), what)
+    limits = {}
+    if cpu32 is None and bn_invariant_biases(card.model):
+        raise ValueError(what + ': BatchNorm-invariant biases need cpu32')
+    if cpu32 is not None:            # the same step in float32 on the CPU
+        twin32, step32, feed32 = cpu32
+        feed32.card = feed.card
+        with choices.imposing():
+            step32()
+        limits = bn_bias_limits(feed32.seen, feed.seen,
+                                bn_invariant_biases(twin32.model))
     loss_err = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
                 for k in m_card if k.endswith('total')}
     for k, err in loss_err.items():
@@ -1664,7 +1811,8 @@ def step_gate(record, card_step, cpu_step, card, twin, feed: CardGradient,
         'loss_rel_err': max(loss_err.values()),
         'grad_err_over_abs_plus_rms': check_close(
             feed.card, feed.seen, GRAD_TOL, what + ' gradient', apart,
-            TRUNK_WGRAD_TOL),
+            TRUNK_WGRAD_TOL, limits),
+        'bn_bias_limits': {k: float(v) for k, v in limits.items()},
         'update_err_over_abs_plus_rms': check_update(
             dict(card.model.named_parameters()),
             dict(twin.model.named_parameters()), before, what),
@@ -1696,6 +1844,8 @@ def gate_summary(rows: list) -> dict:
                                                'worst_apart'),
         'grad_worst_tensors': [r['grad_err_over_abs_plus_rms']['worst_name']
                                for r in rows],
+        'bn_bias_worst_over_limit': worst('grad_err_over_abs_plus_rms',
+                                          'worst_absolute'),
         'loss_worst_rel_err': worst('loss_rel_err'),
         'update_worst': worst('update_err_over_abs_plus_rms'),
         'nu_worst': worst('nu_err_over_abs_plus_rms'),
@@ -1736,6 +1886,13 @@ def train_gate(cfg, batch: int = GATE_BATCH, seeds: tuple = (1, 5)) -> dict:
     cpu_step = make_train_step(twin.model, opt, graphed=False)
     cpu_step.tx = feed = CardGradient(cpu_step.tx)
     trunk = trunk_conv_weights(card.model)
+    cpu32 = None
+    if bn_invariant_biases(card.model):
+        twin32 = new_job(cfg, opt, seed=init, device='cpu').state
+        step32 = make_train_step(twin32.model, opt, graphed=False)
+        step32.tx = feed32 = CardGradient(step32.tx)
+        cpu32 = (twin32, lambda: step32(twin32, *data['cpu'][:2],
+                                        eps=data['cpu'][2]), feed32)
 
     def record():
         load_state(scratch, card)
@@ -1744,7 +1901,7 @@ def train_gate(cfg, batch: int = GATE_BATCH, seeds: tuple = (1, 5)) -> dict:
         record,
         lambda: card_step(card, *data['cuda'][:2], eps=data['cuda'][2])[1],
         lambda: cpu_step(twin, *data['cpu'][:2], eps=data['cpu'][2])[1],
-        card, twin, feed, 'step {}'.format(i), trunk)
+        card, twin, feed, 'step {}'.format(i), trunk, cpu32)
         for i in range(GATE_STEPS)]
     res = {'batch': batch, 'steps': GATE_STEPS, 'seeds': list(seeds),
            'reference': 'CPU float64', 'tensors': len(feed.seen),
@@ -1752,6 +1909,22 @@ def train_gate(cfg, batch: int = GATE_BATCH, seeds: tuple = (1, 5)) -> dict:
            'bn_stats': len(_bn_stats(card.model)), 'rows': rows}
     res.update(gate_summary(rows))
     return res
+
+
+def _same_jobs(a, b) -> bool:
+    """Two jobs' weights, buffers, optimizer and train state equal."""
+    sd, sd2 = a.model.state_dict(), b.model.state_dict()
+    o, o2 = a.state.opt_state, b.state.opt_state
+    return (set(sd) == set(sd2) and all(torch.equal(sd[k], sd2[k])
+                                        for k in sd)
+            and (o.count, o.adam_count, o.learning_rate)
+            == (o2.count, o2.adam_count, o2.learning_rate)
+            and all(set(getattr(o, n)) == set(getattr(o2, n))
+                    and all(torch.equal(getattr(o, n)[k], getattr(o2, n)[k])
+                            for k in getattr(o, n))
+                    for n in ('mu', 'nu', 'trace'))
+            and torch.equal(a.sigma_state.data, b.sigma_state.data)
+            and (a.state.epoch, a.state.step) == (b.state.epoch, b.state.step))
 
 
 def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
@@ -1828,22 +2001,9 @@ def train(card: str, cfg=None, sites: int = SITES_PER_BATCH,
 
     # --- save_job / load_job: weights and optimizer state exactly ---
     save_job(job, job_dir)
-    back = load_job(job_dir)
-    sd, sd2 = job.model.state_dict(), back.model.state_dict()
-    if set(sd) != set(sd2) or not all(torch.equal(sd[k], sd2[k]) for k in sd):
-        raise AssertionError('reloaded weights differ')
-    o, o2 = job.state.opt_state, back.state.opt_state
-    same = ((o.count, o.adam_count, o.learning_rate)
-            == (o2.count, o2.adam_count, o2.learning_rate)
-            and all(torch.equal(getattr(o, a)[k], getattr(o2, a)[k])
-                    for a in ('mu', 'nu', 'trace') for k in getattr(o, a))
-            and set(o.mu) == set(o2.mu) and set(o.nu) == set(o2.nu)
-            and torch.equal(job.sigma_state.data, back.sigma_state.data)
-            and (back.state.epoch, back.state.step)
-            == (job.state.epoch, job.state.step))
-    if not same:
-        raise AssertionError('reloaded optimizer or train state differs')
-    del back
+    if not _same_jobs(job, load_job(job_dir)):
+        raise AssertionError('reloaded weights, optimizer or train state '
+                             'differ')
 
     # --- timed steps, fed as train_model feeds them ---
     step = make_train_step(job.model, job.opt_cfg)
@@ -3165,8 +3325,9 @@ def _frozen(model) -> list:
             + list(model.named_buffers()))
 
 
-def wim_gate(job_dir: str) -> dict:
-    """Card against CPU on phase 4's weights with the alternate prior
+def wim_gate(job_dir: str, cfg=None) -> dict:
+    """Card against CPU on phase 4's weights (or the job of ``cfg``) with
+    the alternate prior
     drawn from one numpy seed: a both-prior evaluation of 8 inputs at
     L=16 (every loss and '@' twin, then every WIM score from them, at the
     serving tolerance); then GATE_STEPS fine-tuning steps of 8 in and 8
@@ -3181,7 +3342,11 @@ def wim_gate(job_dir: str) -> dict:
     from joint_vae_tpu_torch.save_load.jobs import load_job
     from joint_vae_tpu_torch.train.optimizers import build_optimizer
     from joint_vae_tpu_torch.train.state import named_params
-    cfg = flagship_config()
+    cfg = cfg or flagship_config()
+    # the '~' methods read each input's class estimate: a per-class
+    # model's (a vae's [tilted] has none)
+    methods = (WIM_METHODS + WIM_MISCLASS if cfg.losses_per_class
+               else tuple(m for m in WIM_METHODS if '~' not in m))
     rng = np.random.default_rng(9)
     n, K = GATE_BATCH, cfg.latent_dim
     x_in, x_mix, x_eval = rng.uniform(
@@ -3204,8 +3369,7 @@ def wim_gate(job_dir: str) -> dict:
         host = {k: v.cpu().numpy() for k, v in losses.items()}
         host['logits'] = logits.cpu().numpy()
         host['y_true'] = np.zeros(n, np.int32)
-        evals[dev] = (host, wim_scores_for_set(wim, host,
-                                               WIM_METHODS + WIM_MISCLASS))
+        evals[dev] = (host, wim_scores_for_set(wim, host, methods))
         wims[dev] = wim
         data[dev] = (t(x_in), t(y), t(x_mix))
         noise[dev] = t(eps)
@@ -4035,7 +4199,8 @@ INTEROP_JOBS = {'flagship': ('cifar100', 'flagship', 'adam', 21),
                 'corrupt': ('cifar100', 'flagship', 'adam', 23)}
 PROBE_START, PROBE_CEILING = 512, 1 << 18
 KERNEL_NAMES = {'same_grid_conv': ('tc_conv_kernel', 'simt_conv_kernel'),
-                'iws_combine': ('iws_combine_kernel',)}
+                'iws_combine': ('iws_combine_kernel',
+                                'iws_combine_streamed_kernel')}
 
 
 def _npz_members(path: str) -> dict:
@@ -6893,12 +7058,8 @@ def im64_kernels() -> dict:
         raise AssertionError('{} imagenet64 same-grid sites'.format(len(sites)))
     # each site's launches at the serve batch (``batch_chunks``: one unless
     # x or y passes the kernel's int32 shapes) and the largest launch
-    def per_image(s):
-        co = s['co'] * (s['layer'].stride ** 2 if s['route'] == 'subpixel'
-                        else 1)
-        return s['h'] * s['w'] * max(s['ci'], co)
-    widest = max(s['n'] * per_image(s) for s in sites)
-    chunks = {s['site']: len(batch_chunks(s['n'], per_image(s)))
+    widest = max(s['n'] * site_elems(s) for s in sites)
+    chunks = {s['site']: len(batch_chunks(s['n'], site_elems(s)))
               for s in sites}
     serve_rows, _ = check_conv(sites, 'im64_conv')
     train_sites = same_grid_sites(model, IM64_BATCH, cfg.latent_sampling)
@@ -7588,6 +7749,632 @@ def jit_graphs_phase(card: str) -> tuple:
     return launches, line
 
 
+# phase 19: the JAX package's named training configurations
+# (configs/default.ini), each through the train CLI with ``--config``,
+# at full width (its own widths, depth, K, L, batch and test batch), in
+# float32, on the registry's seeded synthetic sets.  [imagenet] is
+# refused by both packages alike (ROADMAP); [cifar100] is the flagship
+# (phases 4-18) and [wim-default] the WIM parameters run from [tilted]
+CONFIG_SECTIONS = ('DEFAULT', 'mnist-dense', 'mnist-vae', 'mnist-vib',
+                   'cifar10', 'tilted', 'mnist-vgg', 'fashion',
+                   'fashion-vgg16', 'svhn', 'cifar10-vgg', 'autoencoder',
+                   'vgg-baseline')
+CONFIG_BATCHES = 4              # the CLI's epoch: 4 batches of the section's
+CONFIG_EVAL_SIZE = 1024         # the test set and each OOD set, evaluated
+CONFIG_SERVE_BATCHES = 2        # Scorer batches after warm-up and capture
+CONFIG_PARALLEL = 4             # train CLIs at once beside the gates
+# two same-size OOD sets of each section's set (the registry's)
+CONFIG_OOD = {'mnist': ('fashion', 'letters'),
+              'fashion': ('mnist', 'letters'),
+              'cifar10': ('svhn', 'lsunc'), 'svhn': ('cifar10', 'lsunc')}
+CONFIG_WIM_SECTION, CONFIG_WIM_TRAIN = 'tilted', 1024
+
+
+def _section(section: str) -> tuple:
+    """The section's args and model config through the port's
+    ``utils/parameters`` (``--config``), as the train CLI reads them."""
+    from joint_vae_tpu_torch.utils import parameters
+    args = parameters.get_args(['--config', section])
+    return args, parameters.model_config_from_args(args)
+
+
+def _section_sites(cfg) -> tuple:
+    """The model's same-grid sites (a serve batch's conv launches) and
+    those whose input gradient a train step launches (all but a features
+    stack's first layer, which reads the data)."""
+    from joint_vae_tpu_torch.models.cvnet import CVNet
+    sites = same_grid_sites(CVNet(cfg), GATE_BATCH, 1)
+    dx = [s for s in sites if s['site'] != 'features_stack.conv_0']
+    return sites, dx
+
+
+CONFIG_SLICE_ELEMS = 2 ** 27    # a plain version's slice: x or y elements
+
+
+def _sliced_gate(y, x, plain, what: str) -> float:
+    """``y`` against ``plain(x)`` in the conv's form (:func:`conv_gate`,
+    its rms over the whole of ``plain(x)``), the plain version run and
+    compared over slices of images: over a serve batch at once (65,536
+    decoder images at L=128) its temporaries would pass the card's
+    memory.  Returns the largest error."""
+    step = max(1, CONFIG_SLICE_ELEMS // max(x[0].numel(), y[0].numel()))
+    ref = torch.empty_like(y)
+    for a in range(0, x.shape[0], step):
+        ref[a:a + step] = plain(x[a:a + step])
+    tol = CONV_TOL[torch.float32]
+    atol = tol * (torch.linalg.vector_norm(ref) / ref.numel() ** 0.5).item()
+    err = 0.0
+    for a in range(0, x.shape[0], step):
+        got, want = y[a:a + step], ref[a:a + step]
+        torch.testing.assert_close(got, want, rtol=tol, atol=atol,
+                                   msg=lambda m: '{}: {}'.format(what, m))
+        err = max(err, (got - want).abs().max().item())
+    del ref
+    return err
+
+
+def _site_key(site, dx: bool) -> tuple:
+    """What a site's launches depend on: its launched shapes and pads, the
+    sub-pixel packing, and whether it is the input gradient."""
+    lay = site['layer']
+    pack = ((lay.stride, lay.padding, lay.output_padding)
+            if site['route'] == 'subpixel' else None)
+    return (dx, site['route'], pack) + tuple(
+        site[k] for k in ('n', 'h', 'w', 'ci', 'co', 'k', 'lo'))
+
+
+def check_section_sites(section: str, serve: list, train: list, dx: list,
+                        seen: dict) -> list:
+    """The section's same-grid sites at the main path's shapes, float32,
+    kernel against plain version (:func:`_sliced_gate`): the forward at
+    its serve batch (the test batch at test L) and at its train batch,
+    the input gradient at the train batch's dx sites.  Each distinct
+    launch is checked once over the sections (``seen``: key -> row) and
+    its row named by the section that checked it.  Rows carry the route
+    (``kernel_route``), the launched shape, the launches
+    (``batch_chunks``), the largest error and the kernel's ms."""
+    from joint_vae_tpu_torch.ops.same_grid_conv import (
+        batch_chunks, kernel_route, same_grid_conv, same_grid_conv_dx,
+        same_grid_conv_dx_plain, same_grid_conv_plain)
+    g = torch.Generator(device='cuda').manual_seed(19)
+    rows = []
+    for path, sites, is_dx in (('serve', serve, False),
+                               ('train', train, False),
+                               ('train_dx', dx, True)):
+        for site in sites:
+            key = _site_key(site, is_dx)
+            if key not in seen:
+                x, _, kd = site_inputs(site, torch.float32, g)
+                lo, th = site['lo'], kd.shape[0]
+                what = '[{}] {} {}'.format(section, path, site['site'])
+                if is_dx:
+                    x = (0.05 * torch.randn(x.shape[:3] + kd.shape[3:],
+                                            generator=g, device='cuda'))
+                    plo = th - 1 - lo
+                    run = lambda: same_grid_conv_dx(x, kd, lo, lo)
+                    plain = lambda a: same_grid_conv_dx_plain(a, kd, lo, lo)
+                    ci, co = kd.shape[3], kd.shape[2]
+                else:
+                    plo = lo
+                    run = lambda: same_grid_conv(x, kd, lo, lo)
+                    plain = lambda a: same_grid_conv_plain(a, kd, lo, lo)
+                    ci, co = kd.shape[2], kd.shape[3]
+                y = run()
+                seen[key] = {
+                    'checked_in': section,
+                    'launched_shape': list(x.shape) + [th, kd.shape[1], ci,
+                                                       co],
+                    'pad_lo': plo,
+                    'kernel': kernel_route(torch.float32, ci, co),
+                    'launches': len(batch_chunks(
+                        x.shape[0], max(x[0].numel(), y[0].numel()))),
+                    'max_abs_err': _sliced_gate(y, x, plain, what),
+                    'ms': time_ms(run, 3)}
+                del x, kd, y
+                torch.cuda.empty_cache()
+            rows.append({'site': site['site'], 'path': path,
+                         'route': site['route'], **seen[key]})
+    return rows
+
+
+def _section_want(cfg, sites: int, dx: int, scored: int):
+    """Launches of ``steps`` train steps and ``batches`` scored batches:
+    the conv at every site per step and ``scored`` per batch (its sites at
+    the test batch and L, :func:`site_launches`), its dx per step, one
+    combine per batch where the prior is a class-conditional gaussian of
+    scalar variance (a cvae), none for a vae, a vib or the tilted
+    prior."""
+    combine = int(cfg.type == 'cvae' and cfg.prior.distribution == 'gaussian'
+                  and cfg.prior.var_dim == 'scalar')
+
+    def want(steps: int, batches: int = 0) -> dict:
+        return {'same_grid_conv': sites * steps + scored * batches,
+                'same_grid_conv_dx': dx * steps,
+                'iws_combine': combine * batches}
+    return want, combine
+
+
+class _CliRuns:
+    """The sections' train CLIs as subprocesses, CONFIG_PARALLEL at once
+    (two threads each), started in order by a thread of their own, each
+    timed to its exit and waited for by name."""
+
+    def __init__(self, argvs: dict):
+        self.done, self.procs, self.stopped = {}, {}, False
+        self.slots = threading.Semaphore(CONFIG_PARALLEL)
+        self.env = dict(os.environ, OMP_NUM_THREADS='2')
+        self.lock = threading.Lock()
+        threading.Thread(target=self._start, args=(list(argvs.items()),),
+                         daemon=True).start()
+
+    def _start(self, items):
+        for name, argv in items:
+            self.slots.acquire()
+            with self.lock:
+                if self.stopped:
+                    return
+                log = open(os.path.join(WORK, 'config_{}.log'.format(name)),
+                           'w')
+                proc = subprocess.Popen(argv, cwd=ROOT, env=self.env,
+                                        stdout=log, stderr=subprocess.STDOUT)
+                self.procs[name] = proc
+            threading.Thread(target=self._reap, daemon=True, args=(
+                name, proc, time.perf_counter(), log)).start()
+
+    def _reap(self, name, proc, t0, log):
+        rc = proc.wait()
+        log.close()
+        self.done[name] = {'rc': rc, 'seconds': time.perf_counter() - t0}
+        self.slots.release()
+
+    def wait(self, name: str) -> dict:
+        while name not in self.done:
+            time.sleep(0.2)
+        return self.done[name]
+
+    def stop(self):
+        with self.lock:
+            self.stopped = True
+            for proc in self.procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def _section_set(name: str, args, size: int = CONFIG_EVAL_SIZE):
+    """The registry's test split of ``name`` as the section transforms
+    it, ``size`` images."""
+    from joint_vae_tpu_torch.data.loaders import get_dataset
+    return get_dataset(name, transformer=args.transformer, splits=['test'],
+                       size=size)[1]
+
+
+def section_steps(job, args, want, what: str) -> dict:
+    """CONFIG_TIMED graphed steps of the section's batch after
+    TRAIN_WARMUP (the first eager, the second captured), fed as the CLI
+    feeds them (its augmentation included): ms per step, the launches of
+    the counted steps, the capture's kernel nodes."""
+    from joint_vae_tpu_torch.data.loaders import DataLoader, get_dataset
+    from joint_vae_tpu_torch.device import to_device
+    from joint_vae_tpu_torch.train.steps import make_train_step, pull_metrics
+    bs = args.batch_size
+    trainset, _ = get_dataset(args.dataset, transformer=args.transformer,
+                              splits=['train'], size=CONFIG_BATCHES * bs)
+    batches = [tuple(to_device(a, job.device) for a in b)
+               for b in DataLoader(trainset, bs, shuffle=True, seed=1,
+                                   drop_last=True,
+                                   data_augmentation=args.data_augmentation)]
+    step = make_train_step(job.model, job.opt_cfg)
+    state = job.state
+    _count_reset()
+    for i in range(TRAIN_WARMUP):
+        state, m = step(state, *batches[i % len(batches)])
+    torch.cuda.synchronize()
+    pending = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        state, m = step(state, *batches[i % len(batches)])
+        pending.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    launches = _counts()
+    body = _body_steps(TRAIN_WARMUP + TRAIN_TIMED, what)
+    if launches != want(body):
+        raise AssertionError('{}: steps launched {}, want {}'.format(
+            what, launches, want(body)))
+    caps = step.graph.captures
+    nodes = {'same_grid_conv': want(1)['same_grid_conv']
+             + want(1)['same_grid_conv_dx'], 'iws_combine': 0}
+    if len(caps) != 1 or caps[0]['kernel_nodes_by_source'] != nodes:
+        raise AssertionError('{}: captures {}, want one holding {}'.format(
+            what, caps, nodes))
+    got = pull_metrics(pending)
+    if not all(np.isfinite(list(r.values())).all() for r in got):
+        raise AssertionError(what + ': non-finite train metrics')
+    return {'batch': bs, 'ms_per_step': ms,
+            'train_images_per_s': bs * 1e3 / ms, 'launches': launches,
+            'body_steps': body, 'capture_kernel_nodes': nodes,
+            'last_total': got[-1]['total']}
+
+
+def section_serve(job, job_dir: str, args, want, what: str) -> dict:
+    """The saved job served through its Scorer's graph at the section's
+    test batch and L (warm-up, capture, CONFIG_SERVE_BATCHES timed), the
+    launches per eager or captured batch and the capture's kernel nodes;
+    then the card against the CPU on phase 4's 8 uniform inputs and on 8
+    of the section's test images (:func:`section_card_vs_cpu`)."""
+    from joint_vae_tpu_torch.serve import Scorer
+    cfg = job.model_cfg
+    bs = args.test_batch_size
+    x = _section_set(args.dataset, args, bs * (CONFIG_SERVE_BATCHES + 1))[:][0]
+    methods = [m for m in cfg.ood_methods if not m.startswith('odin')]
+    calib = Scorer(job, methods=methods, graphed=False,
+                   thresholds={m: float('-inf') for m in methods})(x[:bs])
+    kw = {'methods': methods, 'thresholds': serve_thresholds(calib['scores'])}
+    scorer = Scorer(job, **kw)
+    _count_reset()
+    scorer(x[:bs])
+    scorer(x[:bs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [scorer(x[(1 + b) * bs:(2 + b) * bs])
+            for b in range(CONFIG_SERVE_BATCHES)]
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    n = _scored(2 + CONFIG_SERVE_BATCHES, what + ' Scorer', ('scorer',))
+    if launches != want(0, n):
+        raise AssertionError('{} Scorer: launched {}, want {}'.format(
+            what, launches, want(0, n)))
+    one = want(0, 1)
+    per_batch = {k: one[k] for k in ('same_grid_conv', 'iws_combine')}
+    capture = _capture_gate(scorer.graph.captures, per_batch,
+                            what + ' Scorer')
+    for o in outs:
+        if not all(np.all(np.isfinite(o['scores'][m])) for m in methods):
+            raise AssertionError(what + ': non-finite scores')
+    del scorer
+    return {'batch': bs, 'L': cfg.test_latent_sampling, 'methods': methods,
+            'images_per_s': bs * CONFIG_SERVE_BATCHES / seconds,
+            'launches': launches, 'batches_counted': n,
+            'per_batch': per_batch, 'capture': capture,
+            'card_vs_cpu': section_card_vs_cpu(
+                job, job_dir, kw, np.random.default_rng(29).uniform(
+                    0, 1, (8,) + cfg.input_shape).astype(np.float32),
+                x[:8])}
+
+
+def section_card_vs_cpu(job, job_dir: str, scorer_kw: dict, x_uniform,
+                        x_own) -> dict:
+    """The card against the CPU with injected noise at the job's test L:
+    ``evaluate``'s every loss, the Scorer's every score (``scorer_kw``)
+    and, where the job computes per-class iws, its labels where the
+    reference's classes are clear of each other.  On 8 inputs uniform in
+    [0, 1] against the CPU in float32 (phase 4's inputs) and on 8 of the
+    section's own test images against the CPU in float64 (the job's
+    weights made float64, ``torch_choices.Float64``), both at phase 4's
+    tolerance.  The CPU's scores and labels are ``batch_dist_measures``
+    and ``predict_after_evaluate`` of its one evaluation, as the Scorer
+    computes them.  On its own images a well reconstructed image leaves
+    residuals of ~0.1, whose squares a reconstruction term sums beside
+    constants that cancel them, so either device's float32 rounding moves
+    that term by more of itself than on uniform inputs: float64 leaves
+    the card's alone."""
+    from joint_vae_tpu_torch.models.evaluate import evaluate
+    from joint_vae_tpu_torch.ops.scores import (batch_dist_measures,
+                                                predict_after_evaluate)
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    from joint_vae_tpu_torch.serve import Scorer
+    tc = _torch_choices()
+    cfg = job.model_cfg
+    methods = scorer_kw['methods']
+    eps = np.random.default_rng(3).standard_normal(
+        (cfg.test_latent_sampling + 1, 8, cfg.latent_dim)).astype(np.float32)
+    eps[0] = 0.0
+    scorer = Scorer(job, **scorer_kw)
+
+    def evaluated(j, x, mode):
+        xt, et = torch.as_tensor(x, device=j.device), torch.as_tensor(eps)
+        with torch.no_grad(), mode:
+            out = evaluate(j.model, xt, None, sigma_state=j.sigma_state,
+                           eps=et, decode_mean=False)
+            vals = {'score ' + m: v for m, v in batch_dist_measures(
+                cfg, out.logits, out.losses, methods).items()}
+            iws = out.losses.get('iws')
+            if iws is not None and iws.ndim > 1:
+                logits = out.logits
+                if logits.ndim == 3 and scorer._pm == 'esty':
+                    logits = torch.mean(logits, dim=0)
+                vals['label'] = predict_after_evaluate(
+                    cfg, logits, out.losses, scorer._pm)
+        vals.update({'loss ' + k: v for k, v in out.losses.items()})
+        return {k: v.cpu().numpy() for k, v in vals.items()}
+
+    cpu64 = load_job(job_dir, device='cpu')
+    cpu64.model.to(torch.float64)
+    refs = {'uniform': (x_uniform, load_job(job_dir, device='cpu'),
+                        contextlib.nullcontext(), 'CPU float32'),
+            'own': (x_own, cpu64, tc.Float64(), 'CPU float64')}
+    out = {}
+    for name, (x, ref_job, mode, ref_name) in refs.items():
+        want = evaluated(ref_job, x, mode)
+        card = evaluated(job, x, contextlib.nullcontext())
+        sc = scorer(x, eps=torch.as_tensor(eps))
+        got = {k: (sc['scores'][k[6:]] if k.startswith('score ') else v)
+               for k, v in card.items() if k != 'label'}
+        worst = {}
+        for k, g in got.items():
+            w = want[k].astype(np.float64)
+            err = np.nan_to_num(np.abs(g.astype(np.float64) - w), nan=0.0)
+            worst[k] = float(np.max(err / np.maximum(np.abs(w), 1e-30)))
+            np.testing.assert_allclose(
+                g, w, rtol=SERVE_RTOL, atol=SERVE_ATOL,
+                err_msg='card vs {} on {} inputs, {}'.format(
+                    ref_name, name, k))
+        clear = np.zeros(0, bool)
+        if 'label' in want:
+            top2 = np.sort(want['loss iws'], axis=0)[-2:]
+            clear = (top2[1] - top2[0]) > 2 * (SERVE_ATOL
+                                               + SERVE_RTOL * np.abs(top2[1]))
+            if not np.array_equal(want['label'][clear], sc['label'][clear]):
+                raise AssertionError('card and {} labels differ on {} '
+                                     'inputs'.format(ref_name, name))
+        out[name] = {'reference': ref_name, 'inputs': len(x),
+                     'checked': len(got), 'clear_labels': int(clear.sum()),
+                     'worst': worst}
+    del scorer
+    return out
+
+
+def section_ood(job, args, want, what: str) -> dict:
+    """``ood_detection_rates`` on the compute tier alone (the CLI's
+    results of the same sets are in the job's json): the section's test set
+    and two same-size OOD sets of CONFIG_EVAL_SIZE at its test batch and
+    L (every OOD method but ODIN's, whose input gradients phase 6
+    holds), the launches per eager or captured batch, finite results."""
+    from joint_vae_tpu_torch.evals import engines
+    cfg = job.model_cfg
+    testset = _section_set(args.dataset, args)
+    oodsets = [_section_set(s, args) for s in CONFIG_OOD[args.dataset]]
+    methods = [m for m in cfg.ood_methods if not m.startswith('odin')]
+    bs = args.test_batch_size
+    _count_reset()
+    t0 = time.perf_counter()
+    res = engines.ood_detection_rates(job, testset, oodsets, batch_size=bs,
+                                      method=methods, recording=False,
+                                      from_where=('compute',))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    batches = 3 * -(-CONFIG_EVAL_SIZE // bs)
+    n = _scored(batches, what + ' OOD evaluation')
+    if launches != want(0, n):
+        raise AssertionError('{} OOD: launched {}, want {}'.format(
+            what, launches, want(0, n)))
+    aucs = {s: {m: r['auc'] for m, r in ms.items()} for s, ms in res.items()}
+    if set(res) != set(CONFIG_OOD[args.dataset]) or not all(
+            np.isfinite(v) for r in aucs.values() for v in r.values()):
+        raise AssertionError('{} OOD results {}'.format(what, aucs))
+    return {'sets': [testset.name] + [s.name for s in oodsets],
+            'set_size': CONFIG_EVAL_SIZE, 'batch': bs,
+            'ood_images_per_s': 3 * CONFIG_EVAL_SIZE / seconds,
+            'seconds': seconds, 'launches': launches,
+            'batches_counted': n, 'auc': aucs}
+
+
+def section_wim(card: str, jobs: str, job_dir: str, args) -> dict:
+    """WIM from [tilted], the reference's own flow: the card against the
+    CPU on its weights with [wim-default]'s alternate prior (``wim_gate``:
+    a both-prior evaluation of 8 inputs, 3 fine-tuning steps each held by
+    ``step_gate``), then ``cli.ft`` on the CLI's job with [wim-default]'s
+    parameters (its alternate prior, alpha, moving set, one epoch), the
+    train size cut to CONFIG_WIM_TRAIN, in process with its launches
+    counted: the conv at both halves' sites and its dx per step, the
+    pre-tuning, both-prior and ``record_latents`` batches' convs."""
+    from joint_vae_tpu_torch.cli import ft as ft_cli
+    from joint_vae_tpu_torch.ft.wim import WIM_OOD_METHODS_PER_TYPE
+    from joint_vae_tpu_torch.save_load.checkpoint import load_json
+    from joint_vae_tpu_torch.save_load.jobs import load_job
+    cfg = load_job(job_dir, device='cpu').model_cfg
+    sites, dx = (len(s) for s in _section_sites(cfg))
+    gate = wim_gate(job_dir, cfg)
+    cwd = os.path.join(WORK, 'config_ft_cwd')
+    shutil.rmtree(cwd, ignore_errors=True)
+    os.makedirs(cwd)
+    seen = set(_job_dirs(jobs))
+    old_cwd = os.getcwd()
+    argv = ['1', '--job-dir', jobs, '--train-size', str(CONFIG_WIM_TRAIN),
+            '--oodsets'] + list(CONFIG_OOD[args.dataset])
+    _count_reset()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        with open(os.path.join(WORK, 'config_ft.out'), 'w') as f, \
+                contextlib.redirect_stdout(f):
+            # --- the main path: WIM fine-tuning from [tilted] ---
+            rc = ft_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(old_cwd)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    # --- end of the main path ---
+    runs = _batches_run()
+    steps = _body_steps(CONFIG_WIM_TRAIN // WIM_BATCH, 'WIM from [tilted]')
+    counted = {n: r['eager'] + r['captured'] for n, r in runs.items()}
+    batches = (counted.get('score_batch', 0) + counted.get('latents_batch', 0)
+               + 2 * counted.get('both_prior_batch', 0))
+    want = {'same_grid_conv': sites * (2 * steps + batches),
+            'same_grid_conv_dx': 2 * dx * steps}
+    got = {k: launches[k] for k in want}
+    if rc != 0 or got != want or not counted.get('both_prior_batch'):
+        raise AssertionError('WIM from [tilted]: exit {}, launches {}, want '
+                             '{} (batches {})'.format(rc, launches, want,
+                                                      runs))
+    (d,) = set(_job_dirs(jobs)) - seen
+    ood = load_json(os.path.join(d, 'ood.json'))
+    last = ood[max(ood, key=int)]          # the source job's last epoch
+    aucs = {s + '/' + m: r['auc'] for s, ms in last.items()
+            for m, r in ms.items()}
+    # the WIM methods of the source's type (a vae's: zdist, elbo, kl)
+    want = {s + '/' + m for s in CONFIG_OOD[args.dataset]
+            for m in WIM_OOD_METHODS_PER_TYPE[cfg.type]}
+    if set(aucs) != want or not np.all(np.isfinite(list(aucs.values()))):
+        raise AssertionError('WIM from [tilted]: results {}, want {}'.format(
+            aucs, sorted(want)))
+    return {'gate': gate, 'wall_s': wall, 'launches': launches,
+            'batches_run': runs, 'steps': CONFIG_WIM_TRAIN // WIM_BATCH,
+            'job_dir': os.path.relpath(d, WORK), 'auc': aucs,
+            'card': card}
+
+
+def _config_launch_keys(launches: dict, kernel: str) -> dict:
+    """Phase 19's launches of ``kernel``, by section and main path."""
+    return {s: {path: c[kernel] for path, c in paths.items()}
+            for s, paths in launches.items()}
+
+
+def configs_phase(card: str) -> tuple:
+    """Phase 19: each of CONFIG_SECTIONS trained by ``cli.train --config
+    <section>`` (a subprocess; one epoch of CONFIG_BATCHES batches, its
+    validation split and final test, ``--no-final-ood``), CONFIG_PARALLEL
+    at once while this process runs each section's sites against their
+    plain versions at its serve and train shapes
+    (:func:`check_section_sites`) and its training gate (``train_gate``
+    at batch 8, 3 steps, every gradient element at GRAD_TOL but the
+    BatchNorm-invariant biases, :func:`bn_bias_limits`); then, each CLI
+    done, the saved job: trained 4 steps, saved and loaded exactly, 10
+    graphed steps timed with their launches and the capture's kernel
+    nodes, served through its Scorer's graph and held to the CPU on 8
+    uniform inputs and on 8 of its test images
+    (:func:`section_card_vs_cpu`), evaluated by
+    ``ood_detection_rates``; WIM from [tilted].  One ``config`` line
+    per section; returns the launches by section and path, and the
+    ``configs`` line."""
+    from joint_vae_tpu_torch.data import native
+    from joint_vae_tpu_torch.models.cvnet import CVNet
+    from joint_vae_tpu_torch.save_load.jobs import load_job, save_job
+    t_phase = time.perf_counter()
+    native.get_lib()                  # built once, before the CLIs load it
+    root = os.path.join(WORK, 'config_jobs')
+    shutil.rmtree(root, ignore_errors=True)
+    info, argvs = {}, {}
+    for section in CONFIG_SECTIONS:
+        args, cfg = _section(section)
+        sites, dx = _section_sites(cfg)
+        model = CVNet(cfg)
+        train = same_grid_sites(model, args.batch_size, cfg.latent_sampling)
+        info[section] = (args, cfg, sites, dx, same_grid_sites(
+            model, args.test_batch_size, cfg.test_latent_sampling), train,
+            [s for s in train if s['site'] != 'features_stack.conv_0'])
+        del model
+        jobs = os.path.join(root, section)
+        argvs[section] = [
+            sys.executable, '-m', 'joint_vae_tpu_torch.cli.train',
+            '--config', section, '--epochs', '1', '--dataset-size',
+            str(CONFIG_BATCHES * args.batch_size + args.validation),
+            '--no-final-ood', '--job-dir', jobs, '--job-number', '1']
+    clis = _CliRuns(argvs)
+    rows, launches, checked = {}, {}, {}
+    try:
+        for section in CONFIG_SECTIONS:       # beside the CLIs
+            args, cfg, sites, dx = info[section][:4]
+            t0 = time.perf_counter()
+            rows[section] = {
+                'params': sum(p.numel() for p in CVNet(cfg).parameters()),
+                'type': cfg.type, 'K': cfg.latent_dim, 'C': cfg.num_labels,
+                'L': cfg.test_latent_sampling,
+                'sites': check_section_sites(
+                    section, *info[section][4:], checked),
+                'gate': train_gate(cfg, GATE_BATCH),
+                'gate_seconds': time.perf_counter() - t0}
+            print('config_gate', json.dumps({section: {
+                k: rows[section]['gate'][k] for k in (
+                    'grad_worst', 'grad_worst_tensors', 'loss_worst_rel_err',
+                    'update_worst', 'flips_total',
+                    'bn_bias_worst_over_limit')}}), flush=True)
+            torch.cuda.empty_cache()
+        runs = {s: clis.wait(s) for s in CONFIG_SECTIONS}  # the card free
+        t_jobs = time.perf_counter()
+        for section in CONFIG_SECTIONS:
+            args, cfg, sites, dx = info[section][:4]
+            what = '[{}]'.format(section)
+            run = runs[section]
+            if run['rc'] != 0:
+                with open(os.path.join(WORK, 'config_{}.log'.format(
+                        section))) as f:
+                    raise AssertionError('{} train CLI exited {}:\n{}'.format(
+                        what, run['rc'], f.read()[-4000:]))
+            jobs = os.path.join(root, section)
+            (job_dir,) = _job_dirs(jobs)
+            scored = site_launches(info[section][4])
+            want, combine = _section_want(cfg, len(sites), len(dx), scored)
+            t0 = time.perf_counter()
+            job = load_job(job_dir)
+            if (job.trained != 1 or job.state.step != CONFIG_BATCHES
+                    or job.model_cfg.architecture != cfg.architecture):
+                raise AssertionError('{}: {} epochs, {} steps'.format(
+                    what, job.trained, job.state.step))
+            hist = job.train_history[1]
+            for part in ('train_loss', 'test_loss') + (
+                    ('validation_loss',) if args.validation else ()):
+                if not np.all(np.isfinite(list(hist[part].values()))):
+                    raise AssertionError('{} {}: {}'.format(what, part,
+                                                            hist[part]))
+            again = os.path.join(WORK, 'config_saved', section)
+            shutil.rmtree(again, ignore_errors=True)
+            save_job(job, again)
+            if not _same_jobs(job, load_job(again)):
+                raise AssertionError(what + ': save and load differ')
+            row = rows[section]
+            row.update({
+                'cli_seconds': run['seconds'],
+                'sites_by_route': {r: sum(
+                    s['kernel']['kernel'] == r for s in row['sites']
+                    if s['path'] == 'serve') for r in {
+                        s['kernel']['kernel'] for s in row['sites']}},
+                'combine_per_batch': combine,
+                'serve': section_serve(job, job_dir, args, want, what),
+                'ood': section_ood(job, args, want, what)})
+            del job
+            torch.cuda.empty_cache()
+            # the timed steps move the weights: on a job of their own
+            row['steps'] = section_steps(load_job(job_dir), args, want, what)
+            torch.cuda.empty_cache()
+            launches[section] = {'steps': row['steps']['launches'],
+                                 'serve': row['serve']['launches'],
+                                 'ood': row['ood']['launches']}
+            if section == CONFIG_WIM_SECTION:
+                row['wim'] = section_wim(card, jobs, job_dir, args)
+                launches[section]['wim_ft'] = row['wim']['launches']
+            row['card'] = card
+            row['job_seconds'] = time.perf_counter() - t0
+            print('config', json.dumps({section: row}), flush=True)
+    finally:
+        clis.stop()
+    line = {'sections': list(CONFIG_SECTIONS),
+            'seconds': time.perf_counter() - t_phase,
+            'gates_and_clis_seconds': t_jobs - t_phase,
+            'summary': {s: {
+                'params': r['params'], 'sites_by_route': r['sites_by_route'],
+                'launches_per_batch': r['serve']['per_batch'],
+                'launches_per_step': {
+                    'same_grid_conv': len(info[s][2]),
+                    'same_grid_conv_dx': len(info[s][3])},
+                'cli_seconds': r['cli_seconds'],
+                'job_seconds': r['job_seconds'],
+                'step_ms': r['steps']['ms_per_step'],
+                'serve_images_per_s': r['serve']['images_per_s'],
+                'ood_images_per_s': r['ood']['ood_images_per_s'],
+                'gate_grad_worst': r['gate']['grad_worst'],
+                'gate_loss_worst_rel_err': r['gate']['loss_worst_rel_err'],
+                'card_vs_cpu_worst': {
+                    k: max(v['worst'].values())
+                    for k, v in r['serve']['card_vs_cpu'].items()}}
+                for s, r in rows.items()},
+            'card': card}
+    print('configs', json.dumps(line), flush=True)
+    return launches, line
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -7672,6 +8459,7 @@ def main():
         '16 score_graphs', score_graphs_phase, card)
     im64_launches, im64_line = timed('17 imagenet64', imagenet64_phase, card)
     jit_launches, jit_line = timed('18 jit_graphs', jit_graphs_phase, card)
+    config_launches, config_line = timed('19 configs', configs_phase, card)
     phase_s['total'] = time.perf_counter() - t_start
     print('phases', json.dumps({k: round(v, 2) for k, v in phase_s.items()}),
           flush=True)
@@ -7707,6 +8495,7 @@ def main():
                                                   'same_grid_conv'),
          'launches_jit_graphs': {k: c['same_grid_conv']
                                  for k, c in jit_launches.items()},
+         'launches_configs': _config_launch_keys(config_launches, 'same_grid_conv'),
          'imagenet64': {g: im64_line['kernels'][g]
                         for g in ('serve', 'train_forward')},
          'max_abs_err': max(conv['max_abs_err'], dxt['fwd_max_abs_err'],
@@ -7768,6 +8557,7 @@ def main():
                                                   'same_grid_conv_dx'),
          'launches_jit_graphs': {k: c['same_grid_conv_dx']
                                  for k, c in jit_launches.items()},
+         'launches_configs': _config_launch_keys(config_launches, 'same_grid_conv_dx'),
          'imagenet64': {'train_dx': im64_line['kernels']['train_dx']},
          'max_abs_err': max([dxt['max_abs_err']] + list(
              odin_conv_0['max_abs_err'].values())),
@@ -7831,6 +8621,7 @@ def main():
                                                   'iws_combine'),
          'launches_jit_graphs': {k: c['iws_combine']
                                  for k, c in jit_launches.items()},
+         'launches_configs': _config_launch_keys(config_launches, 'iws_combine'),
          'max_abs_err': max(r['max_abs_err'] for r in iws_rows),
          'ms': iws['ms'], 'kernel_ms': iws['ms'], 'call_ms': iws['call_ms'],
          'plain_ms': iws['plain_ms'], 'bound_ms': iws['bound_ms'],
@@ -7850,6 +8641,7 @@ def main():
                       'export': export_line, 'evidence': evidence_line,
                       'graphs': graphs_line, 'score_graphs': score_line,
                       'imagenet64': im64_line, 'jit_graphs': jit_line,
+                      'configs': config_line,
                       'library_conv_grads': library_rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -7858,9 +8650,10 @@ def main():
 
 def phase_only(phase):
     """``--mesh`` / ``--graphs`` / ``--score-graphs`` / ``--imagenet64`` /
-    ``--jit-graphs``: build the kernels and run phase 12, 15, 16, 17 or
-    18 alone (its ``mesh_*``, ``graphs``, ``score_graphs``,
-    ``imagenet64`` or ``jit_graphs`` lines)."""
+    ``--jit-graphs`` / ``--configs``: build the kernels and run phase 12,
+    15, 16, 17, 18 or 19 alone (its ``mesh_*``, ``graphs``,
+    ``score_graphs``, ``imagenet64``, ``jit_graphs`` or ``config(s)``
+    lines)."""
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
     from joint_vae_tpu_torch.device import set_float32_math
@@ -7888,5 +8681,7 @@ if __name__ == '__main__':
         phase_only(imagenet64_phase)
     elif sys.argv[1:] == ['--jit-graphs']:
         phase_only(jit_graphs_phase)
+    elif sys.argv[1:] == ['--configs']:
+        phase_only(configs_phase)
     else:
         main()

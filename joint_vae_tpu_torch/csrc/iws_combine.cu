@@ -10,7 +10,7 @@
 // and out[c,n] reduces over l with an online (max, sum): log-mean-exp, or
 // with ref_mode the reference's published mean-exp + max (no log).
 // z (L,N,K), log_pxq (L,N), mean (C,K), s2 (C,), log_det_prior (C,) and
-// out (C,N) are float32, contiguous; any L, N, C >= 1 and 1 <= K <= 352.
+// out (C,N) are float32, contiguous; any L, N, C, K >= 1.
 //
 // What bounds it on this card: the CUDA cores.  The squared distance is
 // summed directly as (z - m)^2, a subtraction and an FMA per (l,c,n,k), so
@@ -52,6 +52,21 @@
 // costs a warp 24 passes of the SM's shared-memory pipe against 64 math
 // instructions on its quarter of the SM: about 1.5 times the math.
 // Larger register tiles (4 x 3, 4 x 4) ran slower at 128 registers.
+//
+// Large K (K > 352, where the resident means and the z slabs no longer fit
+// in shared memory): the streamed kernel keeps the same tile, threads and
+// sums, and streams k in chunks of KC = 128 through a double-buffered
+// stage that holds the block's 32 class rows and each group's 16 z rows
+// of one chunk.  The four groups walk their own l in step, one chunk at a
+// time, behind one block barrier a chunk; each (l, class, input) distance
+// stays in the thread's registers across the chunks, and the online
+// (max, sum) update runs once the last chunk of its l is summed.  The
+// chunks are multiples of 16 k, so the sum runs in the same chunks of 16
+// added in the same order as in the resident kernel.  Streaming the means
+// (rather than keeping them resident with fewer classes a block) keeps
+// every K on one shared-memory size (about 99 KiB, two blocks an SM); the
+// means are read once per l step and chunk from L2, C K floats, against
+// the group's NT K floats of z.
 
 #include <climits>
 #include <cstdint>
@@ -74,6 +89,9 @@ constexpr int MAX_SPLITS = 16;            // cluster blocks, non-portable > 8
 constexpr int SMEM_LIMIT = 232448;        // bytes a block may use
 constexpr float LOG_2PI = 1.8378770664093453f;
 constexpr float NEG = -1e30f;             // running max before any l
+constexpr int KC = 128;                   // k per chunk of the streamed kernel
+constexpr int KCP = KC + 4;               // its row stride: 33 float4s (odd)
+constexpr int STAGE = (CT + GROUPS * NT) * KCP;  // floats of one stage
 
 // float4s of a row that the sum reads: K rounded up to 16, zero-padded
 __host__ __device__ inline int row_quads(int K) { return 4 * ((K + 15) >> 4); }
@@ -89,6 +107,24 @@ inline size_t smem_bytes(int K) {
   const size_t slabs = (size_t)GROUPS * 2 * NT * kp;
   const size_t merge = (size_t)(2 * GROUPS + 2) * TILE;
   return sizeof(float) * (CT * kp + (slabs > merge ? slabs : merge));
+}
+
+// the streamed kernel's: two stages (later reused for the merge)
+inline size_t smem_bytes_streamed() {
+  const size_t stages = 2 * (size_t)STAGE;
+  const size_t merge = (size_t)(2 * GROUPS + 2) * TILE;
+  return sizeof(float) * (stages > merge ? stages : merge);
+}
+
+// the resident kernel where its means and slabs fit, else the streamed one
+// (built with IWS_ALWAYS_STREAMED, the streamed one at every K, to time
+// the two at one shape: scripts/time_torch_iws.py --streamed)
+inline bool streamed(int K) {
+#ifdef IWS_ALWAYS_STREAMED
+  return true;
+#else
+  return smem_bytes(K) > (size_t)SMEM_LIMIT;
+#endif
 }
 
 __device__ inline void cp_async(float* dst, const float* src, bool valid,
@@ -140,10 +176,143 @@ __device__ inline void stage_rows(float* dst, const float* src, int r0,
   }
 }
 
+// d2 += the squared distances (z - m)^2 of the thread's TC classes and TN
+// inputs over float4s [0, nq) of their shared rows (z rows `zs` float4s
+// apart, means rows `ms` apart), summed in chunks of 16 k added to the
+// total: the rounding of chains of 16 and of K/16 terms rather than of
+// one chain of K
+__device__ __forceinline__ void add_distances(float (&d2)[TC][TN],
+                                              const float4* zrow, int zs,
+                                              const float4* mrow, int ms,
+                                              int nq) {
+  for (int q0 = 0; q0 < nq; q0 += 4) {
+    float acc[TC][TN];
+#pragma unroll
+    for (int j = 0; j < TC; ++j)
+#pragma unroll
+      for (int i = 0; i < TN; ++i) acc[j][i] = 0.f;
+#pragma unroll
+    for (int q = q0; q < q0 + 4; ++q) {
+      float4 zv[TN], mv[TC];
+#pragma unroll
+      for (int i = 0; i < TN; ++i) zv[i] = zrow[8 * i * zs + q];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) mv[j] = mrow[j * ms + q];
+#pragma unroll
+      for (int j = 0; j < TC; ++j)
+#pragma unroll
+        for (int i = 0; i < TN; ++i) {
+          float d = zv[i].x - mv[j].x;
+          acc[j][i] = fmaf(d, d, acc[j][i]);
+          d = zv[i].y - mv[j].y;
+          acc[j][i] = fmaf(d, d, acc[j][i]);
+          d = zv[i].z - mv[j].z;
+          acc[j][i] = fmaf(d, d, acc[j][i]);
+          d = zv[i].w - mv[j].w;
+          acc[j][i] = fmaf(d, d, acc[j][i]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < TC; ++j)
+#pragma unroll
+      for (int i = 0; i < TN; ++i) d2[j][i] += acc[j][i];
+  }
+}
+
+// log_pxq[l, n] of the thread's TN inputs (0 past N)
+__device__ __forceinline__ void load_lp(float (&lpv)[TN],
+                                        const float* __restrict__ lp, int l,
+                                        int N, int n0, int tn) {
+#pragma unroll
+  for (int i = 0; i < TN; ++i) {
+    const int n = n0 + tn + 8 * i;
+    lpv[i] = n < N ? __ldg(lp + (long long)l * N + n) : 0.f;
+  }
+}
+
+// the online (max, sum) update with one l's log weights
+// w = log_pxq + const_c - 0.5 s2_c d2
+__device__ __forceinline__ void online_update(float (&rm)[TC][TN],
+                                              float (&rs)[TC][TN],
+                                              const float (&d2)[TC][TN],
+                                              const float (&lpv)[TN],
+                                              const float (&cst)[TC],
+                                              const float (&s2c)[TC]) {
+#pragma unroll
+  for (int j = 0; j < TC; ++j)
+#pragma unroll
+    for (int i = 0; i < TN; ++i) {
+      const float w = lpv[i] + cst[j] - 0.5f * s2c[j] * d2[j][i];
+      const float e = expf(-fabsf(w - rm[j][i]));
+      const bool up = w > rm[j][i];
+      rs[j][i] = up ? fmaf(rs[j][i], e, 1.f) : rs[j][i] + e;
+      rm[j][i] = up ? w : rm[j][i];
+    }
+}
+
 __device__ inline void merge(float& m, float& s, float m2, float s2) {
   const float M = fmaxf(m, m2);
   s = s * expf(m - M) + s2 * expf(m2 - M);
   m = M;
+}
+
+// Merge the groups' (max, sum) of the block's tile in shared memory
+// (`region`, free once every group's last stage is read), then the
+// cluster's blocks, and write out[c, n]
+__device__ __forceinline__ void finish(float* region, const float (&rm)[TC][TN],
+                                       const float (&rs)[TC][TN],
+                                       float* __restrict__ out, int L, int N,
+                                       int C, int n0, int c0, int tid, int g,
+                                       int tn, int tc, int ref_mode) {
+  const int S = gridDim.z;
+  float* pm = region;                     // [GROUPS][TILE]
+  float* ps = pm + GROUPS * TILE;
+  float* bm = ps + GROUPS * TILE;         // [TILE], read by the cluster
+  float* bs = bm + TILE;
+#pragma unroll
+  for (int j = 0; j < TC; ++j)
+#pragma unroll
+    for (int i = 0; i < TN; ++i) {
+      const int e = (TC * tc + j) * NT + tn + 8 * i;
+      pm[g * TILE + e] = rm[j][i];
+      ps[g * TILE + e] = rs[j][i];
+    }
+  __syncthreads();
+  for (int e = tid; e < TILE; e += THREADS) {
+    float m = pm[e], s = ps[e];
+    for (int h = 1; h < GROUPS; ++h)
+      merge(m, s, pm[h * TILE + e], ps[h * TILE + e]);
+    bm[e] = m;
+    bs[e] = s;
+  }
+  // each block of the cluster finishes a slice of the tile from every
+  // block's partial, its S remote loads issued together
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int slice = (TILE + S - 1) / S;
+  const int e_end = min(TILE, ((int)cluster.block_rank() + 1) * slice);
+  for (int e = cluster.block_rank() * slice + tid; e < e_end; e += THREADS) {
+    float pmr[MAX_SPLITS], psr[MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      if (r < S) {
+        pmr[r] = cluster.map_shared_rank(bm, r)[e];
+        psr[r] = cluster.map_shared_rank(bs, r)[e];
+      }
+    float m = pmr[0], s = 0.f;
+#pragma unroll
+    for (int r = 1; r < MAX_SPLITS; ++r)
+      if (r < S) m = fmaxf(m, pmr[r]);
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      if (r < S) s += psr[r] * expf(pmr[r] - m);
+    const int c = c0 + e / NT, n = n0 + e % NT;
+    if (c < C && n < N) {
+      const float me = s / (float)L;
+      out[(long long)c * N + n] = ref_mode ? me + m : logf(me) + m;
+    }
+  }
+  cluster.sync();                         // peers' shared memory stays live
 }
 
 template <bool VEC>
@@ -207,122 +376,167 @@ iws_combine_kernel(const float* __restrict__ z, const float* __restrict__ lp,
                       n0, NT, N, K, kp, gt, GT);
     cp_async_commit();
     float lpv[TN];
-#pragma unroll
-    for (int i = 0; i < TN; ++i) {
-      const int n = n0 + tn + 8 * i;
-      lpv[i] = n < N ? __ldg(lp + (long long)l * N + n) : 0.f;
-    }
+    load_lp(lpv, lp, l, N, n0, tn);
     cp_async_wait<1>();                   // this step's slab
     group_sync(g);
 
     const float4* zrow = reinterpret_cast<const float4*>(
         slabs + b * NT * kp + tn * kp);
-    // a running sum per 16 k, added to the total: the rounding of chains
-    // of 16 and of K/16 terms rather than of one chain of K
     float d2[TC][TN];
 #pragma unroll
     for (int j = 0; j < TC; ++j)
 #pragma unroll
       for (int i = 0; i < TN; ++i) d2[j][i] = 0.f;
-    for (int q0 = 0; q0 < kq_busy; q0 += 4) {
-      float acc[TC][TN];
-#pragma unroll
-      for (int j = 0; j < TC; ++j)
-#pragma unroll
-        for (int i = 0; i < TN; ++i) acc[j][i] = 0.f;
-#pragma unroll
-      for (int q = q0; q < q0 + 4; ++q) {
-        float4 zv[TN], mv[TC];
-#pragma unroll
-        for (int i = 0; i < TN; ++i) zv[i] = zrow[8 * i * kp4 + q];
-#pragma unroll
-        for (int j = 0; j < TC; ++j) mv[j] = mrow[j * kp4 + q];
-#pragma unroll
-        for (int j = 0; j < TC; ++j)
-#pragma unroll
-          for (int i = 0; i < TN; ++i) {
-            float d = zv[i].x - mv[j].x;
-            acc[j][i] = fmaf(d, d, acc[j][i]);
-            d = zv[i].y - mv[j].y;
-            acc[j][i] = fmaf(d, d, acc[j][i]);
-            d = zv[i].z - mv[j].z;
-            acc[j][i] = fmaf(d, d, acc[j][i]);
-            d = zv[i].w - mv[j].w;
-            acc[j][i] = fmaf(d, d, acc[j][i]);
-          }
-      }
-#pragma unroll
-      for (int j = 0; j < TC; ++j)
-#pragma unroll
-        for (int i = 0; i < TN; ++i) d2[j][i] += acc[j][i];
-    }
-#pragma unroll
-    for (int j = 0; j < TC; ++j)
-#pragma unroll
-      for (int i = 0; i < TN; ++i) {
-        const float w = lpv[i] + cst[j] - 0.5f * s2c[j] * d2[j][i];
-        const float e = expf(-fabsf(w - rm[j][i]));
-        const bool up = w > rm[j][i];
-        rs[j][i] = up ? fmaf(rs[j][i], e, 1.f) : rs[j][i] + e;
-        rm[j][i] = up ? w : rm[j][i];
-      }
+    add_distances(d2, zrow, kp4, mrow, kp4, kq_busy);
+    online_update(rm, rs, d2, lpv, cst, s2c);
     group_sync(g);                        // slab b is free for step + 2
   }
   cp_async_wait<0>();
-
-  // merge the groups, then the cluster's blocks
   __syncthreads();
-  float* pm = region;                     // [GROUPS][TILE]
-  float* ps = pm + GROUPS * TILE;
-  float* bm = ps + GROUPS * TILE;         // [TILE], read by the cluster
-  float* bs = bm + TILE;
-#pragma unroll
-  for (int j = 0; j < TC; ++j)
-#pragma unroll
-    for (int i = 0; i < TN; ++i) {
-      const int e = (TC * tc + j) * NT + tn + 8 * i;
-      pm[g * TILE + e] = rm[j][i];
-      ps[g * TILE + e] = rs[j][i];
-    }
-  __syncthreads();
-  for (int e = tid; e < TILE; e += THREADS) {
-    float m = pm[e], s = ps[e];
-    for (int h = 1; h < GROUPS; ++h)
-      merge(m, s, pm[h * TILE + e], ps[h * TILE + e]);
-    bm[e] = m;
-    bs[e] = s;
-  }
-  // each block of the cluster finishes a slice of the tile from every
-  // block's partial, its S remote loads issued together
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int slice = (TILE + S - 1) / S;
-  const int e_end = min(TILE, ((int)cluster.block_rank() + 1) * slice);
-  for (int e = cluster.block_rank() * slice + tid; e < e_end; e += THREADS) {
-    float pmr[MAX_SPLITS], psr[MAX_SPLITS];
-#pragma unroll
-    for (int r = 0; r < MAX_SPLITS; ++r)
-      if (r < S) {
-        pmr[r] = cluster.map_shared_rank(bm, r)[e];
-        psr[r] = cluster.map_shared_rank(bs, r)[e];
-      }
-    float m = pmr[0], s = 0.f;
-#pragma unroll
-    for (int r = 1; r < MAX_SPLITS; ++r)
-      if (r < S) m = fmaxf(m, pmr[r]);
-#pragma unroll
-    for (int r = 0; r < MAX_SPLITS; ++r)
-      if (r < S) s += psr[r] * expf(pmr[r] - m);
-    const int c = c0 + e / NT, n = n0 + e % NT;
-    if (c < C && n < N) {
-      const float me = s / (float)L;
-      out[(long long)c * N + n] = ref_mode ? me + m : logf(me) + m;
-    }
-  }
-  cluster.sync();                         // peers' shared memory stays live
+  finish(region, rm, rs, out, L, N, C, n0, c0, tid, g, tn, tc, ref_mode);
 }
 
-// What a launch at one K can count on (cached per device, K and route):
+// chunk [k0, k0 + width) of rows [0, rows) of a (rows_total, K) matrix
+// from row r0 into shared rows of KCP floats, by `nthreads` threads
+// starting at `t`; rows past `rows_total` and columns past K are
+// zero-filled (width a multiple of 16)
+template <bool VEC>
+__device__ inline void stage_chunk(float* dst, const float* src, int r0,
+                                   int rows, int rows_total, int K, int k0,
+                                   int width, int t, int nthreads) {
+  const int per_row = VEC ? width / 4 : width;   // copies per row
+  const int w = VEC ? 4 : 1;
+  int r = t / per_row, q = t - r * per_row;
+  const int dr = nthreads / per_row, dq = nthreads - dr * per_row;
+  while (r < rows) {
+    const int k = k0 + q * w;
+    const bool valid = r0 + r < rows_total && k < K;
+    const float* s = valid ? src + (long long)(r0 + r) * K + k : src;
+    cp_async(dst + r * KCP + q * w, s, valid, 4 * w);
+    q += dq;
+    r += dr;
+    if (q >= per_row) {
+      q -= per_row;
+      ++r;
+    }
+  }
+}
+
+// item t's stage of the streamed kernel: the means' chunk by the block,
+// each group's z chunk of its own l by the group
+template <bool VEC>
+__device__ inline void stage_item(float* smem, const float* z,
+                                  const float* mean, int t, int nch, int kq,
+                                  int l0, int lstep, int L, int N, int K,
+                                  int C, int n0, int c0, int tid, int g,
+                                  int gt) {
+  constexpr int KCQ = KC / 4;
+  float* buf = smem + (t & 1) * STAGE;
+  const int step = t / nch, ch = t - step * nch;
+  const int width = 4 * min(KCQ, kq - ch * KCQ);
+  stage_chunk<VEC>(buf, mean, c0, CT, C, K, ch * KC, width, tid, THREADS);
+  const int l = l0 + step * lstep;
+  if (l < L)
+    stage_chunk<VEC>(buf + (CT + g * NT) * KCP, z + (long long)l * N * K, n0,
+                     NT, N, K, ch * KC, width, gt, GT);
+}
+
+// The streamed kernel (any K; the planner takes it where the resident
+// one's shared memory would not fit).  Item t of a block is (l step
+// t / nch, chunk t % nch); every group stages and sums its own l's chunk
+// of the item, the means' chunk shared by all.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+iws_combine_streamed_kernel(const float* __restrict__ z,
+                            const float* __restrict__ lp,
+                            const float* __restrict__ mean,
+                            const float* __restrict__ s2,
+                            const float* __restrict__ ldp,
+                            float* __restrict__ out, int L, int N, int K,
+                            int C, int ref_mode) {
+  extern __shared__ __align__(16) float smem[];
+  const int n0 = blockIdx.x * NT;
+  const int c0 = blockIdx.y * CT;
+  const int S = gridDim.z;
+  const int tid = threadIdx.x;
+  const int g = tid / GT;
+  const int gt = tid % GT;
+  const int tn = gt & 7;                  // inputs tn + 8 i
+  const int tc = gt >> 3;                 // classes TC tc + j
+  const int kq = row_quads(K);
+  constexpr int KCQ = KC / 4;             // float4s a chunk
+  const int nch = (kq + KCQ - 1) / KCQ;
+  const bool busy = c0 + TC * (tc & ~3) < C;
+  const int lstep = S * GROUPS;
+  const int l0 = blockIdx.z * GROUPS + g;   // this group's first l
+  const int steps = (L - blockIdx.z * GROUPS + lstep - 1) / lstep;
+  const int items = steps * nch;
+
+  float cst[TC], s2c[TC], rm[TC][TN], rs[TC][TN], d2[TC][TN];
+#pragma unroll
+  for (int j = 0; j < TC; ++j) {
+    const int c = c0 + TC * tc + j;
+    const bool valid = c < C;
+    s2c[j] = valid ? s2[c] : 0.f;
+    cst[j] = valid ? -0.5f * K * LOG_2PI - 0.5f * ldp[c] : 0.f;
+#pragma unroll
+    for (int i = 0; i < TN; ++i) {
+      rm[j][i] = NEG;
+      rs[j][i] = 0.f;
+      d2[j][i] = 0.f;
+    }
+  }
+  stage_item<VEC>(smem, z, mean, 0, nch, kq, l0, lstep, L, N, K, C, n0, c0,
+                  tid, g, gt);
+  cp_async_commit();
+  for (int t = 0; t < items; ++t) {
+    if (t + 1 < items)
+      stage_item<VEC>(smem, z, mean, t + 1, nch, kq, l0, lstep, L, N, K, C,
+                      n0, c0, tid, g, gt);
+    cp_async_commit();
+    cp_async_wait<1>();                   // item t's stage
+    __syncthreads();
+    const int step = t / nch, ch = t - step * nch;
+    const int l = l0 + step * lstep;
+    const float* buf = smem + (t & 1) * STAGE;
+    if (busy && l < L) {
+      const float4* mrow =
+          reinterpret_cast<const float4*>(buf + TC * tc * KCP);
+      const float4* zrow = reinterpret_cast<const float4*>(
+          buf + (CT + g * NT + tn) * KCP);
+      add_distances(d2, zrow, KCP / 4, mrow, KCP / 4,
+                    min(KCQ, kq - ch * KCQ));
+    }
+    if (ch == nch - 1) {                  // l's distances are whole
+      if (l < L) {
+        float lpv[TN];
+        load_lp(lpv, lp, l, N, n0, tn);
+        online_update(rm, rs, d2, lpv, cst, s2c);
+      }
+#pragma unroll
+      for (int j = 0; j < TC; ++j)
+#pragma unroll
+        for (int i = 0; i < TN; ++i) d2[j][i] = 0.f;
+    }
+    __syncthreads();                      // stage t & 1 is free for t + 2
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  finish(smem, rm, rs, out, L, N, C, n0, c0, tid, g, tn, tc, ref_mode);
+}
+
+using Kernel = void (*)(const float*, const float*, const float*,
+                       const float*, const float*, float*, int, int, int, int,
+                       int);
+
+Kernel kernel_for(int K, bool vec) {
+  if (streamed(K))
+    return vec ? iws_combine_streamed_kernel<true>
+               : iws_combine_streamed_kernel<false>;
+  return vec ? iws_combine_kernel<true> : iws_combine_kernel<false>;
+}
+
+// What a launch at one K can count on (cached per device, K and copy width):
 // the SM count, blocks per SM, and how many clusters of each split the
 // card holds at once
 struct Occupancy {
@@ -343,8 +557,8 @@ cudaError_t occupancy(int K, bool vec, const Occupancy** out) {
   if (o.K == K) return cudaSuccess;
   e = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const size_t smem = smem_bytes(K);
-  auto kernel = vec ? iws_combine_kernel<true> : iws_combine_kernel<false>;
+  const size_t smem = streamed(K) ? smem_bytes_streamed() : smem_bytes(K);
+  const Kernel kernel = kernel_for(K, vec);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e == cudaSuccess)
@@ -405,8 +619,7 @@ int choose_splits(int L, int tiles, const Occupancy& o) {
 cudaError_t plan(int L, int N, int K, int C, bool vec, dim3* grid,
                  size_t* smem) {
   if (L <= 0 || N <= 0 || K <= 0 || C <= 0) return cudaErrorInvalidValue;
-  *smem = smem_bytes(K);
-  if (*smem > (size_t)SMEM_LIMIT) return cudaErrorInvalidValue;
+  *smem = streamed(K) ? smem_bytes_streamed() : smem_bytes(K);
   const long long ntiles = (N + NT - 1) / NT, ctiles = (C + CT - 1) / CT;
   if (ntiles > INT_MAX || ctiles > 65535) return cudaErrorInvalidValue;
   const Occupancy* o = nullptr;
@@ -461,10 +674,8 @@ int iws_combine_f32(const void* z, const void* lp, const void* mean,
   const float* s2f = static_cast<const float*>(s2);
   const float* ldpf = static_cast<const float*>(ldp);
   float* of = static_cast<float*>(out);
-  e = vec ? cudaLaunchKernelEx(&cfg, iws_combine_kernel<true>, zf, lpf, mf,
-                               s2f, ldpf, of, L, N, K, C, ref_mode)
-          : cudaLaunchKernelEx(&cfg, iws_combine_kernel<false>, zf, lpf, mf,
-                               s2f, ldpf, of, L, N, K, C, ref_mode);
+  e = cudaLaunchKernelEx(&cfg, kernel_for(K, vec), zf, lpf, mf, s2f, ldpf,
+                         of, L, N, K, C, ref_mode);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

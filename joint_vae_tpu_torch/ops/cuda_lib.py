@@ -50,7 +50,7 @@ SIGNATURES = {
 KERNEL_FUNCTIONS = {
     'same_grid_conv': ('tc_conv_kernel', 'mma_conv_kernel',
                        'head_conv_kernel'),
-    'iws_combine': ('iws_combine_kernel',),
+    'iws_combine': ('iws_combine_kernel', 'iws_combine_streamed_kernel'),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -241,9 +241,16 @@ def prior_kl(cfg: PriorConfig, params: Params, mu: torch.Tensor,
 
 
 def _gaussian_kl(cfg, params, mu, log_var, y, var_weighting, all_classes):
+    # var_kl = trace - log det + log det prior - K is a difference of sums
+    # of K terms near 1: summed in float32, their rounding (an ulp of K,
+    # 1.22e-4 at K=1024) would be most of it and differ between devices,
+    # so the sums run in float64 and var_kl is rounded once
+    dt = log_var.dtype
+    log_var = log_var.double()
     var = torch.exp(log_var)
-    inv_var_diag = _prior_inv_var_diag(cfg, params['var_param'])
-    ldp = log_det_per_class(cfg, params['var_param'])
+    var_param = params['var_param'].double()
+    inv_var_diag = _prior_inv_var_diag(cfg, var_param)
+    ldp = log_det_per_class(cfg, var_param)
     P, K = cfg.num_priors, cfg.dim
 
     if cfg.conditional:
@@ -270,9 +277,10 @@ def _gaussian_kl(cfg, params, mu, log_var, y, var_weighting, all_classes):
         log_det_prior = ldp.expand(log_det.shape)
 
     distance = _mahala(cfg, params, mu, y, all_classes)
-    var_kl = trace - log_det + log_det_prior - K
+    var_kl = (trace - log_det + log_det_prior - K).to(dt)
     kl = 0.5 * (distance + var_weighting * var_kl)
-    return {'trace': trace, 'log_det': log_det, 'log_det_prior': log_det_prior,
+    return {'trace': trace.to(dt), 'log_det': log_det.to(dt),
+            'log_det_prior': log_det_prior.to(dt),
             'distance': distance, 'var_kl': var_kl, 'kl': kl}
 
 

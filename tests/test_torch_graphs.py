@@ -392,6 +392,9 @@ def test_kernel_sources_by_function_name():
     assert cuda_lib.source_of('_Z16head_conv_kernelILi3ELi8EEvPKfS1_Pf5HGeom'
                               ) == 'same_grid_conv'
     assert cuda_lib.source_of('_Z18iws_combine_kernelPKfS0_') == 'iws_combine'
+    assert cuda_lib.source_of('_ZN12_GLOBAL__N_127iws_combine_streamed_'
+                              'kernelILb1EEEvPKfS2_S2_S2_S2_Pfiiiii') == \
+        'iws_combine'
     for other in ('void at::native::vectorized_elementwise_kernel<4>()',
                   'sm90_xmma_fprop_implicit_gemm', 'ampere_sgemm_128x64_nn'):
         assert cuda_lib.source_of(other) is None

@@ -235,8 +235,13 @@ def test_subpixel_layer_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('ref_mode', [True, False])
-@pytest.mark.parametrize('shape', [(16, 512, 128, 100), (3, 137, 16, 37)])
+@pytest.mark.parametrize('shape', [(16, 512, 128, 100), (3, 137, 16, 37),
+                                   (16, 137, 353, 37), (16, 512, 512, 100),
+                                   (128, 512, 1024, 10), (128, 64, 1025, 10)])
 def test_iws_kernel_on_card(shape, ref_mode, cuda_device):
+    """One launch at each shape, K > 352 on the streamed kernel: K=353 the
+    first K the resident one cannot hold (the 4-byte copies), 512 and 1024
+    the named sections [fashion] and [fashion-vgg16] at their test L=128."""
     L, N, K, C = shape
     args = tuple(torch.from_numpy(a).to(cuda_device)
                  for a in iws_inputs(L, N, C, K))
@@ -311,8 +316,7 @@ def test_iws_kernel_splits_and_unaligned_rows(cuda_device):
 @pytest.mark.cuda
 def test_iws_wrapper_refuses_on_card(cuda_device):
     """What the kernel does not take raises, and nothing is counted: the
-    wrapper refuses types, layouts and devices, the kernel's planner a K
-    whose means and z slabs overflow shared memory (K > 352)."""
+    wrapper refuses types, layouts and devices."""
     def args(L=2, N=5, C=3, K=4, **kw):
         a = dict(z=torch.zeros(L, N, K), log_pxq=torch.zeros(L, N),
                  mean=torch.zeros(C, K), s2=torch.ones(C),
@@ -323,7 +327,6 @@ def test_iws_wrapper_refuses_on_card(cuda_device):
     before = iws_combine.launches
     bad = [args(z=torch.zeros(2, 5, 4, device=cuda_device, dtype=torch.float64)),
            args(z=torch.zeros(2, 4, 5, device=cuda_device).transpose(1, 2)),
-           args(K=353),
            args(s2=torch.ones(3))]                     # one input on the CPU
     for a in bad:
         with pytest.raises((TypeError, ValueError, RuntimeError)):

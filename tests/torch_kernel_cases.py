@@ -106,6 +106,13 @@ IWS_CASES = [
     dict(L=8, N=33, C=12, K=20, mean_scale=0.1),       # K % 4 != 0
     dict(L=8, N=40, C=1, K=16, mean_scale=0.1),
     dict(L=4, N=24, C=40, K=256, mean_scale=0.1),      # the imagenet64 K
+    # the streamed kernel (K > 352): the first K the resident one cannot
+    # hold (ragged, K % 4 != 0), [fashion]'s and [fashion-vgg16]'s K at the
+    # prior scale 17, one k in the last chunk of 128
+    dict(L=4, N=17, C=5, K=353, mean_scale=0.1),
+    dict(L=8, N=24, C=10, K=512, mean_scale=17.0),
+    dict(L=4, N=16, C=3, K=1024, mean_scale=17.0),
+    dict(L=3, N=17, C=4, K=1025, mean_scale=0.1),
 ]
 
 
